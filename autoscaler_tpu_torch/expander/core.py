@@ -1,0 +1,197 @@
+"""Expander framework: choose which expansion option to act on (the port of
+``autoscaler_tpu/expander/core.py``, random / most-pods / least-waste).
+
+Reference: cluster-autoscaler/expander/expander.go — Option :44, Strategy
+:52, Filter :57; chain composition expander/factory/chain.go:25 (filters
+in order, the final strategy picks one). ``Option.node_group`` is any
+object with ``id()`` (and ``template_node_info()`` for least-waste); the
+port has no cloud-provider layer yet.
+"""
+from __future__ import annotations
+
+import random as _random
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence
+
+from autoscaler_tpu_torch.kube.objects import Pod
+
+RANDOM = "random"
+MOST_PODS = "most-pods"
+LEAST_WASTE = "least-waste"
+# expanders of the JAX package that later slices port
+NOT_PORTED = ("price", "priority", "grpc", "grpc-ref", "preempt-churn")
+
+
+@dataclass
+class Option:
+    """reference expander.go:44."""
+
+    node_group: Any
+    node_count: int
+    pods: List[Pod] = field(default_factory=list)
+    similar_node_groups: List[Any] = field(default_factory=list)
+
+    @property
+    def debug(self) -> str:
+        return f"{self.node_group.id()}(+{self.node_count}, {len(self.pods)} pods)"
+
+
+class Filter:
+    """Narrows the option list; chained before the final strategy.
+    ``name`` labels the filter in the scoring table; ``scores`` exposes the
+    per-option figure ``best_options`` ranks by (None = no scalar score)."""
+
+    def best_options(self, options: List[Option]) -> List[Option]:
+        raise NotImplementedError
+
+    def scores(self, options: List[Option]) -> Optional[List[float]]:
+        return None
+
+    def best_options_from_scores(
+        self, options: List[Option], scores: List[float]
+    ) -> List[Option]:
+        raise NotImplementedError
+
+
+class Strategy:
+    """Picks exactly one option (or None)."""
+
+    def best_option(self, options: List[Option]) -> Optional[Option]:
+        raise NotImplementedError
+
+
+class RandomStrategy(Strategy):
+    """reference expander/random/."""
+
+    def __init__(self, seed: Optional[int] = None):
+        self._rng = _random.Random(seed)
+
+    def best_option(self, options: List[Option]) -> Optional[Option]:
+        return self._rng.choice(options) if options else None
+
+
+class MostPodsFilter(Filter):
+    """reference expander/mostpods/ — maximize pods helped."""
+
+    name = MOST_PODS
+
+    def best_options(self, options: List[Option]) -> List[Option]:
+        if not options:
+            return []
+        return self.best_options_from_scores(options, self.scores(options))
+
+    def scores(self, options: List[Option]) -> Optional[List[float]]:
+        return [float(len(o.pods)) for o in options]
+
+    def best_options_from_scores(self, options, scores):
+        best = max(scores)
+        return [o for s, o in zip(scores, options) if s == best]
+
+
+class LeastWasteFilter(Filter):
+    """reference expander/waste/ — minimize wasted cpu+mem fraction of the
+    added capacity."""
+
+    name = LEAST_WASTE
+
+    def best_options(self, options: List[Option]) -> List[Option]:
+        if not options:
+            return []
+        return self.best_options_from_scores(options, self.scores(options))
+
+    def scores(self, options: List[Option]) -> Optional[List[float]]:
+        return [self._wasted_fraction(o) for o in options]
+
+    def best_options_from_scores(self, options, scores):
+        best = min(scores)
+        return [o for s, o in zip(scores, options) if s <= best + 1e-9]
+
+    @staticmethod
+    def _wasted_fraction(option: Option) -> float:
+        template = option.node_group.template_node_info()
+        cap_cpu = template.allocatable.cpu_m * option.node_count
+        cap_mem = template.allocatable.memory * option.node_count
+        req_cpu = sum(p.requests.cpu_m for p in option.pods)
+        req_mem = sum(p.requests.memory for p in option.pods)
+        wasted = 0.0
+        if cap_cpu > 0:
+            wasted += 1.0 - min(req_cpu / cap_cpu, 1.0)
+        if cap_mem > 0:
+            wasted += 1.0 - min(req_mem / cap_mem, 1.0)
+        return wasted
+
+
+class ChainStrategy(Strategy):
+    """reference expander/factory/chain.go:25 — filters in order, fallback
+    strategy decides among survivors. Every ``best_option`` call rebuilds
+    ``last_table`` (one row per candidate with each scoring filter's figure
+    and, for the losers, the filter that eliminated them) and
+    ``last_winner``/``last_score``."""
+
+    def __init__(self, filters: Sequence[Filter], fallback: Strategy):
+        self.filters = list(filters)
+        self.fallback = fallback
+        self.last_table: List[dict] = []
+        self.last_winner: Optional[str] = None
+        self.last_score: Optional[float] = None
+
+    def best_option(self, options: List[Option]) -> Optional[Option]:
+        rows = {
+            id(o): {
+                "group": o.node_group.id(),
+                "node_count": int(o.node_count),
+                "pods": len(o.pods),
+                "scores": {},
+                "eliminated_by": None,
+            }
+            for o in options
+        }
+        win_scores: Dict[int, float] = {}
+
+        def publish(winner: Optional[Option]) -> Optional[Option]:
+            self.last_table = sorted(rows.values(), key=lambda r: r["group"])
+            self.last_winner = winner.node_group.id() if winner else None
+            self.last_score = win_scores.get(id(winner)) if winner else None
+            return winner
+
+        survivors = list(options)
+        for f in self.filters:
+            fname = getattr(f, "name", None) or type(f).__name__
+            scores = f.scores(survivors) if survivors else None
+            if scores is not None:
+                for o, s in zip(survivors, scores):
+                    rows[id(o)]["scores"][fname] = round(float(s), 6)
+                    win_scores[id(o)] = round(float(s), 6)
+                filtered = f.best_options_from_scores(survivors, scores)
+            else:
+                filtered = f.best_options(survivors)
+            if filtered:
+                kept = {id(o) for o in filtered}
+                for o in survivors:
+                    if id(o) not in kept:
+                        rows[id(o)]["eliminated_by"] = fname
+            if len(filtered) == 1:
+                return publish(filtered[0])
+            if filtered:
+                survivors = filtered
+        return publish(self.fallback.best_option(survivors))
+
+
+def build_strategy(names: Sequence[str], seed: Optional[int] = None) -> Strategy:
+    """Build a chained strategy from expander names, as the reference's
+    expander factory does from the --expander flag (factory/chain.go)."""
+    filters: List[Filter] = []
+    for name in names:
+        if name == RANDOM:
+            break
+        elif name == MOST_PODS:
+            filters.append(MostPodsFilter())
+        elif name == LEAST_WASTE:
+            filters.append(LeastWasteFilter())
+        elif name in NOT_PORTED:
+            raise NotImplementedError(
+                f"expander {name!r} is not ported yet (ROADMAP queue 1)"
+            )
+        else:
+            raise ValueError(f"unknown expander {name!r}")
+    return ChainStrategy(filters, RandomStrategy(seed))
