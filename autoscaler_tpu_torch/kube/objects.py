@@ -4,9 +4,9 @@ reads (resource vectors, pods, nodes, taints, selectors, volumes).
 
 The control plane works on these plain dataclasses; the estimator flattens
 them into dense tensors. Only the fields the estimate reads are modeled.
-The pod-profile interning registry of the reference is not copied: only
-the hard topology-spread rows use it, and those are not ported yet
-(ROADMAP queue 1, slice 3).
+The reference's process-global pod-profile id registry is not copied: the
+mask engine and the term tensors intern ``Pod.profile_key()`` locally,
+per pass.
 """
 from __future__ import annotations
 
@@ -177,8 +177,9 @@ class Affinity:
 @dataclass(frozen=True)
 class TopologySpreadConstraint:
     """PodTopologySpread filter input. Only when_unsatisfiable=
-    "DoNotSchedule" is a hard predicate; the port's estimator routes such
-    pods to the dynamic-affinity slice, which is not ported yet."""
+    "DoNotSchedule" is a hard predicate: the host mask engine applies it
+    against placed pods, and the estimator's dynamic scan against the pods
+    it places itself."""
 
     max_skew: int
     topology_key: str
@@ -277,6 +278,17 @@ class Pod:
 
     def key(self) -> str:
         return f"{self.namespace}/{self.name}"
+
+    def profile_key(self) -> tuple:
+        """(namespace, sorted label items): the identity of a pod's
+        selector verdicts, used by the profile factorization of the mask
+        engine and the term tensors. Memoized on the instance; labels are
+        never mutated after construction."""
+        pk = self.__dict__.get("_profile_key")
+        if pk is None:
+            pk = (self.namespace, tuple(sorted(self.labels.items())))
+            self.__dict__["_profile_key"] = pk
+        return pk
 
 
 @dataclass

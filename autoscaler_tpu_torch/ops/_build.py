@@ -1,12 +1,19 @@
 """Builds and loads the port's CUDA kernels.
 
-The source ``autoscaler_tpu_torch/csrc/ffd_scan.cu`` has a plain C
-interface and is compiled with ``nvcc`` into a shared library, loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds). The build runs
-at first use, into ``build/kernels/`` at the root of the checkout (a
-directory git ignores), under a name keyed by a hash of the source and the
-flags, so a changed source is rebuilt and an unchanged one is reused.
-Nothing here runs at import: the CPU tests import every module.
+Each source ``autoscaler_tpu_torch/csrc/<name>.cu`` has a plain C
+interface and is compiled with ``nvcc`` into a shared library of its own,
+loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
+
+- ``ffd_scan``: the plain FFD scans K1 and K2 (``ops/ffd_scan.py``);
+- ``ffd_scan_affinity``: the affinity and spread scan K3
+  (``ops/ffd_scan_affinity.py``).
+
+A source is built at first use, into ``build/kernels/`` at the root of the
+checkout (a directory git ignores), under a name keyed by a hash of the
+source and the flags, so a changed source is rebuilt and an unchanged one
+is reused. ``build(*names)`` starts one ``nvcc`` for each source that is
+not built yet, all at once, and waits for them. Nothing here runs at
+import: the CPU tests import every module.
 """
 from __future__ import annotations
 
@@ -17,10 +24,10 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ffd_scan.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 NVCC_FLAGS = (
@@ -30,19 +37,29 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
-# ptxas report (registers, shared memory, spills) of the build
-BUILD_LOG: Optional[str] = None
-
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
-# C signatures of the entry points
-SIGNATURES = {
-    "ffd_scan_f32": [_VOID_P] * 6 + [_INT] * 4 + [_VOID_P],
-    "ffd_scan_swar": [_VOID_P] * 7 + [_INT] * 4 + [_VOID_P],
-    "ffd_scan_smem_bytes": [_INT, _INT],
+# C signatures of the entry points, per source
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "ffd_scan": {
+        "ffd_scan_f32": [_VOID_P] * 6 + [_INT] * 4 + [_VOID_P],
+        "ffd_scan_swar": [_VOID_P] * 7 + [_INT] * 4 + [_VOID_P],
+        "ffd_scan_smem_bytes": [_INT, _INT],
+    },
+    "ffd_scan_affinity": {
+        "ffd_scan_aff": [_VOID_P] * 10 + [_INT] * 6 + [_VOID_P],
+        "ffd_scan_aff_smem_bytes": [_INT] * 4,
+    },
 }
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# ptxas report (registers, shared memory, spills) of each source's build
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def source(name: str) -> Path:
+    return CSRC / f"{name}.cu"
 
 
 def _nvcc() -> str:
@@ -58,51 +75,63 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{SOURCE.stem}-{key.hexdigest()[:16]}.so"
+def _lib_path(name: str) -> Path:
+    key = hashlib.sha256(source(name).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the source into its keyed shared library (if not yet built)
-    and return the library's path. The compiler's ptxas report lands in
-    BUILD_LOG and beside the library as ``.log``."""
-    global BUILD_LOG
-    out = _lib_path()
-    log = out.with_suffix(".log")
-    if out.exists():
-        if BUILD_LOG is None and log.exists():
-            BUILD_LOG = log.read_text()
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd: List[str] = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed on {SOURCE.name} (exit {proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
+def build(*names: str) -> Dict[str, Path]:
+    """Compile the named sources (all of them when none is named) into
+    their keyed shared libraries, those not built yet all at once, and
+    return each library's path. Each compiler's ptxas report lands in
+    BUILD_LOGS and beside its library as ``.log``."""
+    names = names or tuple(SIGNATURES)
+    out = {name: _lib_path(name) for name in names}
+    running = []
+    for name, lib in out.items():
+        log = lib.with_suffix(".log")
+        if lib.exists():
+            if name not in BUILD_LOGS and log.exists():
+                BUILD_LOGS[name] = log.read_text()
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd: List[str] = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source(name))]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )
-    report = proc.stdout + proc.stderr
-    log.write_text(report)
-    os.replace(tmp, out)
-    BUILD_LOG = report
+        running.append((name, lib, tmp, proc))
+    failures = []
+    for name, lib, tmp, proc in running:
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        report = stdout + stderr
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{report}")
+            continue
+        lib.with_suffix(".log").write_text(report)
+        os.replace(tmp, lib)
+        BUILD_LOGS[name] = report
+    if failures:
+        raise RuntimeError("\n".join(failures))
     return out
 
 
-def load() -> ctypes.CDLL:
-    """The loaded library, built on first use, with argtypes and restype
-    set for every entry point."""
-    global _LIB
+def load(name: str) -> ctypes.CDLL:
+    """The named source's loaded library, built on first use, with argtypes
+    and restype set for every entry point."""
     with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
+        if name not in _LIBS:
+            lib = ctypes.CDLL(str(build(name)[name]))
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _LIB = lib
-        return _LIB
+            _LIBS[name] = lib
+        return _LIBS[name]
 
 
 def check(err: int, what: str) -> None:

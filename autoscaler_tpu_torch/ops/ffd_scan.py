@@ -355,7 +355,7 @@ def _launch(name, stream, allocs, caps, guards, max_nodes):
     free = torch.empty((G, NP, max_nodes), dtype=stream.dtype, device=dev)
     opened = torch.empty((G,), dtype=torch.int32, device=dev)
     placed = torch.empty((G, P_pad), dtype=torch.uint8, device=dev)
-    lib = _build.load()
+    lib = _build.load("ffd_scan")
     with torch.cuda.device(dev):
         cuda_stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = [stream.data_ptr(), allocs.data_ptr(), caps.data_ptr()]
@@ -371,7 +371,7 @@ def _launch(name, stream, allocs, caps, guards, max_nodes):
 def smem_bytes(planes: int, max_nodes: int) -> int:
     """The dynamic shared memory a kernel launch requests for each group's
     block, as ``csrc/ffd_scan.cu`` computes it for the launch."""
-    return int(_build.load().ffd_scan_smem_bytes(planes, max_nodes))
+    return int(_build.load("ffd_scan").ffd_scan_smem_bytes(planes, max_nodes))
 
 
 def ffd_scan_f32(stream, allocs, caps, max_nodes):

@@ -1,13 +1,189 @@
-"""Routing predicates of ``autoscaler_tpu/snapshot/affinity.py``: which
-pending-pod sets need the dynamic (term-gated) scan. The term and
-spread-context builders, and the dynamic scan itself, come with the
-affinity slice (ROADMAP queue 1, slice 3); until then the port's estimator
-refuses such worlds with NotImplementedError."""
+"""Inter-pod (anti-)affinity and hard topology spread factored into term
+tensors for the estimator's dynamic scan: the port's copy of the parts of
+``autoscaler_tpu/snapshot/affinity.py`` that the scale-up estimate runs.
+
+The reference re-runs the InterPodAffinity and PodTopologySpread filter
+plugins after every simulated placement inside the binpacking loop
+(cluster-autoscaler/estimator/binpacking_estimator.go:119-141). Here the
+dynamic part (pods placed during the current scan constraining later pods)
+is factored once on the host into small dense tensors over the distinct
+required terms, and the scan carries per-term placement state instead of
+re-walking objects: ``ops/ffd_scan_affinity.py`` (the hand-written kernel
+K3) and the torch loops of ``ops/binpack.py``.
+
+Topology model for scale-up template nodes: a ``kubernetes.io/hostname``
+term is node-level (every new template node is its own domain); any other
+topology key is group-level (all new nodes of one node group share the
+template's non-hostname labels). A group whose template lacks the label
+can never satisfy a required affinity term over it, and never violates an
+anti term.
+
+Not here yet: the spread schedule contexts of the hinting and removal
+simulators (``build_spread_schedule_context``,
+``build_spread_context_from_meta``), which come with the
+filter-out-schedulable slice.
+"""
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
-from autoscaler_tpu_torch.kube.objects import Pod
+import numpy as np
+
+from autoscaler_tpu_torch.kube import objects as k8s
+from autoscaler_tpu_torch.kube.objects import (
+    LabelSelector,
+    LabelSelectorRequirement,
+    Node,
+    Pod,
+    PodAffinityTerm,
+)
+from autoscaler_tpu_torch.snapshot.tensors import bucket_size
+
+HOSTNAME_KEY = "kubernetes.io/hostname"
+
+
+@dataclass
+class AffinityTermTensors:
+    """Dense factorization of all required (anti-)affinity terms across a
+    pending-pod set. T = number of distinct terms."""
+
+    match: np.ndarray        # [T, P] bool: term t's selector+namespace matches pod p
+    aff_of: np.ndarray       # [T, P] bool: pod p requires affinity term t
+    anti_of: np.ndarray      # [T, P] bool: pod p requires anti-affinity term t
+    node_level: np.ndarray   # [T] bool: hostname topology (per-node domain)
+    has_label: np.ndarray    # [G, T] bool: group template carries the topology label
+    terms: List[PodAffinityTerm]
+
+    @property
+    def num_terms(self) -> int:
+        """Real (unpadded) term count."""
+        return len(self.terms)
+
+
+def build_affinity_terms(
+    pods: Sequence[Pod],
+    templates: Sequence[Node],
+    pad_pods: int | None = None,
+    bucket_terms: bool = False,
+    volume_components=None,  # precomputed volume_conflict_components(pods);
+                             # None = compute here, () = explicitly none
+) -> AffinityTermTensors:
+    """Collect the distinct required terms over ``pods`` and evaluate their
+    selectors once per (term, pod-label profile). Pending pods that share a
+    conflicting legacy volume add one synthetic hostname-level term per
+    conflict component. ``bucket_terms=True`` pads the term axis to a
+    power-of-two bucket (at least 4) of all-False rows, which constrain
+    nothing."""
+    term_index: Dict[Tuple, int] = {}
+    terms: List[PodAffinityTerm] = []
+    decls: List[Tuple[int, int, bool]] = []  # (pod_idx, term_idx, is_anti)
+
+    def intern(term: PodAffinityTerm, ns: str) -> int:
+        # an empty namespaces tuple means the declaring pod's namespace, so
+        # the same literal term in two namespaces is two constraints
+        namespaces = term.namespaces or (ns,)
+        key = (term.selector, term.topology_key, tuple(sorted(namespaces)))
+        if key not in term_index:
+            term_index[key] = len(terms)
+            terms.append(
+                PodAffinityTerm(
+                    selector=term.selector,
+                    topology_key=term.topology_key,
+                    namespaces=tuple(sorted(namespaces)),
+                )
+            )
+        return term_index[key]
+
+    for i, pod in enumerate(pods):
+        if pod.affinity is None:
+            continue
+        for term in pod.affinity.pod_affinity:
+            decls.append((i, intern(term, pod.namespace), False))
+        for term in pod.affinity.pod_anti_affinity:
+            decls.append((i, intern(term, pod.namespace), True))
+
+    # Synthetic hostname-level conflict terms: match = component members,
+    # anti = the mounts the volume rules condemn; the scan's symmetric anti
+    # rule then gives exactly the pairwise rule (RO+RO co-exist, RO+RW and
+    # RW+RW never share a node). Filled by pod index, not by selector.
+    vol_terms = (
+        volume_conflict_components(pods)
+        if volume_components is None
+        else list(volume_components)
+    )
+
+    T_aff = len(terms)
+    T = T_aff + len(vol_terms)
+    TT = bucket_size(T, minimum=4) if bucket_terms else T
+    P = pad_pods if pad_pods is not None else len(pods)
+    G = len(templates)
+    match = np.zeros((TT, P), bool)
+    aff_of = np.zeros((TT, P), bool)
+    anti_of = np.zeros((TT, P), bool)
+    node_level = np.zeros((TT,), bool)
+    has_label = np.zeros((G, TT), bool)
+
+    # pod label profiles: selector verdicts depend only on (namespace, labels)
+    profile_index: Dict[Tuple, int] = {}
+    pod_prof = np.empty(len(pods), np.int64)
+    profiles: List[Tuple[str, Dict[str, str]]] = []
+    for i, pod in enumerate(pods):
+        pid = profile_index.setdefault(pod.profile_key(), len(profile_index))
+        pod_prof[i] = pid
+        if pid == len(profiles):
+            profiles.append((pod.namespace, pod.labels))
+
+    for t, term in enumerate(terms):
+        node_level[t] = term.topology_key == HOSTNAME_KEY
+        prof_match = np.fromiter(
+            (
+                ns in term.namespaces and term.selector.matches(labels)
+                for ns, labels in profiles
+            ),
+            bool,
+            count=len(profiles),
+        )
+        if len(pods):
+            match[t, : len(pods)] = prof_match[pod_prof]
+        for g, tmpl in enumerate(templates):
+            # hostname is implicit on every (template) node
+            has_label[g, t] = node_level[t] or term.topology_key in tmpl.labels
+
+    for i, t, is_anti in decls:
+        (anti_of if is_anti else aff_of)[t, i] = True
+
+    for j, (members, antis) in enumerate(vol_terms):
+        t = T_aff + j
+        node_level[t] = True            # a same-volume conflict is per node
+        has_label[:, t] = True
+        match[t, members] = True
+        anti_of[t, antis] = True
+        terms.append(
+            PodAffinityTerm(
+                # inert placeholder (In with no values matches nothing); the
+                # tensor rows above are what the scan reads
+                selector=LabelSelector(
+                    match_expressions=(
+                        LabelSelectorRequirement(
+                            key="autoscaler.tpu/volume-conflict",
+                            operator="In",
+                            values=(),
+                        ),
+                    )
+                ),
+                topology_key=HOSTNAME_KEY,
+            )
+        )
+
+    return AffinityTermTensors(
+        match=match,
+        aff_of=aff_of,
+        anti_of=anti_of,
+        node_level=node_level,
+        has_label=has_label,
+        terms=terms,
+    )
 
 
 def volume_conflict_components(pods: Sequence[Pod]):
@@ -70,3 +246,208 @@ def has_hard_spread(pods: Sequence[Pod]) -> bool:
         for p in pods
         for c in p.topology_spread
     )
+
+
+_BIG = np.int32(2**30)  # "no static domain" sentinel in the spread minimums
+
+
+@dataclass
+class SpreadTermTensors:
+    """Dense factorization of DoNotSchedule topology-spread constraints for
+    the within-wave scan gate: the scan carries per-term placement counts,
+    so pods placed earlier in the same wave count toward later pods' skew.
+    Hostname-key terms are node-level, any other key group-level. The
+    static context (counts and minimums over the existing cluster) comes
+    from the optional cluster; without it the template-only world applies
+    (counts 0)."""
+
+    sp_of: np.ndarray        # [S, P] bool: pod is constrained by term s
+    sp_match: np.ndarray     # [S, P] bool: pod matches selector+ns (counts AND selfMatch)
+    node_level: np.ndarray   # [S] bool
+    max_skew: np.ndarray     # [S] i32
+    min_domains: np.ndarray  # [S] i32
+    has_label: np.ndarray    # [G, S] bool: template carries the topology key
+    static_count: np.ndarray   # [G, S] i32: existing matching pods in the template's domain (group-level)
+    min_others: np.ndarray     # [G, S] i32: min count over OTHER static domains (BIG if none)
+    static_min: np.ndarray     # [G, S] i32: hostname: min over static domains (BIG if none)
+    static_domnum: np.ndarray  # [G, S] i32: hostname: number of static domains
+    force_zero: np.ndarray     # [G, S] bool: group-level: minDomains unmet, so the min is 0
+
+    @property
+    def num_terms(self) -> int:
+        return int(self.sp_of.shape[0])
+
+
+def _spread_effective_selector(c, pod: Pod):
+    """The constraint's selector extended with the pod's own values of its
+    matchLabelKeys."""
+    if not c.match_label_keys:
+        return c.selector
+    extra = tuple((k, pod.labels[k]) for k in c.match_label_keys if k in pod.labels)
+    if not extra:
+        return c.selector
+    merged = dict(c.selector.match_labels)
+    merged.update(extra)
+    return LabelSelector(
+        match_labels=tuple(sorted(merged.items())),
+        match_expressions=c.selector.match_expressions,
+    )
+
+
+def _intern_spread_terms(pods: Sequence[Pod], with_sig: bool):
+    """DoNotSchedule-constraint interning shared by the template world
+    (build_spread_terms) and the mask engine's spread rows: ONE
+    definition of term identity (topology key, effective selector,
+    namespace, maxSkew, minDomains, inclusion policies and, when static
+    context is judged with the declarer's filters, the eligibility
+    signature with the pod's full constraint-key set).
+    → (term_list [(c, sel, ns, declarer, all_keys)], decls [(pod_idx, t)])."""
+    term_index: Dict[Tuple, int] = {}
+    term_list: List[Tuple] = []
+    decls: List[Tuple[int, int]] = []
+    for i, pod in enumerate(pods):
+        all_keys = frozenset(
+            c.topology_key
+            for c in pod.topology_spread
+            if c.when_unsatisfiable == "DoNotSchedule"
+        )
+        for c in pod.topology_spread:
+            if c.when_unsatisfiable != "DoNotSchedule":
+                continue
+            sel = _spread_effective_selector(c, pod)
+            sig: Tuple = ()
+            if with_sig:
+                sig = (
+                    tuple(sorted(pod.node_selector.items())),
+                    repr(pod.affinity.node_selector_terms) if pod.affinity else "",
+                    tuple(
+                        (t.key, t.operator, t.value, t.effect)
+                        for t in pod.tolerations
+                    ),
+                    all_keys,
+                )
+            key = (
+                c.topology_key, sel, pod.namespace, c.max_skew,
+                c.min_domains or 1, c.node_affinity_policy,
+                c.node_taints_policy, sig,
+            )
+            t = term_index.get(key)
+            if t is None:
+                t = term_index[key] = len(term_list)
+                term_list.append((c, sel, pod.namespace, pod, all_keys))
+            decls.append((i, t))
+    return term_list, decls
+
+
+def _spread_node_eligible(c, all_keys, declarer: Pod, node: Node) -> bool:
+    """Whether a node contributes counts to a term: it carries ALL the
+    declaring pod's constraint keys and passes the constraint's node
+    inclusion policies, judged with the declaring pod's filters."""
+    if not all(k in node.labels for k in all_keys):
+        return False
+    if c.node_affinity_policy != "Ignore" and not k8s.node_matches_selector(
+        declarer, node
+    ):
+        return False
+    if c.node_taints_policy == "Honor" and not k8s.pod_tolerates_taints(
+        declarer, node.taints
+    ):
+        return False
+    return True
+
+
+def build_spread_terms(
+    pods: Sequence[Pod],
+    templates: Sequence[Node],
+    pad_pods: int | None = None,
+    bucket_terms: bool = False,
+    cluster: "Tuple[Sequence[Node], Sequence[Pod], Sequence[int]] | None" = None,
+) -> SpreadTermTensors:
+    """Collect distinct DoNotSchedule spread constraints over ``pods``.
+    ``cluster`` = (nodes, pods, node_of_pod) gives the static domain counts
+    over the live cluster; None means the template-only world. With a
+    cluster, terms intern per eligibility signature, so pods with different
+    selectors or tolerations get their own static rows."""
+    term_list, decls = _intern_spread_terms(pods, with_sig=cluster is not None)
+
+    S = len(term_list)
+    SS = bucket_size(S, minimum=4) if bucket_terms else max(S, 1)
+    P = pad_pods if pad_pods is not None else len(pods)
+    G = len(templates)
+    out = SpreadTermTensors(
+        sp_of=np.zeros((SS, P), bool),
+        sp_match=np.zeros((SS, P), bool),
+        node_level=np.zeros((SS,), bool),
+        max_skew=np.zeros((SS,), np.int32),
+        min_domains=np.ones((SS,), np.int32),
+        has_label=np.zeros((G, SS), bool),
+        static_count=np.zeros((G, SS), np.int32),
+        min_others=np.full((G, SS), _BIG, np.int32),
+        static_min=np.full((G, SS), _BIG, np.int32),
+        static_domnum=np.zeros((G, SS), np.int32),
+        force_zero=np.zeros((G, SS), bool),
+    )
+    if S == 0:
+        return out
+
+    for i, t in decls:
+        out.sp_of[t, i] = True
+    for t, (c, sel, ns, _declarer, _keys) in enumerate(term_list):
+        out.node_level[t] = c.topology_key == HOSTNAME_KEY
+        out.max_skew[t] = c.max_skew
+        out.min_domains[t] = c.min_domains or 1
+        for p_i, pod in enumerate(pods):
+            out.sp_match[t, p_i] = pod.namespace == ns and sel.matches(pod.labels)
+        for g, tmpl in enumerate(templates):
+            out.has_label[g, t] = (
+                out.node_level[t] or c.topology_key in tmpl.labels
+            )
+
+    if cluster is None:
+        # template-only world: no static domains; minDomains > 1 forces the
+        # min to 0 for group-level terms (the new nodes' one shared domain)
+        for t, (c, *_rest) in enumerate(term_list):
+            if not out.node_level[t]:
+                out.force_zero[:, t] = (c.min_domains or 1) > 1
+        return out
+
+    cl_nodes, cl_pods, cl_node_of = cluster
+    for t, (c, sel, ns, declarer, all_keys) in enumerate(term_list):
+        key = c.topology_key
+        # domains come from the LABEL (hostname included), on the nodes the
+        # declaring pod's filters make eligible
+        eligible = [
+            _spread_node_eligible(c, all_keys, declarer, n) for n in cl_nodes
+        ]
+        dom_of = [
+            n.labels.get(key) if eligible[j] else None
+            for j, n in enumerate(cl_nodes)
+        ]
+        counts: Dict[str, int] = {}
+        for d in dom_of:
+            if d is not None:
+                counts.setdefault(d, 0)
+        for q, j in zip(cl_pods, cl_node_of):
+            if j < 0 or dom_of[j] is None:
+                continue
+            if (
+                q.namespace == ns
+                and q.deletion_ts is None
+                and sel.matches(q.labels)
+            ):
+                counts[dom_of[j]] += 1
+        if out.node_level[t]:
+            for g in range(G):
+                out.static_min[g, t] = min(counts.values()) if counts else _BIG
+                out.static_domnum[g, t] = len(counts)
+        else:
+            for g, tmpl in enumerate(templates):
+                dom_t = tmpl.labels.get(key)
+                others = [v for d, v in counts.items() if d != dom_t]
+                out.static_count[g, t] = counts.get(dom_t, 0) if dom_t else 0
+                out.min_others[g, t] = min(others) if others else _BIG
+                domains_num = len(counts) + (
+                    0 if dom_t in counts else (1 if dom_t is not None else 0)
+                )
+                out.force_zero[g, t] = (c.min_domains or 1) > domains_num
+    return out

@@ -5,14 +5,15 @@ It holds the resource-row flattener (``resources_row``, memory and
 ephemeral storage in MiB), the extended-resource schema, and
 ``compute_sched_mask``: the non-resource scheduler predicates
 (taints/tolerations, nodeSelector, required node affinity, unschedulable
-flag, host ports, CSI attach limits, volume restrictions and required
-inter-pod affinity against placed pods) precomputed into a boolean [P, N]
-mask. The resource-fit predicate stays in the scan, because node usage
-evolves during it.
+flag, host ports, CSI attach limits, volume restrictions, hard topology
+spread and required inter-pod affinity against placed pods) precomputed
+into a boolean [P, N] mask. The resource-fit predicate stays in the scan,
+because node usage evolves during it. The mask is dense: every row is an
+"exception row" of the JAX package's factored mask, so the hard-spread
+rows apply whatever ``interpod`` is, as they do there.
 
 Not here yet (ROADMAP queue 1): the full ``pack`` into ``SnapshotTensors``
-and the factored mask (slice 2), and the hard topology-spread rows, which
-need the spread-context builders of ``snapshot/affinity.py`` (slice 3).
+and the factored mask, which come with the packer slice.
 """
 from __future__ import annotations
 
@@ -24,13 +25,6 @@ from autoscaler_tpu_torch.kube import objects as k8s
 from autoscaler_tpu_torch.kube.objects import Node, Pod
 
 _MIB = float(1024 * 1024)
-
-SPREAD_NOT_PORTED = (
-    "hard topology-spread rows need the spread-context builders of "
-    "snapshot/affinity.py, which come with the dynamic affinity and spread "
-    "slice (ROADMAP queue 1, slice 3)"
-)
-
 
 def extended_schema(*resource_seqs) -> Tuple[str, ...]:
     """Union of named extended-resource names across any number of
@@ -346,15 +340,10 @@ def _apply_row_rules(
     node_of_pod: Sequence[int],
     interpod: bool,
 ) -> None:
-    """Apply the volume-restriction and inter-pod (anti-)affinity rules vs
-    placed pods to the dense [P, N] mask, in place."""
+    """Apply the volume-restriction, hard topology-spread and inter-pod
+    (anti-)affinity rules vs placed pods to the dense [P, N] mask, in
+    place."""
     P, N = len(pods), len(nodes)
-    if any(
-        c.when_unsatisfiable == "DoNotSchedule"
-        for pod in pods
-        for c in pod.topology_spread
-    ):
-        raise NotImplementedError(SPREAD_NOT_PORTED)
 
     placed = [
         (i, pods[i], node_of_pod[i]) for i in range(P) if node_of_pod[i] >= 0
@@ -366,15 +355,20 @@ def _apply_row_rules(
             if j < N:
                 mask[i, j] = False
 
-    if not interpod:
-        return
-
     domain_cache: Dict[str, Tuple[np.ndarray, Dict[str, int]]] = {}
 
     def domains_for(key: str):
         if key not in domain_cache:
             domain_cache[key] = _topology_domains(nodes, key)
         return domain_cache[key]
+
+    # Hard topology spread applies whatever ``interpod`` is: the dynamic
+    # scan gates only the pods it places itself, so the rule against the
+    # placed pods must hold here.
+    _apply_spread_rows(mask, nodes, pods, node_of_pod, placed, domains_for)
+
+    if not interpod:
+        return
 
     # Required inter-pod (anti-)affinity vs already-placed pods, including
     # the symmetric anti-affinity rule.
@@ -420,6 +414,110 @@ def _apply_row_rules(
                     mask[i] &= ~in_domain
 
 
+def _apply_spread_rows(mask, nodes, pods, node_of_pod, placed, domains_for) -> None:
+    """PodTopologySpread hard filter (the scheduler framework's plugin
+    behind the reference's CheckPredicates): placing pod i on node n must
+    keep count(domain(n)) + selfMatch - minMatchNum <= maxSkew. A node
+    contributes counts only if it carries ALL the pod's DoNotSchedule keys
+    and passes the constraint's node inclusion policies; matchLabelKeys
+    extend the selector with the pod's own values; while fewer eligible
+    domains than minDomains exist the global min is 0; the pod counts
+    itself only when it matches its own selector. Terms are interned across
+    rows, and placed pods' selector verdicts are evaluated once per
+    (namespace, labels) profile and accumulated with bincount."""
+    N = len(nodes)
+    spread_rows = [
+        i
+        for i, pod in enumerate(pods)
+        if any(c.when_unsatisfiable == "DoNotSchedule" for c in pod.topology_spread)
+    ]
+    if not spread_rows:
+        return
+    from autoscaler_tpu_torch.snapshot.affinity import (
+        _intern_spread_terms,
+        _spread_node_eligible,
+    )
+
+    term_list, decls = _intern_spread_terms(
+        [pods[i] for i in spread_rows], with_sig=True
+    )
+    rows_of_term: Dict[int, List[int]] = {}
+    for li, t in decls:
+        rows_of_term.setdefault(t, []).append(spread_rows[li])
+
+    K = len(placed)
+    placed_node = np.fromiter((j for _, _, j in placed), np.int64, count=K)
+    placed_live = np.fromiter(
+        (q.deletion_ts is None for _, q, _ in placed), bool, count=K
+    )
+    # local profile interning: ids are valid for this pass only
+    local_ids: Dict[tuple, int] = {}
+    profiles: List[Tuple[str, Dict[str, str]]] = []
+    placed_prof = np.empty(K, np.int64)
+    for k, (_, q, _) in enumerate(placed):
+        pk = q.profile_key()
+        lid = local_ids.get(pk)
+        if lid is None:
+            lid = local_ids[pk] = len(profiles)
+            profiles.append((q.namespace, q.labels))
+        placed_prof[k] = lid
+
+    for t, (c, sel, ns, declarer, all_keys) in enumerate(term_list):
+        node_dom, domains = domains_for(c.topology_key)
+        D = max(len(domains), 1)
+        eligible = np.fromiter(
+            (_spread_node_eligible(c, all_keys, declarer, n) for n in nodes),
+            bool,
+            count=N,
+        )
+        counts = np.zeros(D, np.int64)
+        if K:
+            prof_match = np.fromiter(
+                (pns == ns and sel.matches(lbls) for pns, lbls in profiles),
+                bool,
+                count=len(profiles),
+            )
+            sel_mask = (
+                prof_match[placed_prof]
+                & placed_live
+                & eligible[placed_node]
+                & (node_dom[placed_node] >= 0)
+            )
+            doms = node_dom[placed_node[sel_mask]]
+            if doms.size:
+                counts[: doms.max() + 1] += np.bincount(
+                    doms, minlength=doms.max() + 1
+                )
+        reg = np.unique(node_dom[eligible & (node_dom >= 0)])
+        reg_mask = np.isin(node_dom, reg)
+        for i in rows_of_term[t]:
+            pod_i = pods[i]
+            self_sel = sel.matches(pod_i.labels)
+            counts_i = counts
+            j_i = node_of_pod[i]
+            if (
+                j_i >= 0
+                and self_sel
+                and eligible[j_i]
+                and node_dom[j_i] >= 0
+                and pod_i.deletion_ts is None
+            ):
+                # a placed pod never counts against its own row
+                counts_i = counts.copy()
+                counts_i[node_dom[j_i]] -= 1
+            min_count = int(counts_i[reg].min()) if reg.size else 0
+            if (c.min_domains or 1) > reg.size:
+                min_count = 0  # minDomains unmet: the global min is 0
+            self_match = 1 if self_sel else 0
+            dom_counts = np.where(
+                reg_mask, counts_i[np.clip(node_dom, 0, None)], 0
+            )
+            allowed = (node_dom >= 0) & (
+                dom_counts + self_match - min_count <= c.max_skew
+            )
+            mask[i] &= allowed
+
+
 def compute_sched_mask(
     nodes: Sequence[Node],
     pods: Sequence[Pod],
@@ -428,8 +526,8 @@ def compute_sched_mask(
 ) -> np.ndarray:
     """[P, N] boolean precomputed predicate mask. node_of_pod[i] is the index
     of the node pod i is placed on, -1 if pending. interpod=False skips the
-    inter-pod (anti-)affinity rules (the dynamic scan's job). Pods with a
-    hard topology-spread constraint raise NotImplementedError."""
+    inter-pod (anti-)affinity rules (the dynamic scan's job); the hard
+    topology-spread rows apply either way."""
     P, N = len(pods), len(nodes)
     mask = np.ones((P, N), dtype=bool)
     port_count = _node_port_counts(pods, node_of_pod)

@@ -1,7 +1,7 @@
 """Shape bucketing for the estimator's packed operands (the port's copy of
 ``bucket_size`` from ``autoscaler_tpu/snapshot/tensors.py``).
 ``SnapshotTensors`` itself arrives with the packer (ROADMAP queue 1,
-slice 2)."""
+item 1)."""
 from __future__ import annotations
 
 

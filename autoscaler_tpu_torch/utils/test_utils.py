@@ -8,9 +8,11 @@ from typing import Dict, List, Optional
 
 from autoscaler_tpu_torch.kube.objects import (
     Affinity,
+    LabelSelector,
     Node,
     OwnerRef,
     Pod,
+    PodAffinityTerm,
     Resources,
     Taint,
     Toleration,
@@ -64,4 +66,26 @@ def build_test_pod(
         owner_ref=OwnerRef(kind=owner_kind, name=f"{name}-owner") if owner_kind else None,
         priority=priority,
         node_name=node_name,
+    )
+
+
+def anti_affinity(match_labels: Dict[str, str], topology_key: str = "kubernetes.io/hostname") -> Affinity:
+    return Affinity(
+        pod_anti_affinity=(
+            PodAffinityTerm(
+                selector=LabelSelector.from_dict(match_labels),
+                topology_key=topology_key,
+            ),
+        )
+    )
+
+
+def pod_affinity(match_labels: Dict[str, str], topology_key: str = "kubernetes.io/hostname") -> Affinity:
+    return Affinity(
+        pod_affinity=(
+            PodAffinityTerm(
+                selector=LabelSelector.from_dict(match_labels),
+                topology_key=topology_key,
+            ),
+        )
     )

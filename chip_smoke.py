@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch port's main path, the scale-up estimate, on one CUDA
+"""Runs the PyTorch port's main paths, the scale-up estimate with and
+without dynamic inter-pod affinity and hard topology spread, on one CUDA
 card through its hand-written kernels, and holds every kernel against its
 plain PyTorch version.
 
@@ -8,22 +9,37 @@ plain PyTorch version.
 Phases (any failure raises and exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi) and PyTorch's name;
-2. build: the CUDA source compiled with nvcc; the ptxas report
-   (registers, static shared memory, spills);
-3. the main path, with every launch count set to 0 just before it and read
-   just after: the repo's headline estimate (bench.py's workload: 100k
-   pending pods × 500 node groups, 1000-node cap, 6 resource axes) through
-   ``ffd_binpack_groups_cuda`` with integral requests (SWAR kernel K2) and
-   with fractional memory (f32 kernel K1); then the object-level estimator
-   on a 30k-pod pending burst × 100 node-group templates, the least-waste
-   expander's choice, and a replicated-pods burst (the run-compressed
-   route). Every kernel of the path must have launched;
-4. each kernel at the headline shape against its plain version on the same
-   card tensors, all groups and all pods, exactly; the main path's
-   results against the plain versions' results; the estimator's results
-   and choice against the same calls on the CPU;
-5. timings with CUDA events: each kernel alone, the whole
-   ``ffd_binpack_groups_cuda`` call, and the plain version.
+2. build: each CUDA source compiled with nvcc, all at once; each ptxas
+   report (registers, static shared memory, spills);
+3. the main paths, each with every launch and route count set to 0 just
+   before it and read just after:
+   a. the repo's headline estimate (bench.py's workload: 100k pending pods
+      × 500 node groups, 1000-node cap, 6 resource axes) through
+      ``ffd_binpack_groups_cuda`` with integral requests (SWAR kernel K2)
+      and with fractional memory (f32 kernel K1);
+   b. the object-level estimator on a 30k-pod pending burst × 100 node-group
+      templates and the least-waste expander's choice (K2);
+   c. a replicated-pods burst (the run-compressed route, no kernel);
+   d. the affinity workload (benchmarks/affinity_bench.py's default: 20k
+      pods × 100 groups × 50 terms, 1000-node cap) through
+      ``ffd_binpack_groups_affinity_cuda`` (K3);
+   e. the object-level spread world (benchmarks/spread_bench.py's default:
+      20k unique pods × 16 zoned templates, 10% hostname anti-affinity, 5%
+      zone DoNotSchedule spread) through ``estimate_many`` and least-waste
+      (K3), and the same world with the spread over the hostname key;
+   f. a replicated affinity world (30k pods of 300 deployments, one in ten
+      with hostname anti-affinity on its own app; the runs-affinity route,
+      no kernel).
+   Every kernel of the paths must have launched;
+4. each kernel at its headline shape against its plain version on the same
+   card tensors (K1/K2 on all 500 groups, K3 on all 100 groups), exactly;
+   the main paths' results against the plain versions' results, K3's
+   launches on the two spread worlds included (all 16 groups); the
+   estimator's results and choices against the same calls on the CPU (the
+   CPU takes a stride sample of the templates for the dynamic worlds:
+   each group's result depends on its own template only);
+5. timings with CUDA events: each kernel alone, its whole entry call, and
+   the plain version; K3 on the zone and hostname spread worlds.
 
 The last two lines of standard output are the kernels line (one JSON
 object) and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -47,6 +63,9 @@ BURST_TEMPLATES = 100
 REPLICATED_PODS = 30_000
 REPLICATED_CONTROLLERS = 300
 REPS = 3
+CPU_TEMPLATE_STRIDE = 2      # spread worlds: every other template on the CPU
+CPU_RUNS_TEMPLATE_STRIDE = 20  # replicated affinity world: 5 of 100 templates
+HOSTNAME_KEY = "kubernetes.io/hostname"
 
 
 def log(msg: str) -> None:
@@ -56,6 +75,26 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+# K3's operations for each unit of work its plain version counts: a node
+# fit test is R compares; a term gate on an open node that fits is ~16 int
+# ops a term plane with a bit set (two domain blends, three violation
+# terms); a hostname spread gate is an add, a subtract and a compare; a
+# hostname-minimum read is one min. The per-step group scalars (new_ok,
+# group-level spread) are left out, which keeps the bound a lower bound.
+K3_OPS = {"gate_plane_tests": 16, "host_gate_tests": 3, "open_min_nodes": 1}
+
+
+def k3_operations(stats: dict, R: int) -> int:
+    return stats["node_tests"] * R + sum(stats[k] * w for k, w in K3_OPS.items())
+
+
+def k3_work(stats: dict, R: int) -> str:
+    return " + ".join(
+        [f"{stats['node_tests']} node tests x {R}"]
+        + [f"{stats[k]} {k} x {w}" for k, w in K3_OPS.items()]
+    )
 
 
 def main() -> int:
@@ -74,19 +113,43 @@ def main() -> int:
     sys.path.insert(0, root)
     import numpy as np
 
+    from autoscaler_tpu_torch.estimator import binpacking
     from autoscaler_tpu_torch.estimator.binpacking import (
         BinpackingNodeEstimator,
         _build_group_arrays,
     )
+    from autoscaler_tpu_torch.estimator.limiter import ThresholdBasedEstimationLimiter
     from autoscaler_tpu_torch.expander.core import Option, build_strategy
     from autoscaler_tpu_torch.kube.objects import MEMORY, OwnerRef, Taint, Toleration
-    from autoscaler_tpu_torch.ops import _build, ffd_scan
+    from autoscaler_tpu_torch.ops import _build, ffd_scan, ffd_scan_affinity
     from autoscaler_tpu_torch.snapshot.tensors import bucket_size
-    from autoscaler_tpu_torch.utils.test_utils import GB, MB, build_test_node, build_test_pod
-    from autoscaler_tpu_torch.utils.workload import HEADLINE_MAX_NODES, build_workload
+    from autoscaler_tpu_torch.utils.test_utils import (
+        GB,
+        MB,
+        anti_affinity,
+        build_test_node,
+        build_test_pod,
+    )
+    from autoscaler_tpu_torch.utils.workload import (
+        AFFINITY_GROUPS,
+        AFFINITY_MAX_NODES,
+        AFFINITY_PODS,
+        AFFINITY_TERMS,
+        HEADLINE_MAX_NODES,
+        SPREAD_APPS,
+        SPREAD_GROUPS,
+        SPREAD_MAX_NODES,
+        SPREAD_PODS,
+        build_affinity_workload,
+        build_spread_world,
+        build_workload,
+    )
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+
+    def phase(label, t0):
+        print(f"# phase {label}: {time.perf_counter() - t0:.3f} s host clock", flush=True)
 
     # -- 1. device --------------------------------------------------------
     smi = subprocess.run(
@@ -103,13 +166,15 @@ def main() -> int:
     _build.build()
     print(f"# kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     # registers and static shared memory ("Used ..."), stack and spills
-    # (the line after each function's properties); the carry's dynamic
+    # (the line after each function's properties); the carries' dynamic
     # shared memory is printed with each kernel below
-    for line in (_build.BUILD_LOG or "").splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"# {_build.SOURCE.name}: {line.strip()}", flush=True)
+    for name, report in sorted(_build.BUILD_LOGS.items()):
+        for line in report.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"# {name}.cu: {line.strip()}", flush=True)
 
-    # -- operands of the main path (set-up: not part of the path) ----------
+    # -- operands of the main paths (set-up: not part of the paths) --------
+    t0 = time.perf_counter()
     req, masks, allocs, caps = build_workload()
     req_frac = req.copy()
     req_frac[:, MEMORY] += 0.5            # fractional memory refuses the SWAR plan
@@ -117,6 +182,8 @@ def main() -> int:
     G = masks.shape[0]
     headline = ffd_scan.operands_from_numpy(req, masks, allocs, caps, dev)
     headline_frac = ffd_scan.operands_from_numpy(req_frac, masks, allocs, caps, dev)
+    aff_np = build_affinity_workload(AFFINITY_PODS, AFFINITY_GROUPS, AFFINITY_TERMS)
+    aff_ops = ffd_scan_affinity.affinity_operands_from_numpy(*aff_np, device=dev)
 
     rng = np.random.default_rng(0)
     zones = ["zone-a", "zone-b", "zone-c"]
@@ -150,6 +217,25 @@ def main() -> int:
         pod = build_test_pod(f"rep-{i}", cpu_m=shapes[c][0], mem=shapes[c][1])
         pod.owner_ref = OwnerRef(kind="ReplicaSet", name=f"deploy-{c}")
         replicated.append(pod)
+    # the replicated affinity world: the same shapes, an app label per
+    # deployment, and hostname anti-affinity on its own app for one
+    # deployment in ten
+    replicated_aff = []
+    for i in range(REPLICATED_PODS):
+        c = i % REPLICATED_CONTROLLERS
+        pod = build_test_pod(
+            f"repaff-{i}", cpu_m=shapes[c][0], mem=shapes[c][1], labels={"app": f"app-{c}"},
+            affinity=anti_affinity({"app": f"app-{c}"}) if c % 10 == 0 else None,
+        )
+        pod.owner_ref = OwnerRef(kind="ReplicaSet", name=f"deploy-{c}")
+        replicated_aff.append(pod)
+    spread_worlds = {
+        "zone": build_spread_world(SPREAD_PODS, SPREAD_GROUPS, SPREAD_APPS),
+        "hostname": build_spread_world(
+            SPREAD_PODS, SPREAD_GROUPS, SPREAD_APPS, topology_key=HOSTNAME_KEY
+        ),
+    }
+    phase("operand set-up", t0)
 
     class Group:
         def __init__(self, name, template):
@@ -172,56 +258,116 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
 
-    def choose(results):
+    def choose(results, tmpls):
         strategy = build_strategy(["least-waste"], seed=0)
         options = [
-            Option(node_group=Group(g, templates[g]), node_count=n, pods=pods)
+            Option(node_group=Group(g, tmpls[g]), node_count=n, pods=pods)
             for g, (n, pods) in sorted(results.items()) if n > 0 and pods
         ]
         best = strategy.best_option(options)
         return (best.node_group.id() if best else None), strategy.last_table
 
-    # -- 3. the main path ---------------------------------------------------
-    for name in ffd_scan.LAUNCHES:
-        ffd_scan.LAUNCHES[name] = 0
-    t0 = time.perf_counter()
-    res_swar = ffd_scan.ffd_binpack_groups_cuda(
-        *headline[:3], max_nodes=HEADLINE_MAX_NODES, node_caps=headline[3]
-    )
-    res_f32 = ffd_scan.ffd_binpack_groups_cuda(
-        *headline_frac[:3], max_nodes=HEADLINE_MAX_NODES, node_caps=headline_frac[3]
-    )
-    torch.cuda.synchronize()
-    t_headline = time.perf_counter() - t0
+    counters = (ffd_scan.LAUNCHES, ffd_scan_affinity.LAUNCHES, binpacking.ROUTES)
+    launches = {name: 0 for d in counters[:2] for name in d}
+
+    def run_path(label, fn):
+        """Drive one main path with every count set to 0 just before it;
+        → (its result, its counts read just after, host seconds)."""
+        for d in counters:
+            for k in d:
+                d[k] = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {**ffd_scan.LAUNCHES, **ffd_scan_affinity.LAUNCHES,
+                  **{f"route:{k}": v for k, v in binpacking.ROUTES.items()}}
+        for name in launches:
+            launches[name] += counts[name]
+        print(f"# path {label}: {secs:.3f} s host clock, counts {counts}", flush=True)
+        return out, counts, secs
+
+    # -- 3. the main paths ----------------------------------------------------
+    t3 = time.perf_counter()
+    (res_swar, res_f32), counts, t_headline = run_path("headline K2+K1", lambda: (
+        ffd_scan.ffd_binpack_groups_cuda(
+            *headline[:3], max_nodes=HEADLINE_MAX_NODES, node_caps=headline[3]
+        ),
+        ffd_scan.ffd_binpack_groups_cuda(
+            *headline_frac[:3], max_nodes=HEADLINE_MAX_NODES, node_caps=headline_frac[3]
+        ),
+    ))
+    check(counts["ffd_scan_swar"] == 1 and counts["ffd_scan_f32"] == 1,
+          "the headline did not run K2 and K1 once each")
     estimator = BinpackingNodeEstimator()          # device=None: the card
-    before_burst = dict(ffd_scan.LAUNCHES)
-    t0 = time.perf_counter()
-    burst_card = estimator.estimate_many(burst, templates)
-    choice_card = choose(burst_card)
-    t_burst = time.perf_counter() - t0
-    before_replicated = dict(ffd_scan.LAUNCHES)
-    t0 = time.perf_counter()
-    replicated_card = estimator.estimate_many(replicated, templates)
-    t_replicated = time.perf_counter() - t0
-    launches = dict(ffd_scan.LAUNCHES)
-    check(
-        before_replicated["ffd_scan_swar"] == before_burst["ffd_scan_swar"] + 1,
-        "the burst estimate did not run the SWAR kernel",
+
+    def burst_path():
+        out = estimator.estimate_many(burst, templates)
+        return out, choose(out, templates)
+
+    (burst_card, choice_card), counts, t_burst = run_path("30k burst + expander", burst_path)
+    check(counts["ffd_scan_swar"] == 1, "the burst estimate did not run the SWAR kernel")
+    replicated_card, counts, t_replicated = run_path(
+        "replicated burst", lambda: estimator.estimate_many(replicated, templates)
     )
-    check(launches == before_replicated, "the replicated burst did not take the runs route")
-    print(
-        f"# main path: headline K2+K1 {t_headline:.3f} s, 30k burst estimate + "
-        f"expander {t_burst:.3f} s, replicated burst {t_replicated:.3f} s, "
-        f"launches {launches}", flush=True,
+    check(not any(counts.values()), "the replicated burst did not take the runs route")
+    res_aff, counts, t_aff = run_path(
+        "affinity workload K3",
+        lambda: ffd_scan_affinity.ffd_binpack_groups_affinity_cuda(
+            **aff_ops, max_nodes=AFFINITY_MAX_NODES
+        ),
     )
+    check(counts["ffd_scan_aff"] == 1, "the affinity workload did not run K3")
+
+    # the spread worlds: capture the operands K3 is handed and what it
+    # returns, to hold it against its plain version and time it below (the
+    # capture calls the wrapper itself, which counts)
+    spread_estimator = BinpackingNodeEstimator(
+        ThresholdBasedEstimationLimiter(max_nodes=SPREAD_MAX_NODES)
+    )
+    captured = {}
+    real_scan = ffd_scan_affinity.ffd_scan_aff
+    spread_card = {}
+    for variant, (pods_sw, tmpl_sw) in spread_worlds.items():
+        def spread_path():
+            out = spread_estimator.estimate_many(pods_sw, tmpl_sw)
+            return out, choose(out, tmpl_sw)
+
+        def capture(ops, variant=variant):
+            out = real_scan(ops)
+            captured[variant] = (ops, out)
+            return out
+
+        ffd_scan_affinity.ffd_scan_aff = capture
+        try:
+            spread_card[variant] = run_path(f"spread world ({variant})", spread_path)
+        finally:
+            ffd_scan_affinity.ffd_scan_aff = real_scan
+        counts = spread_card[variant][1]
+        check(counts["ffd_scan_aff"] == 1 and counts["route:ffd_scan_aff"] == 1
+              and counts["route:affinity_loop"] == 0,
+              f"the {variant} spread world did not take the ffd_scan_aff route")
+        check(captured[variant][0].num_spread == 32, f"{variant}: expected 32 spread terms")
+    replicated_aff_card, counts, t_replicated_aff = run_path(
+        "replicated affinity world",
+        lambda: estimator.estimate_many(replicated_aff, templates),
+    )
+    check(not any(counts.values()),
+          "the replicated affinity world did not take the runs-affinity route")
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+        check(n > 0, f"kernel {name} was not launched on the main paths")
     check(
         sum(len(p) for _, p in burst_card.values()) > 0 and choice_card[0] is not None,
         "the burst estimate scheduled nothing",
     )
+    for variant, ((out, choice), _, _) in spread_card.items():
+        check(sum(len(p) for _, p in out.values()) > 0 and choice[0] is not None,
+              f"the {variant} spread world scheduled nothing")
+    print(f"# main paths: launches {launches}", flush=True)
+    phase("3 main paths", t3)
 
     # -- 4. kernels against their plain versions, results against the CPU ----
+    t4 = time.perf_counter()
     kernels = []
     for name, args, res, replaces in (
         ("ffd_scan_swar", headline, res_swar, "autoscaler_tpu/ops/pallas_binpack.py:305"),
@@ -309,11 +455,117 @@ def main() -> int:
             f"dynamic shared memory a block", flush=True,
         )
         del ops, got, want, plain_res
+    phase("4a K1/K2 against their plain versions", t4)
 
+    # K3 at the affinity workload: all 100 groups and all 20k pods
+    t0 = time.perf_counter()
+    M_aff = AFFINITY_MAX_NODES
+    aff_prep = ffd_scan_affinity.prepare_scan_aff(**aff_ops, max_nodes=M_aff)
+    plain_args = (aff_prep.stream, aff_prep.bits, aff_prep.allocs, aff_prep.caps,
+                  aff_prep.nl, aff_prep.hl, aff_prep.spstat, aff_prep.num_planes,
+                  aff_prep.num_spread, M_aff)
+    got = ffd_scan_affinity.ffd_scan_aff(aff_prep)
+    torch.cuda.synchronize()
+    stats = {}
+    t1 = time.perf_counter()
+    want = ffd_scan_affinity._scan_plain_aff(*plain_args, stats=stats)
+    torch.cuda.synchronize()
+    log(f"ffd_scan_aff: plain version with work count {time.perf_counter() - t1:.1f} s")
+    max_err = 0.0
+    for field, a, b in zip(("free", "opened", "placed"), want, got):
+        check(a.dtype == b.dtype and a.shape == b.shape, f"ffd_scan_aff: {field} layout")
+        check(torch.equal(a, b), f"ffd_scan_aff: {field} differs from the plain version")
+        max_err = max(max_err, float((a.double() - b.double()).abs().max()))
+    plain_res = ffd_scan_affinity.finish_scan_aff(aff_prep, *want)
+    for field, a, b in zip(plain_res._fields, plain_res, res_aff):
+        check(torch.equal(a, b), f"ffd_scan_aff: main-path {field} differs from the plain version")
+    ms = event_ms(lambda: ffd_scan_affinity.ffd_scan_aff(aff_prep))
+    call_ms = event_ms(lambda: ffd_scan_affinity.ffd_binpack_groups_affinity_cuda(
+        **aff_ops, max_nodes=M_aff
+    ))
+    plain_ms = event_ms(lambda: ffd_scan_affinity._scan_plain_aff(*plain_args), reps=1)
+    G_aff, P_pad_aff, R_aff = aff_prep.stream.shape
+    TP_aff = aff_prep.num_planes
+    NB_aff = aff_prep.bits.shape[2]
+    bytes_moved = (
+        aff_prep.stream.numel() * 4 + aff_prep.bits.numel() * 4 + aff_prep.allocs.numel() * 4
+        + aff_prep.caps.numel() * 4 + aff_prep.nl.numel() * 4 + aff_prep.hl.numel() * 4
+        + G_aff * R_aff * M_aff * 4 + G_aff * 4 + G_aff * P_pad_aff
+    )
+    operations = k3_operations(stats, R_aff)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = operations / FP32_OPS_PER_S * 1e3
+    kernels.append({
+        "name": "ffd_scan_aff",
+        "route": "cuda",
+        "source": "autoscaler_tpu_torch/csrc/ffd_scan_affinity.cu",
+        "replaces": "autoscaler_tpu/ops/pallas_binpack_affinity.py:150",
+        "launches": launches["ffd_scan_aff"],
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "parity": "exact",
+        "call_ms": call_ms,
+    })
+    print(
+        f"# ffd_scan_aff: {ms:.3f} ms kernel ({ms * 1e3 / P_pad_aff:.3f} us a step), "
+        f"{call_ms:.3f} ms whole call, {plain_ms:.1f} ms plain, parity exact on all "
+        f"{G_aff} groups", flush=True,
+    )
+    print(
+        f"# ffd_scan_aff bound {max(bytes_ms, ops_ms):.4f} ms ({kernels[-1]['bound_by']}): "
+        f"G={G_aff} P={AFFINITY_PODS} P_pad={P_pad_aff} R={R_aff} T={AFFINITY_TERMS} "
+        f"planes={TP_aff} bit_planes={NB_aff} max_nodes={M_aff}, {bytes_moved} B moved "
+        f"({bytes_ms:.4f} ms), {k3_work(stats, R_aff)} = {operations} operations "
+        f"({ops_ms:.4f} ms); "
+        f"{ffd_scan_affinity.affinity_smem_bytes(R_aff, TP_aff, 0, M_aff)} B dynamic "
+        f"shared memory a block", flush=True,
+    )
+    del got, want, plain_res
+    phase("4b K3 against its plain version", t0)
+
+    # K3 on the two spread worlds (S = 32: the only launches where the
+    # spread gates and count planes run): the main path's own launch
+    # against the plain version on the operands it was handed, all 16
+    # groups; then K3 timed on them
+    for variant in spread_worlds:
+        t0 = time.perf_counter()
+        ops, got = captured[variant]
+        G_s, P_pad_s, R_s = ops.stream.shape
+        stats = {}
+        want = ffd_scan_affinity._scan_plain_aff(
+            ops.stream, ops.bits, ops.allocs, ops.caps, ops.nl, ops.hl, ops.spstat,
+            ops.num_planes, ops.num_spread, ops.max_nodes, stats=stats,
+        )
+        for field, a, b in zip(("free", "opened", "placed"), want, got):
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"ffd_scan_aff ({variant} spread): {field} layout")
+            check(torch.equal(a, b),
+                  f"ffd_scan_aff ({variant} spread): {field} differs from the plain version")
+        sp_ms = event_ms(lambda: ffd_scan_affinity.ffd_scan_aff(ops))
+        print(
+            f"# ffd_scan_aff on the {variant} spread world: {sp_ms:.3f} ms kernel "
+            f"({sp_ms * 1e3 / P_pad_s:.3f} us a step), parity exact on all {G_s} groups, "
+            f"G={G_s} P_pad={P_pad_s} R={R_s} "
+            f"planes={ops.num_planes} S={ops.num_spread} max_nodes={ops.max_nodes}, "
+            f"{ffd_scan_affinity.affinity_smem_bytes(R_s, ops.num_planes, ops.num_spread, ops.max_nodes)} "
+            f"B dynamic shared memory a block; work {k3_work(stats, R_s)} = "
+            f"{k3_operations(stats, R_s)} operations "
+            f"({k3_operations(stats, R_s) / FP32_OPS_PER_S * 1e3:.4f} ms at the peak rate); "
+            f"estimate_many + least-waste {spread_card[variant][2]:.3f} s host clock",
+            flush=True,
+        )
+        del want
+        phase(f"4b K3 on the {variant} spread world against its plain version", t0)
+
+    # the estimator's results and choices against the same calls on the CPU
     t0 = time.perf_counter()
     cpu_estimator = BinpackingNodeEstimator(device="cpu")
     burst_cpu = cpu_estimator.estimate_many(burst, templates)
-    choice_cpu = choose(burst_cpu)
+    choice_cpu = choose(burst_cpu, templates)
     replicated_cpu = cpu_estimator.estimate_many(replicated, templates)
     log(f"estimator on the CPU: {time.perf_counter() - t0:.1f} s")
     for label, on_card, on_cpu in (
@@ -330,6 +582,42 @@ def main() -> int:
         f"# estimator: card equals CPU on {len(templates)} groups (burst and "
         f"replicated), least-waste picks {choice_card[0]}", flush=True,
     )
+    phase("4c plain-route estimates on the CPU", t0)
+
+    def compare_sampled(label, est_cpu, pods_w, tmpl_w, on_card, stride):
+        """The CPU's estimate on every ``stride``-th template against the
+        card's results for those templates, and the least-waste choice
+        among them."""
+        t0 = time.perf_counter()
+        sample = {g: tmpl_w[g] for g in sorted(tmpl_w)[::stride]}
+        on_cpu = est_cpu.estimate_many(pods_w, sample)
+        for g in sample:
+            check(on_card[g][0] == on_cpu[g][0], f"{label} {g}: node count differs")
+            check(
+                [p.name for p in on_card[g][1]] == [p.name for p in on_cpu[g][1]],
+                f"{label} {g}: scheduled pods differ",
+            )
+        card_sample = {g: on_card[g] for g in sample}
+        check(choose(card_sample, sample) == choose(on_cpu, sample),
+              f"{label}: the expander chose differently on the card")
+        print(
+            f"# {label}: card equals CPU on {len(sample)} of {len(tmpl_w)} templates, "
+            f"{sum(c for c, _ in on_card.values())} nodes on the card in all, "
+            f"least-waste picks {choose(on_card, tmpl_w)[0]} (all) and "
+            f"{choose(card_sample, sample)[0]} (sample)", flush=True,
+        )
+        phase(f"4d {label} on the CPU", t0)
+
+    spread_cpu = BinpackingNodeEstimator(
+        ThresholdBasedEstimationLimiter(max_nodes=SPREAD_MAX_NODES), device="cpu"
+    )
+    for variant, (pods_sw, tmpl_sw) in spread_worlds.items():
+        (out, _choice), _, _ = spread_card[variant]
+        compare_sampled(f"{variant} spread world", spread_cpu, pods_sw, tmpl_sw, out,
+                        CPU_TEMPLATE_STRIDE)
+    compare_sampled("replicated affinity world", cpu_estimator, replicated_aff, templates,
+                    replicated_aff_card, CPU_RUNS_TEMPLATE_STRIDE)
+
     # where the burst estimate's time goes: the host operand build (mask
     # engine, packing) and the scan call on the card
     names = sorted(templates)
@@ -343,7 +631,9 @@ def main() -> int:
     ))
     print(
         f"# burst estimate {t_burst:.3f} s: host operand build {t_build:.3f} s, "
-        f"scan call {burst_scan_ms:.3f} ms on the card", flush=True,
+        f"scan call {burst_scan_ms:.3f} ms on the card; headline {t_headline:.3f} s, "
+        f"replicated {t_replicated:.3f} s, affinity workload {t_aff:.3f} s, "
+        f"replicated affinity {t_replicated_aff:.3f} s", flush=True,
     )
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
 

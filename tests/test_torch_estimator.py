@@ -2,7 +2,10 @@
 binpacking.py, on the CPU) and expander against the JAX package's, on the
 same pods and templates: each package builds them with its own
 build_test_pod/build_test_node from one numpy-seeded spec. Node counts,
-scheduled pods and the expander's choice must be equal."""
+scheduled pods and the expander's choice must be equal, on the plain and
+runs routes and on every dynamic route (inter-pod affinity, hard spread,
+legacy volume conflicts), where each case also checks which of the port's
+routes served it."""
 import dataclasses
 from types import SimpleNamespace
 
@@ -19,7 +22,7 @@ import autoscaler_tpu_torch.estimator.limiter as tlim
 import autoscaler_tpu_torch.expander.core as texp
 import autoscaler_tpu_torch.kube.objects as tobj
 import autoscaler_tpu_torch.utils.test_utils as ttu
-from autoscaler_tpu_torch.ops import ffd_scan
+from autoscaler_tpu_torch.ops import ffd_scan, ffd_scan_affinity
 
 JAX = SimpleNamespace(obj=jobj, tu=jtu, est=jest, lim=jlim, exp=jexp)
 TORCH = SimpleNamespace(obj=tobj, tu=ttu, est=tes, lim=tlim, exp=texp)
@@ -262,29 +265,203 @@ def test_empty_inputs():
     assert est.estimate([], tmpl["ng-0"]) == (0, [])
 
 
-def test_affinity_world_raises():
-    pods = make_pods(TORCH, pod_spec(10, 20))
-    pods[3] = dataclasses.replace(pods[3], affinity=tobj.Affinity(
-        pod_anti_affinity=(tobj.PodAffinityTerm(
-            selector=tobj.LabelSelector.from_dict({"app": "x"}),
-            topology_key="kubernetes.io/hostname",
-        ),)
-    ))
-    templates = make_templates(TORCH, template_spec(10, 2))
-    est = estimator(TORCH, 16)
-    with pytest.raises(NotImplementedError, match="affinity"):
-        est.estimate_many(pods, templates)
-    with pytest.raises(NotImplementedError, match="affinity"):
-        est.estimate(pods, templates["ng-0"])
+# -- dynamic worlds: inter-pod affinity, hard spread, volume conflicts -------
+
+ZONE = "topology.kubernetes.io/zone"
+HOST = "kubernetes.io/hostname"
 
 
-def test_hard_spread_world_raises():
-    pods = make_pods(TORCH, pod_spec(11, 12))
-    pods[0] = dataclasses.replace(pods[0], topology_spread=(tobj.TopologySpreadConstraint(
-        max_skew=1, topology_key="zone", selector=tobj.LabelSelector.from_dict({"a": "b"}),
-    ),))
-    with pytest.raises(NotImplementedError):
-        estimator(TORCH, 16).estimate_many(pods, make_templates(TORCH, template_spec(11, 2)))
+def dynamic_spec(seed, n, anti=0.0, aff=0.0, spread=0.0, spread_key=ZONE, volumes=0.0,
+                 replicated=False, apps=4, skew=1, min_domains=None):
+    """pod_spec plus an app label and, by the given shares, hostname
+    anti-affinity or zone affinity on the pod's app, a DoNotSchedule
+    spread constraint on it, or a shared legacy GCE PD."""
+    rng = np.random.default_rng(seed + 50)
+    specs = pod_spec(seed, n, replicated=replicated)
+    for i, s in enumerate(specs):
+        s["app"] = f"a{i % apps}" if replicated else f"a{int(rng.integers(0, apps))}"
+        r = rng.random()
+        s["anti"] = r < anti
+        s["aff"] = anti <= r < anti + aff
+        s["spread"] = (spread_key, skew, min_domains) if rng.random() < spread else None
+        s["volume"] = bool(rng.random() < volumes)
+        if replicated:  # replicas share the dynamic parts of their spec
+            s["owner"] = f"rs-{s['app']}"
+            s["anti"] = s["app"] == "a0"
+            s["aff"] = False
+            s["spread"] = (spread_key, skew, min_domains) if s["app"] == "a1" and spread else None
+            s["volume"] = False
+    return specs
+
+
+def make_dynamic_pods(pkg, specs):
+    pods = []
+    o = pkg.obj
+    for pod, s in zip(make_pods(pkg, specs), specs):
+        sel = o.LabelSelector.from_dict({"app": s["app"]})
+        changes = {"labels": {"app": s["app"]}}
+        if s["anti"]:
+            changes["affinity"] = pkg.tu.anti_affinity({"app": s["app"]})
+        elif s["aff"]:
+            changes["affinity"] = pkg.tu.pod_affinity({"app": s["app"]}, topology_key=ZONE)
+        if s["spread"]:
+            key, skew, min_domains = s["spread"]
+            changes["topology_spread"] = (o.TopologySpreadConstraint(
+                max_skew=skew, topology_key=key, selector=sel, min_domains=min_domains,
+            ),)
+        if s["volume"]:
+            changes["legacy_volumes"] = (o.LegacyVolume("gce-pd", "shared-disk"),)
+        pods.append(dataclasses.replace(pod, **changes))
+    return pods
+
+
+def zoned_templates(pkg, seed, n):
+    out = make_templates(pkg, template_spec(seed, n))
+    for j, node in enumerate(out.values()):
+        if j % 4 != 3:                      # one template in four has no zone
+            node.labels[ZONE] = f"zone-{'abc'[j % 3]}"
+    return out
+
+
+def cluster_of(pkg):
+    """Two existing nodes: zone-a holds two app-a0 pods, zone-d none."""
+    nodes = []
+    for name, zone in (("e0", "zone-a"), ("e1", "zone-d")):
+        node = pkg.tu.build_test_node(name, cpu_m=8000)
+        node.labels[ZONE] = zone
+        nodes.append(node)
+    pods = [pkg.tu.build_test_pod(f"q{k}", labels={"app": "a0"}) for k in range(2)]
+    return nodes, pods, [0, 0]
+
+
+def run_dynamic(specs, seed=0, n_templates=4, max_nodes=16, cluster=False, headrooms=None):
+    """estimate_many on both packages (the port on the CPU) and the route
+    the port took."""
+    results = {}
+    routes_before = dict(tes.ROUTES)
+    launches_before = dict(ffd_scan_affinity.LAUNCHES)
+    for label, pkg in (("jax", JAX), ("torch", TORCH)):
+        pods = make_dynamic_pods(pkg, specs)
+        templates = zoned_templates(pkg, seed, n_templates)
+        res = estimator(pkg, max_nodes).estimate_many(
+            pods, templates, headrooms, cluster=cluster_of(pkg) if cluster else None
+        )
+        results[label] = (res, templates)
+    assert ffd_scan_affinity.LAUNCHES == launches_before  # CPU: no kernel launch
+    routed = {k: tes.ROUTES[k] - routes_before[k] for k in tes.ROUTES}
+    return results, routed
+
+
+def per_pod_route(results, routed, route="ffd_scan_aff"):
+    assert routed == {k: int(k == route) for k in routed}, routed
+    return assert_same(results)
+
+
+def test_anti_affinity_world_per_pod_route():
+    results, routed = run_dynamic(dynamic_spec(10, 60, anti=0.4, aff=0.2))
+    tres = per_pod_route(results, routed)
+    assert any(c > 0 for c, _ in tres.values())
+
+
+def test_zone_spread_world_per_pod_route():
+    per_pod_route(*run_dynamic(dynamic_spec(11, 60, spread=0.5, anti=0.2, skew=2)))
+
+
+def test_hostname_spread_world_per_pod_route():
+    per_pod_route(*run_dynamic(dynamic_spec(12, 60, spread=0.6, spread_key=HOST, min_domains=2)))
+
+
+def test_spread_with_a_cluster_context():
+    """The static counts come from existing nodes: zone-a already holds two
+    matching pods, zone-d none."""
+    specs = dynamic_spec(13, 60, spread=0.7, apps=2, min_domains=3)
+    per_pod_route(*run_dynamic(specs, cluster=True))
+
+
+def test_legacy_volume_conflicts_per_pod_route():
+    """Pending sharers of one RW disk: synthetic hostname conflict terms
+    keep them on separate nodes; conflict worlds never take the runs
+    route."""
+    specs = dynamic_spec(14, 40, volumes=0.3, replicated=False)
+    tres = per_pod_route(*run_dynamic(specs))
+    sharers = {s["name"] for s in specs if s["volume"]}
+    for count, pods in tres.values():
+        assert len([p for p in pods if p.name in sharers]) <= max(count, 0)
+
+
+def test_replicated_world_runs_affinity_route():
+    """Replicas of 7 deployments, one with hostname anti-affinity: dedup
+    still halves the runs, so neither K3 nor the torch loop serves."""
+    specs = dynamic_spec(15, 140, replicated=True, apps=7)
+    pods = make_dynamic_pods(TORCH, specs)
+    groups = tes.build_pod_groups(pods)
+    assert len(groups) * 2 <= len(pods)
+    results, routed = run_dynamic(specs)
+    assert routed == {"ffd_scan_aff": 0, "affinity_loop": 0}
+    assert_same(results)
+
+
+def test_replicated_world_with_spread_runs_affinity_route():
+    specs = dynamic_spec(16, 140, replicated=True, apps=7, spread=1.0, spread_key=HOST)
+    results, routed = run_dynamic(specs)
+    assert routed == {"ffd_scan_aff": 0, "affinity_loop": 0}
+    assert_same(results)
+
+
+def test_more_than_32_spread_terms_take_the_torch_loop():
+    """More than 32 apps with distinct spread terms: S buckets to 64,
+    wider than K3's bitset, so the gate sends the estimate to the torch
+    loop."""
+    specs = dynamic_spec(17, 100, spread=1.0, apps=50, skew=2)
+    assert len({s["app"] for s in specs}) > 32
+    per_pod_route(*run_dynamic(specs), route="affinity_loop")
+
+
+def test_headrooms_cap_dynamic_groups():
+    specs = dynamic_spec(18, 60, anti=0.5)
+    tres = per_pod_route(*run_dynamic(specs, headrooms={"ng-0": 1, "ng-2": 2}))
+    assert tres["ng-0"][0] <= 1 and tres["ng-2"][0] <= 2
+
+
+def test_kernel_route_gate(monkeypatch):
+    """The gate reads K3's shared memory from the kernel library on a card
+    (stubbed here), and only the spread width on the CPU."""
+    import torch
+
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    seen = []
+
+    def smem(R, TP, S, max_nodes):
+        seen.append((R, TP, S, max_nodes))
+        return 4 * (R + 2 * TP + S) * max_nodes
+
+    monkeypatch.setattr(ffd_scan_affinity, "affinity_smem_bytes", smem)
+    assert tes.kernel_route(cuda, 6, 64, 32, 1024) == "ffd_scan_aff"
+    assert seen == [(6, 2, 32, 1024)]
+    assert tes.kernel_route(cuda, 6, 64, 32, 2048) == "affinity_loop"
+    assert tes.kernel_route(cuda, 6, 4, 64, 16) == "affinity_loop"
+    assert tes.kernel_route(cpu, 6, 64, 32, 2048) == "ffd_scan_aff"
+    assert tes.kernel_route(cpu, 6, 4, 33, 16) == "affinity_loop"
+
+
+@pytest.mark.parametrize("cluster", [False, True])
+def test_estimate_single_template_dynamic(cluster):
+    """estimate() on a dynamic world runs the torch loop with one group."""
+    specs = dynamic_spec(19, 50, anti=0.3, spread=0.4, apps=3)
+    got = []
+    for pkg in (JAX, TORCH):
+        pods = make_dynamic_pods(pkg, specs)
+        templates = zoned_templates(pkg, 19, 2)
+        est = estimator(pkg, 16)
+        got.append([
+            (c, [p.name for p in sched])
+            for c, sched in (
+                est.estimate(pods, templates[g], max_size_headroom=h,
+                             cluster=cluster_of(pkg) if cluster else None)
+                for g, h in (("ng-0", 0), ("ng-1", 3))
+            )
+        ])
+    assert got[0] == got[1]
 
 
 def test_unported_expanders_raise():
