@@ -6,7 +6,8 @@ loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
 
 - ``ffd_scan``: the plain FFD scans K1 and K2 (``ops/ffd_scan.py``);
 - ``ffd_scan_affinity``: the affinity and spread scan K3
-  (``ops/ffd_scan_affinity.py``).
+  (``ops/ffd_scan_affinity.py``);
+- ``fit_reduce``: the tiled predicate fit K4 (``ops/fit_reduce.py``).
 
 A source is built at first use, into ``build/kernels/`` at the root of the
 checkout (a directory git ignores), under a name keyed by a hash of the
@@ -49,6 +50,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "ffd_scan_affinity": {
         "ffd_scan_aff": [_VOID_P] * 10 + [_INT] * 6 + [_VOID_P],
         "ffd_scan_aff_smem_bytes": [_INT] * 4,
+    },
+    "fit_reduce": {
+        "fit_reduce": [_VOID_P] * 8 + [_INT] * 5 + [_VOID_P],
+        "fit_reduce_smem_bytes": [_INT] * 3,
     },
 }
 

@@ -1,30 +1,66 @@
-"""Host mask engine: the subset of ``autoscaler_tpu/snapshot/packer.py``
-that the scale-up estimate runs.
+"""Object model → dense tensors ("the packer"), the counterpart of
+``autoscaler_tpu/snapshot/packer.py``.
 
-It holds the resource-row flattener (``resources_row``, memory and
-ephemeral storage in MiB), the extended-resource schema, and
-``compute_sched_mask``: the non-resource scheduler predicates
-(taints/tolerations, nodeSelector, required node affinity, unschedulable
-flag, host ports, CSI attach limits, volume restrictions, hard topology
-spread and required inter-pod affinity against placed pods) precomputed
-into a boolean [P, N] mask. The resource-fit predicate stays in the scan,
-because node usage evolves during it. The mask is dense: every row is an
-"exception row" of the JAX package's factored mask, so the hard-spread
-rows apply whatever ``interpod`` is, as they do there.
+Lists of Pod/Node dataclasses become one padded ``SnapshotTensors`` (on
+the card unless the caller asks for the CPU) plus a host-side
+``SnapshotMeta``. The non-resource scheduler predicates (taints and
+tolerations, nodeSelector, required node affinity, unschedulable flag,
+host ports, CSI attach limits, volume restrictions, hard topology spread
+and required inter-pod affinity against placed pods) are precomputed on
+the host into a boolean mask; the resource fit stays on the device,
+because node usage evolves during simulation.
 
-Not here yet (ROADMAP queue 1): the full ``pack`` into ``SnapshotTensors``
-and the factored mask, which come with the packer slice.
+The mask has two forms that one rule engine fills:
+
+- dense ``[P, N]`` (``compute_sched_mask``), which the estimator and
+  small worlds use;
+- factored (``compute_factored_mask``): class verdicts per (pod profile ×
+  node profile), full rows only for the few exception pods (inter-pod
+  affinity, hard spread, volume conflicts) and single-cell overrides for
+  placed host-port and CSI pods on their own nodes. ``pack`` switches to it
+  past ``DENSE_MASK_CELL_LIMIT`` padded cells.
+
+The rule engine (``_apply_row_rules``) writes through a ``_RowView``: the
+whole dense mask, or the exception-row block with a pod → row map.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from autoscaler_tpu_torch.device import resolve_device
 from autoscaler_tpu_torch.kube import objects as k8s
-from autoscaler_tpu_torch.kube.objects import Node, Pod
+from autoscaler_tpu_torch.kube.objects import NUM_RESOURCES, Node, Pod
+from autoscaler_tpu_torch.snapshot.tensors import SnapshotTensors, bucket_size
+
+
+@dataclass
+class SnapshotMeta:
+    """Host-side companion to SnapshotTensors: names, objects, index maps."""
+
+    nodes: List[Node] = field(default_factory=list)
+    pods: List[Pod] = field(default_factory=list)
+    node_index: Dict[str, int] = field(default_factory=dict)
+    pod_index: Dict[str, int] = field(default_factory=dict)
+    group_names: List[str] = field(default_factory=list)
+    group_index: Dict[str, int] = field(default_factory=dict)
+    # named extended resources backing tensor columns NUM_RESOURCES..R-1
+    extended_resources: Tuple[str, ...] = ()
+
+    @property
+    def num_nodes(self) -> int:
+        return len(self.nodes)
+
+    @property
+    def num_pods(self) -> int:
+        return len(self.pods)
+
 
 _MIB = float(1024 * 1024)
+
 
 def extended_schema(*resource_seqs) -> Tuple[str, ...]:
     """Union of named extended-resource names across any number of
@@ -55,6 +91,32 @@ def resources_row(
         for k, name in enumerate(ext):
             row[k8s.NUM_RESOURCES + k] = em.get(name, 0.0)
     return row
+
+
+def resources_rows(
+    items, pods_counts, out: np.ndarray, ext: Tuple[str, ...] = ()
+) -> None:
+    """Vectorized twin of resources_row over a sequence, written into
+    ``out`` [>= len(items), R]. pods_counts=None keeps as_tuple()'s own pods
+    values (the node-allocatable case). Only objects that carry named
+    extended resources loop."""
+    n = len(items)
+    if n == 0:
+        return
+    out[:n, : k8s.NUM_RESOURCES] = np.array(
+        [r.as_tuple() for r in items], dtype=np.float32
+    )
+    out[:n, k8s.MEMORY] /= _MIB
+    out[:n, k8s.EPHEMERAL] /= _MIB
+    if pods_counts is not None:
+        out[:n, k8s.PODS] = pods_counts
+    if ext:
+        col = {name: k8s.NUM_RESOURCES + k for k, name in enumerate(ext)}
+        for i, r in enumerate(items):
+            for name, qty in r.extended:
+                c = col.get(name)  # None: a node-side name outside the schema
+                if c is not None:
+                    out[i, c] = qty
 
 
 def _topology_domains(
@@ -333,27 +395,89 @@ def _legacy_conflict_nodes(
     return out
 
 
+class _RowView:
+    """Write-through view over per-pod mask rows. Dense mode wraps the full
+    [P, N] array; factored mode wraps the [E, N] exception-row block with a
+    pod-index → row map, so the same rule code serves both forms."""
+
+    def __init__(self, arr: np.ndarray, row_of: Optional[Dict[int, int]] = None):
+        self.arr = arr
+        self.row_of = row_of
+
+    def has(self, i: int) -> bool:
+        return self.row_of is None or i in self.row_of
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        return self.arr[i if self.row_of is None else self.row_of[i]]
+
+    def __setitem__(self, i: int, v) -> None:
+        self.arr[i if self.row_of is None else self.row_of[i]] = v
+
+
+def _exception_pods(
+    pods: Sequence[Pod],
+    node_of_pod: Sequence[int],
+    interpod: bool,
+    legacy: Dict[int, set],
+) -> List[int]:
+    """Pod indices whose mask rows the row rules may modify: pods with
+    inter-pod (anti-)affinity and pods matching a placed pod's
+    anti-affinity term (the symmetric rule), hard-spread pods, RWOP
+    conflict rows and legacy-volume conflict rows (``legacy`` is
+    _legacy_conflict_nodes' result). Host ports are not here: they are
+    class-structured apart from the sparse self-cell overrides."""
+    exc: set = _rwop_conflict_rows(pods, node_of_pod)
+    # legacy same-volume conflicts block node SUBSETS: a per-node veto
+    exc |= set(legacy)
+    placed_anti: List[Tuple[int, Pod, k8s.PodAffinityTerm]] = []
+    for i, pod in enumerate(pods):
+        if interpod and pod.affinity and (
+            pod.affinity.pod_affinity or pod.affinity.pod_anti_affinity
+        ):
+            exc.add(i)
+        # hard-spread rows depend on placed-pod counts whatever interpod is
+        if any(c.when_unsatisfiable == "DoNotSchedule" for c in pod.topology_spread):
+            exc.add(i)
+        if interpod and node_of_pod[i] >= 0 and pod.affinity is not None:
+            for term in pod.affinity.pod_anti_affinity:
+                placed_anti.append((i, pod, term))
+    if placed_anti:
+        for i, pod in enumerate(pods):
+            if i in exc:
+                continue
+            for qi, q, term in placed_anti:
+                if i != qi and _term_matches_pod(term, pod, q.namespace):
+                    exc.add(i)
+                    break
+    return sorted(exc)
+
+
 def _apply_row_rules(
-    mask: np.ndarray,
+    view: _RowView,
     nodes: Sequence[Node],
     pods: Sequence[Pod],
     node_of_pod: Sequence[int],
     interpod: bool,
+    legacy: Dict[int, set],
 ) -> None:
     """Apply the volume-restriction, hard topology-spread and inter-pod
-    (anti-)affinity rules vs placed pods to the dense [P, N] mask, in
-    place."""
+    (anti-)affinity rules vs placed pods to the rows ``view`` exposes, in
+    place. Rows absent from the view are skipped: the factored form holds
+    only the exception rows. ``legacy`` is _legacy_conflict_nodes' result."""
     P, N = len(pods), len(nodes)
 
     placed = [
         (i, pods[i], node_of_pod[i]) for i in range(P) if node_of_pod[i] >= 0
     ]
     for i in _rwop_conflict_rows(pods, node_of_pod):
-        mask[i] = False
-    for i, blocked in _legacy_conflict_nodes(pods, node_of_pod).items():
-        for j in blocked:
-            if j < N:
-                mask[i, j] = False
+        if view.has(i):
+            view[i] = np.zeros(N, bool)
+    for i, blocked in legacy.items():
+        if view.has(i):
+            row = view[i]  # a numpy basic slice: writes land in the mask
+            for j in blocked:
+                if j < N:
+                    row[j] = False
 
     domain_cache: Dict[str, Tuple[np.ndarray, Dict[str, int]]] = {}
 
@@ -365,7 +489,7 @@ def _apply_row_rules(
     # Hard topology spread applies whatever ``interpod`` is: the dynamic
     # scan gates only the pods it places itself, so the rule against the
     # placed pods must hold here.
-    _apply_spread_rows(mask, nodes, pods, node_of_pod, placed, domains_for)
+    _apply_spread_rows(view, nodes, pods, node_of_pod, placed, domains_for)
 
     if not interpod:
         return
@@ -374,7 +498,7 @@ def _apply_row_rules(
     # the symmetric anti-affinity rule.
     for i, pod in enumerate(pods):
         aff = pod.affinity
-        if aff is None:
+        if aff is None or not view.has(i):
             continue
         for term in aff.pod_affinity:
             node_dom, _ = domains_for(term.topology_key)
@@ -389,7 +513,7 @@ def _apply_row_rules(
                 allowed = node_dom >= 0
             else:
                 allowed = np.isin(node_dom, list(ok_domains)) & (node_dom >= 0)
-            mask[i] &= allowed
+            view[i] = view[i] & allowed
         for term in aff.pod_anti_affinity:
             node_dom, _ = domains_for(term.topology_key)
             bad_domains = {
@@ -399,8 +523,10 @@ def _apply_row_rules(
                 and _term_matches_pod(term, q, pod.namespace)
             }
             if bad_domains:
-                mask[i] &= ~np.isin(node_dom, list(bad_domains))
+                view[i] = view[i] & ~np.isin(node_dom, list(bad_domains))
 
+    # placed pods' anti-affinity keeps matching pods out of their domain,
+    # except the declaring pod itself
     for (qi, q, j) in placed:
         if q.affinity is None:
             continue
@@ -410,11 +536,11 @@ def _apply_row_rules(
                 continue
             in_domain = node_dom == node_dom[j]
             for i, pod in enumerate(pods):
-                if i != qi and _term_matches_pod(term, pod, q.namespace):
-                    mask[i] &= ~in_domain
+                if i != qi and view.has(i) and _term_matches_pod(term, pod, q.namespace):
+                    view[i] = view[i] & ~in_domain
 
 
-def _apply_spread_rows(mask, nodes, pods, node_of_pod, placed, domains_for) -> None:
+def _apply_spread_rows(view, nodes, pods, node_of_pod, placed, domains_for) -> None:
     """PodTopologySpread hard filter (the scheduler framework's plugin
     behind the reference's CheckPredicates): placing pod i on node n must
     keep count(domain(n)) + selfMatch - minMatchNum <= maxSkew. A node
@@ -429,7 +555,8 @@ def _apply_spread_rows(mask, nodes, pods, node_of_pod, placed, domains_for) -> N
     spread_rows = [
         i
         for i, pod in enumerate(pods)
-        if any(c.when_unsatisfiable == "DoNotSchedule" for c in pod.topology_spread)
+        if view.has(i)
+        and any(c.when_unsatisfiable == "DoNotSchedule" for c in pod.topology_spread)
     ]
     if not spread_rows:
         return
@@ -515,7 +642,7 @@ def _apply_spread_rows(mask, nodes, pods, node_of_pod, placed, domains_for) -> N
             allowed = (node_dom >= 0) & (
                 dom_counts + self_match - min_count <= c.max_skew
             )
-            mask[i] &= allowed
+            view[i] = view[i] & allowed
 
 
 def compute_sched_mask(
@@ -541,5 +668,220 @@ def compute_sched_mask(
         nodes, pods, node_of_pod, port_count, csi_attached
     ):
         mask[i, j] = value
-    _apply_row_rules(mask, nodes, pods, node_of_pod, interpod)
+    _apply_row_rules(
+        _RowView(mask), nodes, pods, node_of_pod, interpod,
+        legacy=_legacy_conflict_nodes(pods, node_of_pod),
+    )
     return mask
+
+
+@dataclass
+class FactoredMask:
+    """Class-factorized predicate mask: the scalable alternative to the
+    dense [P, N] array. Exact: exception pods carry full rows; placed
+    host-port and CSI pods carry one-cell overrides on their own nodes."""
+
+    pod_class: np.ndarray   # [P] i64
+    node_class: np.ndarray  # [N] i64
+    class_mask: np.ndarray  # [CP, CN] bool
+    exc_rows: np.ndarray    # [E, N] bool
+    pod_exc: np.ndarray     # [P] i32, -1 = class-only
+    cell_pod: np.ndarray    # [K] i32 — COO overrides (pod, node) → value
+    cell_node: np.ndarray   # [K] i32
+    cell_val: np.ndarray    # [K] bool
+
+
+def compute_factored_mask(
+    nodes: Sequence[Node],
+    pods: Sequence[Pod],
+    node_of_pod: Sequence[int],
+    interpod: bool = True,
+) -> FactoredMask:
+    """compute_sched_mask's verdicts without materializing [P, N]: class
+    verdicts per (pod profile × node profile), full rows only for the
+    exception pods (_exception_pods), sparse cell overrides for the other
+    placed host-port and CSI pods. Host cost O(profiles² + E·N + K)."""
+    P, N = len(pods), len(nodes)
+    port_count = _node_port_counts(pods, node_of_pod)
+    csi_attached = _node_csi_attached(pods, node_of_pod)
+    pod_prof_id, node_prof_id, prof_mask = _profile_factorization(
+        nodes, pods, node_of_pod, port_count, csi_attached
+    )
+    overrides = _self_cell_overrides(
+        nodes, pods, node_of_pod, port_count, csi_attached
+    )
+    legacy = _legacy_conflict_nodes(pods, node_of_pod)
+    exc = _exception_pods(pods, node_of_pod, interpod, legacy)
+    E = len(exc)
+    exc_rows = np.zeros((max(E, 1), N), bool)
+    row_of = {i: e for e, i in enumerate(exc)}
+    for i, e in row_of.items():
+        exc_rows[e] = prof_mask[pod_prof_id[i]][node_prof_id]
+    # overrides of pods with exception rows bake into the row (before the
+    # &=-only row rules); the rest stay sparse
+    coo: List[Tuple[int, int, bool]] = []
+    for i, j, value in overrides:
+        if i in row_of:
+            exc_rows[row_of[i], j] = value
+        else:
+            coo.append((i, j, value))
+    _apply_row_rules(
+        _RowView(exc_rows, row_of), nodes, pods, node_of_pod, interpod,
+        legacy=legacy,
+    )
+    pod_exc = np.full(P, -1, np.int32)
+    for i, e in row_of.items():
+        pod_exc[i] = e
+    K = len(coo)
+    cell_pod = np.full(max(K, 1), -1, np.int32)
+    cell_node = np.zeros(max(K, 1), np.int32)
+    cell_val = np.zeros(max(K, 1), bool)
+    for k, (i, j, value) in enumerate(coo):
+        cell_pod[k], cell_node[k], cell_val[k] = i, j, value
+    return FactoredMask(
+        pod_class=pod_prof_id,
+        node_class=node_prof_id,
+        class_mask=prof_mask,
+        exc_rows=exc_rows,
+        pod_exc=pod_exc,
+        cell_pod=cell_pod,
+        cell_node=cell_node,
+        cell_val=cell_val,
+    )
+
+
+# Above this many (padded pods × padded nodes) cells the packer switches to
+# the factored mask: 2^24 cells = 16 MB of bool; a 100k × 15k world (1.5 G
+# cells) never materializes.
+DENSE_MASK_CELL_LIMIT = 1 << 24
+
+
+def pack(
+    nodes: Sequence[Node],
+    pods: Sequence[Pod],
+    group_of_node: Optional[Dict[str, str]] = None,
+    pad_pods: Optional[int] = None,
+    pad_nodes: Optional[int] = None,
+    dense_mask: Optional[bool] = None,
+    device=None,
+) -> Tuple[SnapshotTensors, SnapshotMeta]:
+    """Flatten objects into a padded SnapshotTensors + host-side meta.
+
+    group_of_node: node name → node-group name. dense_mask: True → always
+    the dense [P, N] sched_mask; False → always the factored form; None
+    (default) → dense up to DENSE_MASK_CELL_LIMIT cells, factored beyond.
+    device: where the tensors go (None = the first CUDA card; raises
+    without one unless the caller asks for "cpu")."""
+    dev = resolve_device(device)
+    meta = SnapshotMeta(nodes=list(nodes), pods=list(pods))
+    for i, node in enumerate(meta.nodes):
+        meta.node_index[node.name] = i
+    for i, pod in enumerate(meta.pods):
+        meta.pod_index[pod.key()] = i
+
+    group_of_node = group_of_node or {}
+    for g in group_of_node.values():
+        if g not in meta.group_index:
+            meta.group_index[g] = len(meta.group_names)
+            meta.group_names.append(g)
+
+    P, N = len(meta.pods), len(meta.nodes)
+    PP = pad_pods if pad_pods is not None else bucket_size(P)
+    NN = pad_nodes if pad_nodes is not None else bucket_size(N)
+    if PP < P or NN < N:
+        raise ValueError(f"padding ({PP}, {NN}) must not truncate ({P}, {N})")
+    ext = extended_schema((p.requests for p in meta.pods))
+    meta.extended_resources = ext
+    R = NUM_RESOURCES + len(ext)
+
+    if dense_mask is None:
+        dense_mask = PP * NN <= DENSE_MASK_CELL_LIMIT
+
+    node_alloc = np.zeros((NN, R), np.float32)
+    node_used = np.zeros((NN, R), np.float32)
+    node_valid = np.zeros((NN,), bool)
+    node_group = np.full((NN,), -1, np.int32)
+    pod_req = np.zeros((PP, R), np.float32)
+    pod_valid = np.zeros((PP,), bool)
+    pod_node = np.full((PP,), -1, np.int32)
+    pod_priority = np.zeros((PP,), np.int32)
+    pod_preempt = np.zeros((PP,), bool)
+
+    node_of_pod = [
+        meta.node_index.get(pod.node_name, -1) if pod.node_name else -1
+        for pod in meta.pods
+    ]
+
+    # as_tuple() already carries allocatable.pods in the PODS column
+    resources_rows([n.allocatable for n in meta.nodes], None, node_alloc, ext)
+    node_valid[:N] = True
+    for j, node in enumerate(meta.nodes):
+        g = group_of_node.get(node.name)
+        if g is not None:
+            node_group[j] = meta.group_index[g]
+
+    resources_rows([p.requests for p in meta.pods], 1.0, pod_req, ext)
+    pod_valid[:P] = True
+    if P:
+        pod_priority[:P] = [p.priority for p in meta.pods]
+        pod_preempt[:P] = [p.preemption_policy != "Never" for p in meta.pods]
+        nop = np.asarray(node_of_pod)
+        pod_node[:P] = nop
+        placed = nop >= 0
+        if placed.any():
+            np.add.at(node_used, nop[placed], pod_req[:P][placed])
+
+    def on_device(a: np.ndarray) -> torch.Tensor:
+        return torch.tensor(a, device=dev)   # a copy: never aliases ``a``
+
+    common = dict(
+        node_alloc=on_device(node_alloc),
+        node_used=on_device(node_used),
+        node_valid=on_device(node_valid),
+        node_group=on_device(node_group),
+        pod_req=on_device(pod_req),
+        pod_valid=on_device(pod_valid),
+        pod_node=on_device(pod_node),
+        pod_priority=on_device(pod_priority),
+        pod_preempt=on_device(pod_preempt),
+    )
+    if dense_mask:
+        sched_mask = np.zeros((PP, NN), bool)
+        if P and N:
+            sched_mask[:P, :N] = compute_sched_mask(meta.nodes, meta.pods, node_of_pod)
+        return SnapshotTensors(sched_mask=on_device(sched_mask), **common), meta
+
+    fm = compute_factored_mask(meta.nodes, meta.pods, node_of_pod)
+    CP, CN = fm.class_mask.shape
+    class_mask = np.zeros((bucket_size(CP), bucket_size(CN)), bool)
+    class_mask[:CP, :CN] = fm.class_mask
+    E = fm.exc_rows.shape[0]
+    exc_rows = np.zeros((bucket_size(E, minimum=1), NN), bool)
+    exc_rows[:E, :N] = fm.exc_rows
+    pod_class = np.full((PP,), -1, np.int32)
+    pod_class[:P] = fm.pod_class
+    node_class = np.full((NN,), -1, np.int32)
+    node_class[:N] = fm.node_class
+    pod_exc = np.full((PP,), -1, np.int32)
+    pod_exc[:P] = fm.pod_exc
+    K = fm.cell_pod.shape[0]
+    KK = bucket_size(K, minimum=1)
+    cell_pod = np.full((KK,), -1, np.int32)
+    cell_pod[:K] = fm.cell_pod
+    cell_node = np.zeros((KK,), np.int32)
+    cell_node[:K] = fm.cell_node
+    cell_val = np.zeros((KK,), bool)
+    cell_val[:K] = fm.cell_val
+    tensors = SnapshotTensors(
+        sched_mask=None,
+        pod_class=on_device(pod_class),
+        node_class=on_device(node_class),
+        class_mask=on_device(class_mask),
+        exc_rows=on_device(exc_rows),
+        pod_exc=on_device(pod_exc),
+        cell_pod=on_device(cell_pod),
+        cell_node=on_device(cell_node),
+        cell_val=on_device(cell_val),
+        **common,
+    )
+    return tensors, meta

@@ -1,6 +1,7 @@
-"""The repo's scale-up workloads, generated from a seed: the port's own
-copies of the generators in ``bench.py``, ``benchmarks/affinity_bench.py``
-and ``benchmarks/spread_bench.py`` (which import the JAX package). Each
+"""The repo's workloads, generated from a seed: the port's own copies of
+the generators in ``bench.py``, ``benchmarks/affinity_bench.py``,
+``benchmarks/spread_bench.py`` and ``benchmarks/fit_bench.py`` (which
+import the JAX package), and the object-level snapshot world. Each copy
 draws the same numbers from the same seed as its original.
 
 - ``build_workload``: the headline, 100k pending heterogeneous pods
@@ -14,6 +15,11 @@ draws the same numbers from the same seed as its original.
   estimator, 10% with hostname anti-affinity on their app and 5% with a
   DoNotSchedule spread constraint (maxSkew 2) on their app, over zoned
   templates.
+- ``build_fit_workload``: the tiled fit's operands, 100k pods × 15k nodes
+  × 6 resources, 40 × 24 classes (fit_bench's operands).
+- ``build_snapshot_world``: nodes and pods of a 15k-node cluster with
+  100k pods, one in seven pending, zones, taints, selectors, tolerations,
+  hostname anti-affinity and a host-port DaemonSet.
 """
 from __future__ import annotations
 
@@ -26,10 +32,13 @@ from autoscaler_tpu_torch.kube.objects import (
     NUM_RESOURCES,
     PODS,
     LabelSelector,
+    Taint,
+    Toleration,
     TopologySpreadConstraint,
 )
 from autoscaler_tpu_torch.utils.test_utils import (
     GB,
+    MB,
     anti_affinity,
     build_test_node,
     build_test_pod,
@@ -154,3 +163,107 @@ def build_spread_world(P, G, apps, seed=0, topology_key=ZONE):
         t.labels[ZONE] = f"zone-{'abc'[g % 3]}"
         templates[f"g{g}"] = t
     return pods, templates
+
+
+FIT_PODS = 100_000
+FIT_NODES = 15_000
+FIT_POD_CLASSES = 40
+FIT_NODE_CLASSES = 24
+
+
+def build_fit_workload(seed=0):
+    """→ (pod_req [P, 6] f32, free [N, 6] f32, pod_class [P] i32,
+    node_class [N] i32, class_mask [40, 24] bool, node_valid [N] bool) at
+    P = 100 000, N = 15 000: fit_bench's operands, the same numpy calls in
+    the same order."""
+    P, N, R = FIT_PODS, FIT_NODES, 6
+    rng = np.random.default_rng(seed)
+    req = np.zeros((P, R), np.float32)
+    req[:, 0] = rng.integers(50, 2000, P)
+    req[:, 1] = rng.integers(64, 8192, P)
+    req[:, 3] = 1
+    free = np.zeros((N, R), np.float32)
+    free[:, 0] = rng.integers(0, 16000, N)
+    free[:, 1] = rng.integers(0, 32768, N)
+    free[:, 3] = 110
+    CP, CN = FIT_POD_CLASSES, FIT_NODE_CLASSES
+    pod_class = rng.integers(0, CP, P).astype(np.int32)
+    node_class = rng.integers(0, CN, N).astype(np.int32)
+    class_mask = rng.random((CP, CN)) > 0.1
+    node_valid = np.ones(N, bool)
+    return req, free, pod_class, node_class, class_mask, node_valid
+
+
+SNAPSHOT_NODES = 15_000      # a point of the reference's snapshot benchmark grid
+SNAPSHOT_PODS = 100_000
+SNAPSHOT_PORT_NODES = 5_000
+SNAPSHOT_APPS = 300
+HOSTNAME = "kubernetes.io/hostname"
+
+
+def build_snapshot_world(
+    N=SNAPSHOT_NODES, P=SNAPSHOT_PODS, port_nodes=SNAPSHOT_PORT_NODES,
+    apps=SNAPSHOT_APPS, seed=0,
+):
+    """→ (nodes, pods): a cluster of N nodes (4/8/16/32 cores, 16/32/64 GiB,
+    zones a/b/c in turn, one node in ten tainted dedicated=batch:NoSchedule)
+    and P pods of ``apps`` apps (50-1500 m CPU, 64-2048 MiB), one in seven
+    pending. One pod in ten selects a zone and one in twenty tolerates the
+    batch taint; a placed pod sits on a node it selects and tolerates,
+    drawn with weight proportional to the node's cores. One pending pod in
+    a hundred has hostname anti-affinity on its own app. On each of the
+    first ``port_nodes`` nodes runs one more pod, of a host-port DaemonSet
+    (port 9100, tolerating the taint): N + P pods in all when
+    port_nodes = N."""
+    rng = np.random.default_rng(seed)
+    zones = [f"zone-{z}" for z in "abc"]
+    cores = rng.choice([4, 8, 16, 32], N)
+    mem_gib = rng.choice([16, 32, 64], N)
+    zone_of = np.arange(N) % 3
+    tainted = np.arange(N) % 10 == 9
+    batch = Taint(key="dedicated", value="batch")
+    nodes = [
+        build_test_node(
+            f"node-{j:05d}", cpu_m=float(cores[j] * 1000), mem=float(mem_gib[j]) * GB,
+            labels={ZONE: zones[zone_of[j]]}, taints=[batch] if tainted[j] else None,
+        )
+        for j in range(N)
+    ]
+    cpu = rng.integers(50, 1501, P)
+    mem = rng.integers(64, 2049, P)
+    idx = np.arange(P)
+    pending = idx % 7 == 0
+    selector = np.where(idx % 10 == 3, idx % 3, -1)          # zone index or -1
+    tolerates = idx % 20 == 5
+    anti = pending & ((idx // 7) % 100 == 0)
+    # each placed pod on a node it selects and tolerates, weighted by cores
+    node_of = np.full(P, -1, np.int64)
+    for z in (-1, 0, 1, 2):
+        for tol in (False, True):
+            who = ~pending & (selector == z) & (tolerates == tol)
+            ok = (zone_of == z if z >= 0 else np.ones(N, bool)) & (tol | ~tainted)
+            cand = np.flatnonzero(ok)
+            w = cores[cand] / cores[cand].sum()
+            node_of[who] = rng.choice(cand, size=int(who.sum()), p=w)
+    tolerations = [Toleration(key="dedicated", value="batch", effect="NoSchedule")]
+    pods = []
+    for i in range(P):
+        app = f"app-{i % apps}"
+        pods.append(build_test_pod(
+            f"pod-{i:06d}", cpu_m=float(cpu[i]), mem=float(mem[i]) * MB,
+            labels={"app": app},
+            node_selector={ZONE: zones[selector[i]]} if selector[i] >= 0 else None,
+            tolerations=tolerations if tolerates[i] else None,
+            affinity=anti_affinity({"app": app}, HOSTNAME) if anti[i] else None,
+            node_name=nodes[node_of[i]].name if node_of[i] >= 0 else "",
+        ))
+    for j in range(port_nodes):
+        ds = build_test_pod(
+            f"node-exporter-{j:05d}", cpu_m=50.0, mem=64.0 * MB,
+            labels={"app": "node-exporter"}, tolerations=tolerations,
+            owner_kind="DaemonSet", node_name=nodes[j].name,
+        )
+        ds.host_ports = (9100,)
+        ds.daemonset = True
+        pods.append(ds)
+    return nodes, pods

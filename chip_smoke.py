@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port's main paths, the scale-up estimate with and
-without dynamic inter-pod affinity and hard topology spread, on one CUDA
-card through its hand-written kernels, and holds every kernel against its
-plain PyTorch version.
+without dynamic inter-pod affinity and hard topology spread, and the
+cluster snapshot's predicate fit, on one CUDA card through its
+hand-written kernels, and holds every kernel against its plain PyTorch
+version.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -29,7 +30,17 @@ Phases (any failure raises and exits non-zero):
       (K3), and the same world with the spread over the hostname key;
    f. a replicated affinity world (30k pods of 300 deployments, one in ten
       with hostname anti-affinity on its own app; the runs-affinity route,
-      no kernel).
+      no kernel);
+   g. the tiled fit (benchmarks/fit_bench.py's operands: 100k pods × 15k
+      nodes × 6 resources, 40 × 24 classes, 1.5 G pairs) through
+      ``fit_reduce_cuda`` (K4);
+   h. the snapshot probe: a ``ClusterSnapshot`` on the card holding a
+      15k-node, 105k-pod world (one pod in seven pending, hostname
+      anti-affinity on 1% of them, a host-port DaemonSet on 5k nodes) is
+      packed into factored ``SnapshotTensors`` and probed by
+      ``DebuggingSnapshotter.capture`` (``fits_any_node``) and
+      ``first_fit_node``, each through ``fit_reduce_exact`` (K4 plus the
+      exact patch of the exception-row and single-cell pods).
    Every kernel of the paths must have launched;
 4. each kernel at its headline shape against its plain version on the same
    card tensors (K1/K2 on all 500 groups, K3 on all 100 groups), exactly;
@@ -37,9 +48,13 @@ Phases (any failure raises and exits non-zero):
    launches on the two spread worlds included (all 16 groups); the
    estimator's results and choices against the same calls on the CPU (the
    CPU takes a stride sample of the templates for the dynamic worlds:
-   each group's result depends on its own template only);
+   each group's result depends on its own template only); K4 on all 100k
+   pods of the tiled fit and on the probe's two launches (4e); the probe's
+   ``fit_reduce_exact`` on all 131 072 pod rows against a reduction of
+   ``dense_sched()`` rows chunked by pods (4f);
 5. timings with CUDA events: each kernel alone, its whole entry call, and
-   the plain version; K3 on the zone and hostname spread worlds.
+   the plain version; K3 on the zone and hostname spread worlds; K4 on the
+   probe's operands and the whole ``fit_reduce_exact`` there.
 
 The last two lines of standard output are the kernels line (one JSON
 object) and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -53,6 +68,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 # The card's peak rates (NVIDIA H100 SXM data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -121,7 +137,9 @@ def main() -> int:
     from autoscaler_tpu_torch.estimator.limiter import ThresholdBasedEstimationLimiter
     from autoscaler_tpu_torch.expander.core import Option, build_strategy
     from autoscaler_tpu_torch.kube.objects import MEMORY, OwnerRef, Taint, Toleration
-    from autoscaler_tpu_torch.ops import _build, ffd_scan, ffd_scan_affinity
+    from autoscaler_tpu_torch.debugging import DebuggingSnapshotter
+    from autoscaler_tpu_torch.ops import _build, ffd_scan, ffd_scan_affinity, fit, fit_reduce
+    from autoscaler_tpu_torch.snapshot.cluster_snapshot import ClusterSnapshot
     from autoscaler_tpu_torch.snapshot.tensors import bucket_size
     from autoscaler_tpu_torch.utils.test_utils import (
         GB,
@@ -141,6 +159,8 @@ def main() -> int:
         SPREAD_MAX_NODES,
         SPREAD_PODS,
         build_affinity_workload,
+        build_fit_workload,
+        build_snapshot_world,
         build_spread_world,
         build_workload,
     )
@@ -235,6 +255,15 @@ def main() -> int:
             SPREAD_PODS, SPREAD_GROUPS, SPREAD_APPS, topology_key=HOSTNAME_KEY
         ),
     }
+    fit_np = build_fit_workload()
+    fit_ops = tuple(torch.tensor(a, device=dev) for a in fit_np)   # copies
+    world_nodes, world_pods = build_snapshot_world()
+    snapshot = ClusterSnapshot()                   # device=None: the card
+    for node in world_nodes:
+        snapshot.add_node(node)
+    for pod in world_pods:
+        snapshot.add_pod(pod)
+    world_pending = snapshot.pending_pods()
     phase("operand set-up", t0)
 
     class Group:
@@ -267,8 +296,9 @@ def main() -> int:
         best = strategy.best_option(options)
         return (best.node_group.id() if best else None), strategy.last_table
 
-    counters = (ffd_scan.LAUNCHES, ffd_scan_affinity.LAUNCHES, binpacking.ROUTES)
-    launches = {name: 0 for d in counters[:2] for name in d}
+    counters = (ffd_scan.LAUNCHES, ffd_scan_affinity.LAUNCHES, fit_reduce.LAUNCHES,
+                binpacking.ROUTES)
+    launches = {name: 0 for d in counters[:3] for name in d}
 
     def run_path(label, fn):
         """Drive one main path with every count set to 0 just before it;
@@ -280,7 +310,7 @@ def main() -> int:
         out = fn()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = {**ffd_scan.LAUNCHES, **ffd_scan_affinity.LAUNCHES,
+        counts = {**ffd_scan.LAUNCHES, **ffd_scan_affinity.LAUNCHES, **fit_reduce.LAUNCHES,
                   **{f"route:{k}": v for k, v in binpacking.ROUTES.items()}}
         for name in launches:
             launches[name] += counts[name]
@@ -354,6 +384,65 @@ def main() -> int:
     )
     check(not any(counts.values()),
           "the replicated affinity world did not take the runs-affinity route")
+
+    res_fit, counts, t_fit = run_path(
+        "fit-K4", lambda: fit_reduce.fit_reduce_cuda(*fit_ops)
+    )
+    check(counts["fit_reduce"] == 1, "the tiled fit did not run K4 once")
+
+    # the snapshot probe: capture the operands K4 is handed and what it
+    # returns, to hold it against its plain version and time it below
+    debugger = DebuggingSnapshotter()
+    stand_in = SimpleNamespace(provider=SimpleNamespace(node_groups=lambda: [
+        Group(f"pool-{k}", world_nodes[k]) for k in range(3)
+    ]))
+    last_result = SimpleNamespace(
+        scale_up=None, pending_pods=len(world_pending), unneeded_nodes=[]
+    )
+    probe_launches = []
+    real_fit = fit_reduce.fit_reduce_cuda
+
+    def capture_fit(*operands):
+        out = real_fit(*operands)
+        probe_launches.append((operands, out))
+        return out
+
+    def probe_path():
+        t0 = time.perf_counter()
+        tensors, meta = snapshot.tensors()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        debugger.request()
+        debugger.capture(stand_in, snapshot, world_pending, last_result, now=0.0)
+        first = fit.first_fit_node(tensors)
+        torch.cuda.synchronize()
+        return tensors, meta, first, t1 - t0, time.perf_counter() - t1
+
+    fit_reduce.fit_reduce_cuda = capture_fit
+    try:
+        (probe_t, probe_meta, probe_first, t_pack, t_probe), counts, _ = run_path(
+            "snapshot probe", probe_path
+        )
+    finally:
+        fit_reduce.fit_reduce_cuda = real_fit
+    check(counts["fit_reduce"] == 2, "the snapshot probe did not run K4 twice")
+    check(probe_t.sched_mask is None, "the snapshot world did not pack factored")
+    n_exc = int((probe_t.pod_exc >= 0).sum())
+    n_cells = int((probe_t.cell_pod >= 0).sum())
+    check(n_exc > 0 and n_cells > 0, "the factored pack has no exception rows or no cells")
+    payload = json.loads(debugger.get())
+    n_fitting = len(payload["pending_pods_fitting_free_capacity"])
+    check(n_fitting > 0, "the probe found no pending pod fitting free capacity")
+    print(
+        f"# snapshot probe: {probe_meta.num_nodes} nodes, {probe_meta.num_pods} pods "
+        f"({len(world_pending)} pending), padded {probe_t.num_pods} x {probe_t.num_nodes}, "
+        f"factored: class mask {list(probe_t.class_mask.shape)}, exception rows "
+        f"{n_exc} of {probe_t.exc_rows.shape[0]}, cells {n_cells} of "
+        f"{probe_t.cell_pod.shape[0]}; pack {t_pack:.3f} s host clock, probe "
+        f"(capture + first_fit_node) {t_probe:.3f} s host clock; {n_fitting} pending "
+        f"pods fit free capacity, {int((probe_first >= 0).sum())} pods have a first fit",
+        flush=True,
+    )
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main paths")
     check(
@@ -618,6 +707,110 @@ def main() -> int:
     compare_sampled("replicated affinity world", cpu_estimator, replicated_aff, templates,
                     replicated_aff_card, CPU_RUNS_TEMPLATE_STRIDE)
 
+    # K4 against its plain version on the card: the tiled fit's main-path
+    # launch on all 100k pods, and the probe's two launches on the operands
+    # they were handed
+    t0 = time.perf_counter()
+
+    def hold(label, want, got):
+        """Every field equal, dtype and all; → the largest difference (0)."""
+        err = 0.0
+        for field, a, b in zip(want._fields, want, got):
+            check(a.dtype == b.dtype and a.shape == b.shape, f"{label}: {field} layout")
+            check(torch.equal(a, b), f"{label}: {field} differs from the plain version")
+            err = max(err, float((a.double() - b.double()).abs().max()))
+        return err
+
+    fit_stats, probe_stats = {}, {}
+    max_err = hold("fit_reduce (fit-K4)", fit_reduce._fit_reduce_plain(*fit_ops, stats=fit_stats),
+                   res_fit)
+    for k, (operands, got) in enumerate(probe_launches):
+        max_err = max(max_err, hold(
+            f"fit_reduce (probe launch {k})",
+            fit_reduce._fit_reduce_plain(*operands, stats=probe_stats if k == 0 else None), got,
+        ))
+    ms = event_ms(lambda: fit_reduce.fit_reduce_cuda(*fit_ops))
+    plain_ms = event_ms(lambda: fit_reduce._fit_reduce_plain(*fit_ops), reps=1)
+    probe_ops = probe_launches[0][0]
+    probe_k4_ms = event_ms(lambda: fit_reduce.fit_reduce_cuda(*probe_ops))
+    call_ms = event_ms(lambda: fit_reduce.fit_reduce_exact(probe_t))
+    P_f, R_f = fit_ops[0].shape
+    N_f = fit_ops[1].shape[0]
+    CP_f, CN_f = fit_ops[4].shape
+    # operands read once (f32 rows, i32 classes, bool mask and validity),
+    # outputs written once (bool, i32, i32)
+    bytes_moved = (P_f * R_f * 4 + N_f * R_f * 4 + P_f * 4 + N_f * 4 + CP_f * CN_f + N_f
+                   + P_f * (1 + 4 + 4))
+    operations = fit_stats["class_tests"] + fit_stats["compares"]
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = operations / FP32_OPS_PER_S * 1e3
+    kernels.append({
+        "name": "fit_reduce",
+        "route": "cuda",
+        "source": "autoscaler_tpu_torch/csrc/fit_reduce.cu",
+        "replaces": "autoscaler_tpu/ops/pallas_fit.py:78",
+        "launches": launches["fit_reduce"],
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "parity": "exact",
+        "call_ms": call_ms,
+    })
+    probe_ops_count = probe_stats["class_tests"] + probe_stats["compares"]
+    print(
+        f"# fit_reduce: {ms:.3f} ms kernel at fit-K4 ({P_f} pods x {N_f} nodes, "
+        f"{ms * 1e9 / (P_f * N_f):.4f} ps a pair), {plain_ms:.1f} ms plain, parity exact on "
+        f"all {P_f} pods; probe: {probe_k4_ms:.3f} ms kernel, {call_ms:.3f} ms whole "
+        f"fit_reduce_exact (exact patch {call_ms - probe_k4_ms:.3f} ms), parity exact on "
+        f"both launches ({len(probe_launches)})", flush=True,
+    )
+    print(
+        f"# fit_reduce bound {max(bytes_ms, ops_ms):.4f} ms ({kernels[-1]['bound_by']}): "
+        f"P={P_f} N={N_f} R={R_f} CP={CP_f} CN={CN_f}, {bytes_moved} B moved "
+        f"({bytes_ms:.4f} ms), {fit_stats['class_tests']} class tests + "
+        f"{fit_stats['compares']} compares = {operations} operations ({ops_ms:.4f} ms); "
+        f"{fit_reduce.smem_bytes(R_f, CP_f, CN_f)} B dynamic shared memory a block; probe "
+        f"launch: {probe_stats['class_tests']} class tests + {probe_stats['compares']} "
+        f"compares = {probe_ops_count} operations "
+        f"({probe_ops_count / FP32_OPS_PER_S * 1e3:.4f} ms at the peak rate)", flush=True,
+    )
+    phase("4e K4 against its plain version", t0)
+
+    # the probe's exact reduction on every pod row against an independent
+    # dense path: dense_sched() expands classes, exception rows and cells
+    # itself, and the reduction runs over it chunked by pods
+    t0 = time.perf_counter()
+    exact = fit_reduce.fit_reduce_exact(probe_t)
+    dense = probe_t.dense_sched()
+    free_d = probe_t.free()
+    ref_parts = []
+    for s0 in range(0, probe_t.num_pods, 2048):
+        rows = slice(s0, s0 + 2048)
+        fits = (probe_t.pod_req[rows, None, :] <= free_d[None, :, :]).all(dim=2)
+        fits &= dense[rows] & probe_t.pod_valid[rows, None] & probe_t.node_valid[None, :]
+        cnt = fits.sum(dim=1, dtype=torch.int32)
+        first = fits.to(torch.uint8).argmax(dim=1).to(torch.int32)   # the first max
+        ref_parts.append((cnt > 0, cnt, torch.where(cnt > 0, first, -1)))
+    ref = fit_reduce.FitReduction(*(torch.cat(x) for x in zip(*ref_parts)))
+    del dense, ref_parts
+    for field, a, b in zip(ref._fields, ref, exact):
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"probe: fit_reduce_exact {field} differs from the dense path")
+    check(torch.equal(probe_first, ref.first_fit), "probe: first_fit_node differs from the dense path")
+    ref_any = ref.any_fit.cpu().numpy()
+    fitting = sorted(p.key() for p in world_pending if ref_any[probe_meta.pod_index[p.key()]])
+    check(sorted(payload["pending_pods_fitting_free_capacity"]) == fitting,
+          "probe: the capture's fitting pods differ from the dense path")
+    print(
+        f"# probe: fit_reduce_exact equals the dense path on all {probe_t.num_pods} pod "
+        f"rows ({int(ref.any_fit.sum())} fit somewhere, "
+        f"{int(ref.fit_count.sum())} fitting pairs)", flush=True,
+    )
+    phase("4f the probe against a dense path", t0)
+
     # where the burst estimate's time goes: the host operand build (mask
     # engine, packing) and the scan call on the card
     names = sorted(templates)
@@ -633,7 +826,7 @@ def main() -> int:
         f"# burst estimate {t_burst:.3f} s: host operand build {t_build:.3f} s, "
         f"scan call {burst_scan_ms:.3f} ms on the card; headline {t_headline:.3f} s, "
         f"replicated {t_replicated:.3f} s, affinity workload {t_aff:.3f} s, "
-        f"replicated affinity {t_replicated_aff:.3f} s", flush=True,
+        f"replicated affinity {t_replicated_aff:.3f} s, fit-K4 {t_fit:.3f} s", flush=True,
     )
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -1,4 +1,4 @@
-"""The hand-written kernels K1, K2 and K3 on the card, against their plain
+"""The hand-written kernels K1, K2, K3 and K4 on the card, against their plain
 PyTorch versions on the same card tensors, and the port's entry points on
 the card against the same calls on the CPU. Marked ``gpu``: without a card
 every test skips. On the card (the JAX package is not installed there, so
@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from autoscaler_tpu_torch.ops import ffd_scan, ffd_scan_affinity
+from autoscaler_tpu_torch.ops import ffd_scan, ffd_scan_affinity, fit_reduce
 from torch_parity import (
     CPU,
     MEMORY,
@@ -219,3 +219,68 @@ def test_estimator_dynamic_route_on_card_equals_cpu(cuda):
     for g in templates:
         assert on_card[g][0] == on_cpu[g][0]
         assert [p.name for p in on_card[g][1]] == [p.name for p in on_cpu[g][1]]
+
+
+def _fit_case(seed, P, N, R=6, CP=4, CN=3):
+    """tests/test_pallas_fit.py::build_case widened to R axes, with
+    classless pods, -1 node classes and invalid nodes."""
+    rng = np.random.default_rng(seed)
+    req = rng.integers(0, 60, (P, R)).astype(np.float32)
+    free = rng.integers(0, 200, (N, R)).astype(np.float32)
+    pod_class = rng.integers(-1, CP, P).astype(np.int32)
+    node_class = rng.integers(-1, CN, N).astype(np.int32)
+    class_mask = rng.random((CP, CN)) > 0.3
+    node_valid = rng.random(N) > 0.05
+    free[~node_valid] = 0
+    return req, free, pod_class, node_class, class_mask, node_valid
+
+
+@pytest.mark.parametrize(
+    "P,N,R,CP,CN",
+    [(64, 64, 6, 4, 3), (1000, 1500, 6, 40, 24), (300, 700, 11, 4, 3),
+     (70, 130, 1, 8, 8), (517, 2049, 8, 200, 200)],
+)
+def test_fit_reduce_kernel_matches_plain_version(cuda, P, N, R, CP, CN):
+    """K4 against its plain version on the same card tensors: ragged
+    sizes, R from 1 to 11 (the generic-R path above 8), a class mask too
+    large for shared memory (200 x 200), and the launch count."""
+    ops = tuple(torch.tensor(a, device=cuda) for a in _fit_case(P + N, P, N, R, CP, CN))
+    before = fit_reduce.LAUNCHES["fit_reduce"]
+    got = fit_reduce.fit_reduce_cuda(*ops)
+    torch.cuda.synchronize()
+    assert fit_reduce.LAUNCHES["fit_reduce"] == before + 1
+    want = fit_reduce._fit_reduce_plain(*ops)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    ref = fit_reduce.reference_fit_reduce(*_fit_case(P + N, P, N, R, CP, CN))
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(a, b.cpu().numpy())
+
+
+def test_fit_reduce_kernel_at_fit_bench_shape(cuda):
+    from autoscaler_tpu_torch.utils.workload import build_fit_workload
+
+    ops = tuple(torch.tensor(a, device=cuda) for a in build_fit_workload())
+    got = fit_reduce.fit_reduce_cuda(*ops)
+    want = fit_reduce._fit_reduce_plain(*ops)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+def test_fit_reduce_exact_on_card_equals_cpu(cuda):
+    """The snapshot path on the card (pack, K4, the exact patch) against
+    the same calls on the CPU, on a factored world with exception rows and
+    single-cell overrides."""
+    import autoscaler_tpu_torch.kube.objects as tobj
+    import autoscaler_tpu_torch.utils.test_utils as ttu
+    from autoscaler_tpu_torch.snapshot.packer import pack
+    from torch_parity import mask_world
+
+    nodes, pods, _ = mask_world(ttu, tobj, 0, P=300, N=40)
+    outs = []
+    for dev in (cuda, "cpu"):
+        t, _ = pack(nodes, pods, dense_mask=False, device=dev)
+        outs.append(fit_reduce.fit_reduce_exact(t))
+    assert (t.pod_exc >= 0).any() and (t.cell_pod >= 0).any()
+    for a, b in zip(outs[1], outs[0]):
+        assert torch.equal(a, b.cpu())

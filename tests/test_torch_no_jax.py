@@ -66,9 +66,24 @@ res = BinpackingNodeEstimator(device="cpu").estimate_many(
     pods, {"g": build_test_node("t", cpu_m=1000)}
 )
 assert len(res["g"][1]) == 12, res["g"]
+from autoscaler_tpu_torch.ops.fit import first_fit_node, fits_any_node
+from autoscaler_tpu_torch.snapshot.cluster_snapshot import ClusterSnapshot
+from autoscaler_tpu_torch.snapshot.packer import pack
+nodes = [build_test_node(f"n{j}", cpu_m=1000) for j in range(3)]
+placed = [build_test_pod(f"q{j}", cpu_m=800, node_name=f"n{j}") for j in range(2)]
+small = [build_test_pod(f"s{i}", cpu_m=150 * (i + 1)) for i in range(4)]
+fits = [fits_any_node(pack(nodes, placed + small, dense_mask=d, device="cpu")[0])
+        for d in (True, False)]
+assert fits[0].tolist() == fits[1].tolist(), fits
+snap = ClusterSnapshot(device="cpu")
+for n in nodes:
+    snap.add_node(n)
+for p in placed + small:
+    snap.add_pod(p)
+first = first_fit_node(snap.tensors()[0])
 loaded = [m for m in sys.modules if m == "autoscaler_tpu" or m.startswith("autoscaler_tpu.")]
 assert not loaded, loaded
-print("OK", res["g"][0])
+print("OK", res["g"][0], sum(fits[0].tolist()), first[:6].tolist())
 """
 
 
@@ -79,7 +94,10 @@ def test_port_imports_and_estimates_with_jax_blocked():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.strip() == "OK 4"  # 3642 millicores on four 1000m nodes
+    # 3642 millicores on four 1000m nodes; every pod fits somewhere: the
+    # two placed 800m pods and the 300-600m ones only on the empty node 2,
+    # the 150m pod first on node 0 (200m free)
+    assert proc.stdout.strip() == "OK 4 6 [2, 2, 0, 2, 2, 2]"
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -98,6 +116,42 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         operands_from_numpy([[1.0]], [[True]], [[1.0]])
     assert resolve_device("cpu") == torch.device("cpu")
     assert BinpackingNodeEstimator(device="cpu").device.type == "cpu"
+
+
+def test_snapshot_entry_points_raise_without_a_card(monkeypatch):
+    from autoscaler_tpu_torch.snapshot.cluster_snapshot import ClusterSnapshot
+    from autoscaler_tpu_torch.snapshot.packer import pack
+    from autoscaler_tpu_torch.snapshot.tensors import empty_snapshot, tensors_from_numpy
+    from autoscaler_tpu_torch.utils.test_utils import build_test_node, build_test_pod
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    nodes, pods = [build_test_node("n0")], [build_test_pod("p0")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pack(nodes, pods)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClusterSnapshot().tensors()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        empty_snapshot(8, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tensors_from_numpy({"pod_valid": [True]})
+    assert pack(nodes, pods, device="cpu")[0].pod_req.device.type == "cpu"
+
+
+def test_fit_kernel_builds_or_raises(monkeypatch, tmp_path):
+    """K4's launch path has no fallback: with no CUDA compiler the build
+    raises (the wrapper takes the plain version only for CPU tensors)."""
+    import shutil
+
+    import torch.utils.cpp_extension as cpp_ext
+
+    from autoscaler_tpu_torch.ops import _build
+
+    monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("fit_reduce")
 
 
 def _run_smoke(cwd: Path):

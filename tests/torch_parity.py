@@ -114,3 +114,41 @@ def hostname_skew_pods(tu, obj, P=40, big=4):
             p.topology_spread = (c,)
             pods.append(p)
     return pods
+
+
+def mask_world(tu, obj, seed, P=40, N=12, place=True):
+    """The world of tests/test_factored_mask.py::world built with either
+    package's ``tu`` (test_utils) and ``obj`` (kube.objects): taints,
+    selectors, an unschedulable node, host ports, placed and pending
+    (anti-)affinity. → (nodes, pods, node_of_pod); with ``place`` the
+    placed pods also carry their node's name, as the packer reads it."""
+    rng = np.random.default_rng(seed)
+    nodes = []
+    for j in range(N):
+        labels = {"zone": f"z{j % 3}", "pool": f"p{j % 2}"}
+        taints = [obj.Taint("dedicated", "a", "NoSchedule")] if j % 4 == 0 else []
+        n = tu.build_test_node(f"n{j}", cpu_m=4000, labels=labels, taints=taints)
+        n.unschedulable = j % 7 == 6
+        nodes.append(n)
+    pods = []
+    node_of_pod = []
+    for i in range(P):
+        kw = {}
+        if i % 5 == 0:
+            kw["node_selector"] = {"pool": f"p{i % 2}"}
+        if i % 4 == 0:
+            kw["tolerations"] = [obj.Toleration(key="dedicated", value="a")]
+        if i % 6 == 3:
+            kw["affinity"] = tu.anti_affinity({"app": f"a{i % 3}"})
+        if i % 6 == 5:
+            kw["affinity"] = tu.pod_affinity({"app": f"a{i % 3}"}, topology_key="zone")
+        pod = tu.build_test_pod(f"pod{i}", cpu_m=100, labels={"app": f"a{i % 3}"}, **kw)
+        if i % 9 == 1:
+            pod.host_ports = (8080,)
+        placed = rng.random() < 0.5
+        node_of_pod.append(int(rng.integers(0, N)) if placed else -1)
+        pods.append(pod)
+    if place:
+        for i, pod in enumerate(pods):
+            pod.node_name = nodes[node_of_pod[i]].name if node_of_pod[i] >= 0 else ""
+    return nodes, pods, node_of_pod
