@@ -42,6 +42,8 @@ from autoscaler_tpu_torch.ops.binpack import BinpackResult, score_order
 
 BIG_I32 = 2**31 - 1
 STEP_BLOCK = 32  # the kernels stage 32 steps at a time: P pads to a multiple
+NODE_BLOCK = 32  # nodes a warp tests at once, and a block summary covers
+GROUP_WARPS = 8  # warps of each group's block (kWarps in csrc/ffd_scan.cu)
 
 # Launch counts of the kernels: each wrapper adds one where it launches
 # its kernel, and nowhere else.
@@ -264,14 +266,30 @@ def prepare_scan(
 # -- the two kernels: wrappers and their plain versions ----------------------
 
 
-def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats):
+SEARCH_CHUNK = 512  # steps whose search the plain version counts at once
+
+
+def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats, block_max):
     """The kernels' step loop in PyTorch, vectorized over groups and nodes.
     Every node is tested each step; closed nodes all hold free == alloc, so
     the min lands on node `opened` exactly when the kernel's bounded test
     does. ``inactive`` is the [NP] row that masked pods carry. ``stats``,
-    when given, gets ``node_tests``: the node fit tests the data needs
-    (nodes 0..first for a pod that fits somewhere, every open node plus one
-    closed node otherwise; none for inactive rows)."""
+    when given, gets the work counts of the data:
+
+    - ``node_tests``: the node fit tests the data needs (nodes 0..first for
+      a pod that fits somewhere, every open node plus one closed node
+      otherwise; none for inactive rows);
+    - and, as the kernels search (``_search_counts``): ``summary_tests``,
+      the blocks tested against their summaries; ``candidate_blocks``, the
+      blocks that passed and were searched; ``rounds``, the search rounds
+      of GROUP_WARPS blocks each (one barrier each); ``placements``; and
+      ``max_group_*`` of the last three, the largest count of any group
+      (the kernels end with their slowest group).
+
+    ``block_max`` gives the block summaries of a carry: the kernels keep
+    each summary exact at every step (refreshed on every placement in its
+    block), so the plain version takes them afresh from the carry before
+    each step, and counts the search SEARCH_CHUNK steps at a time."""
     G, P_pad, NP = stream.shape
     dev = stream.device
     M = max_nodes
@@ -281,11 +299,34 @@ def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats):
     rows = torch.arange(G, device=dev)
     placed = torch.zeros((G, P_pad), dtype=torch.bool, device=dev)
     tests = torch.zeros((), dtype=torch.int64, device=dev)
+    if stats is not None:
+        NB = -(-M // NODE_BLOCK)
+        span = torch.clamp(caps, min=0, max=M)
+        live = torch.zeros((G, 1, NB * NODE_BLOCK), dtype=torch.bool, device=dev)
+        live[:, 0, :M] = node_ids[None, :] < span[:, None]           # below the cap
+        C = min(SEARCH_CHUNK, P_pad)
+        summs = torch.empty((C, G, NP, NB), dtype=stream.dtype, device=dev)
+        firsts = torch.empty((C, G), dtype=torch.int32, device=dev)
+        openeds = torch.empty((C, G), dtype=torch.int32, device=dev)
+        work = torch.zeros((3, G), dtype=torch.int64, device=dev)
     for s in range(P_pad):
         req = stream[:, s, :]                                        # [G, NP]
         fits = fit(free, req).all(dim=1)                             # [G, M]
         first = torch.where(fits, node_ids, BIG_I32).amin(dim=1)     # [G]
         place = first < caps
+        if stats is not None:
+            i = s % C
+            summs[i] = block_max(free, live)
+            firsts[i] = first
+            openeds[i] = opened
+            if i == C - 1 or s == P_pad - 1:
+                s0 = s - i
+                work += _search_counts(
+                    summs[:i + 1].flatten(0, 1),
+                    stream[:, s0:s + 1, :].transpose(0, 1).flatten(0, 1),
+                    firsts[:i + 1].flatten(), openeds[:i + 1].flatten(),
+                    span.repeat(i + 1), fit,
+                ).unflatten(1, (i + 1, G)).sum(dim=1)
         # only the hit node changes; select, never a multiply by a 0/1
         # flag (inf * 0 is NaN)
         tgt = torch.clamp(first, max=M - 1).long()
@@ -298,8 +339,91 @@ def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats):
             need = torch.where(first < BIG_I32, first, lim) + 1
             tests += torch.where((req != inactive).any(dim=1), need, 0).sum()
     if stats is not None:
-        stats["node_tests"] = stats.get("node_tests", 0) + int(tests)
+        work = torch.cat([work, placed.sum(dim=1)[None]])            # [4, G]
+        keys = ("summary_tests", "candidate_blocks", "rounds", "placements")
+        counts = dict(zip(keys, work.sum(dim=1).tolist()))
+        counts["node_tests"] = int(tests)
+        for key, n in counts.items():
+            stats[key] = stats.get(key, 0) + n
+        # the kernels end with their slowest group: its share of the work
+        for key, n in zip(keys[1:], work[1:].amax(dim=1).tolist()):
+            stats[f"max_group_{key}"] = max(stats.get(f"max_group_{key}", 0), n)
     return free, opened, placed
+
+
+def _search_counts(summ, req, first, opened, span, fit):
+    """The kernels' search on N group steps, counted: the blocks 0..lim/32
+    (lim = min(opened, span - 1)) tested against their summaries, in passes
+    of 32; within a pass, the blocks that pass searched GROUP_WARPS at a
+    time in node order until the round that holds `first` → [3, N] int64
+    (summary tests, candidate blocks searched, rounds). summ [N, NP, NB],
+    req [N, NP], first, opened and span [N]."""
+    N, NP, NB = summ.shape
+    lim = torch.minimum(opened, span - 1)
+    nblk = torch.where(lim >= 0, lim // NODE_BLOCK + 1, 0)           # [N]
+    blk = torch.arange(NB, device=summ.device)
+    cand = fit(summ, req).all(dim=1) & (blk[None, :] < nblk[:, None])  # [N, NB]
+    # the kernels search below the cap only
+    hit = torch.where(first < span, first // NODE_BLOCK, BIG_I32)    # [N]
+    searched = torch.zeros((N,), dtype=torch.int64, device=summ.device)
+    rounds = torch.zeros_like(searched)
+    for q0 in range(0, NB, NODE_BLOCK):
+        in_pass = cand[:, q0:q0 + NODE_BLOCK]
+        n = in_pass.sum(dim=1)
+        rank = (in_pass & (blk[None, q0:q0 + NODE_BLOCK] < hit[:, None])).sum(dim=1)
+        at_hit = (hit >= q0) & (hit < q0 + NODE_BLOCK)
+        before = hit >= q0 + NODE_BLOCK          # a pass ahead of the hit, or no hit
+        r = torch.where(at_hit, rank // GROUP_WARPS + 1,
+                        torch.where(before, -(-n // GROUP_WARPS), 0))
+        rounds += r
+        searched += torch.minimum(n, r * GROUP_WARPS)
+    return torch.stack([nblk.to(torch.int64), searched, rounds])
+
+
+def _blocks(x: torch.Tensor) -> torch.Tensor:
+    """[..., NB * 32] → [..., NB, 32]."""
+    return x.unflatten(-1, (x.shape[-1] // NODE_BLOCK, NODE_BLOCK))
+
+
+def _f32_block_max(free, live):
+    """Block summaries of an f32 carry [G, NP, M] → [G, NP, NB]: the max
+    over each block's nodes below the cap (``live`` [G, 1, NB * 32]),
+    NaN nodes left out (they fit nothing), NaN for a block with none, as
+    the kernel's key max gives them."""
+    free = torch.nn.functional.pad(free, (0, live.shape[-1] - free.shape[-1]))
+    ok = _blocks(live & ~torch.isnan(free))
+    m = torch.where(ok, _blocks(free), float("-inf")).amax(dim=-1)
+    return torch.where(ok.any(dim=-1), m, float("nan"))
+
+
+def _swar_fields(guard: int) -> List[int]:
+    """The field masks of a packed plane, read off its guard bits: the
+    fields tile the plane from bit 0, each ending at its guard bit."""
+    fields, low = [], 1
+    for bit in range(31):
+        top = 1 << bit
+        if guard & top:
+            fields.append(top | (top - low))
+            low = top << 1
+    return fields
+
+
+def _swar_block_max(guards):
+    """Block summaries of a packed carry, as the kernel's field-wise max
+    (0 for a block with no node below the cap)."""
+    fields = [_swar_fields(int(g)) for g in guards.tolist()]
+    width = max(len(f) for f in fields)
+    masks = torch.tensor(
+        [f + [0] * (width - len(f)) for f in fields], dtype=torch.int32, device=guards.device
+    )[None, :, :, None, None]                                        # [1, NP, F, 1, 1]
+
+    def block_max(free, live):
+        free = torch.nn.functional.pad(free, (0, live.shape[-1] - free.shape[-1]))
+        x = _blocks(torch.where(live, free, 0))[:, :, None]          # [G, NP, 1, NB, 32]
+        # the fields are disjoint: the sum of their maxima is their OR
+        return (x & masks).amax(dim=-1).sum(dim=2, dtype=torch.int32)
+
+    return block_max
 
 
 def _fit_f32(free, req):
@@ -312,7 +436,9 @@ def _scan_plain_f32(stream, allocs, caps, max_nodes, stats=None):
     inactive = torch.full(
         (stream.shape[2],), float("inf"), dtype=torch.float32, device=stream.device
     )
-    return _scan_plain(stream, allocs, caps, max_nodes, _fit_f32, inactive, stats)
+    return _scan_plain(
+        stream, allocs, caps, max_nodes, _fit_f32, inactive, stats, _f32_block_max
+    )
 
 
 def _scan_plain_swar(stream, allocs, caps, guards, max_nodes, stats=None):
@@ -325,7 +451,8 @@ def _scan_plain_swar(stream, allocs, caps, guards, max_nodes, stats=None):
         return (((free | g) - req[:, :, None]) & g) == g
 
     # the sentinel sets every field to its guard bit: the guards ARE the row
-    return _scan_plain(stream, allocs, caps, max_nodes, fit, guards, stats)
+    block_max = _swar_block_max(guards) if stats is not None else None
+    return _scan_plain(stream, allocs, caps, max_nodes, fit, guards, stats, block_max)
 
 
 def _check_kernel_operands(stream, allocs, caps, guards, max_nodes, dtype):

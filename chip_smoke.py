@@ -43,7 +43,8 @@ Phases (any failure raises and exits non-zero):
       exact patch of the exception-row and single-cell pods).
    Every kernel of the paths must have launched;
 4. each kernel at its headline shape against its plain version on the same
-   card tensors (K1/K2 on all 500 groups, K3 on all 100 groups), exactly;
+   card tensors (K1/K2 on all 500 groups, with their launch geometry, chain
+   floor and the search counts of the data; K3 on all 100 groups), exactly;
    the main paths' results against the plain versions' results, K3's
    launches on the two spread worlds included (all 16 groups); the
    estimator's results and choices against the same calls on the CPU (the
@@ -100,6 +101,11 @@ def check(cond: bool, msg: str) -> None:
 # hostname-minimum read is one min. The per-step group scalars (new_ok,
 # group-level spread) are left out, which keeps the bound a lower bound.
 K3_OPS = {"gate_plane_tests": 16, "host_gate_tests": 3, "open_min_nodes": 1}
+# K1/K2's search, as their plain version counts it: blocks tested against
+# their summaries, candidate blocks searched, rounds (one barrier each),
+# placements (one barrier each), and the node tests of a plain scan; the
+# bound counts the fewer of the two searches' fit tests
+SEARCH_COUNTS = ("summary_tests", "candidate_blocks", "rounds", "placements", "node_tests")
 
 
 def k3_operations(stats: dict, R: int) -> int:
@@ -490,8 +496,9 @@ def main() -> int:
             check(torch.equal(a, b), f"{name}: main-path {field} differs from the plain version")
 
         # timings: the kernel alone, the whole entry call, the plain version,
-        # and the kernel on an all-zero stream (every pod fits node 0: one
-        # 32-node block a step), the floor of its chain of dependent steps
+        # and the kernel on an all-zero stream (every pod fits node 0: a
+        # step is one summary pass, one round and a placement), the floor of
+        # its chain of dependent steps
         ms = event_ms(lambda: kernel_fn(*plain_args))
         call_ms = event_ms(
             lambda: ffd_scan.ffd_binpack_groups_cuda(*args[:3], HEADLINE_MAX_NODES, args[3])
@@ -502,13 +509,21 @@ def main() -> int:
         del zeros
 
         P_pad = ops.stream.shape[1]
+        steps = G * P_pad
         bytes_moved = (
             ops.stream.numel() * 4 + ops.allocs.numel() * 4 + ops.caps.numel() * 4
             + (NP * 4 if ops.plan is not None else 0)
             + G * NP * HEADLINE_MAX_NODES * 4 + G * 4 + G * P_pad
         )
         ops_per_plane = 4 if ops.plan is not None else 1   # or, sub, and, cmp | cmp
-        operations = stats["node_tests"] * NP * ops_per_plane
+        # the fit tests the data needs: the node tests of a plain scan, or
+        # the pruned search's summary tests and the node tests of the
+        # candidate blocks it searches, whichever is fewer
+        pruned_tests = (
+            stats["summary_tests"] + ffd_scan.NODE_BLOCK * stats["candidate_blocks"]
+        )
+        fit_tests = min(stats["node_tests"], pruned_tests)
+        operations = fit_tests * NP * ops_per_plane
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         ops_ms = operations / FP32_OPS_PER_S * 1e3
         kernels.append({
@@ -526,22 +541,38 @@ def main() -> int:
             "parity": "exact",
             "call_ms": call_ms,
             "chain_floor_ms": floor_ms,
+            "us_per_step": ms * 1e3 / P_pad,
         })
         print(
-            f"# {name}: {ms:.3f} ms kernel ({ms * 1e3 / P_pad:.3f} us a step), "
+            f"# {name}: {ms:.3f} ms kernel ({ms * 1e3 / P_pad:.4f} us a step), "
             f"{call_ms:.3f} ms whole call, {plain_ms:.1f} ms plain, chain floor "
-            f"{floor_ms:.3f} ms, parity exact", flush=True,
+            f"{floor_ms:.3f} ms ({floor_ms * 1e3 / P_pad:.4f} us a step), parity exact "
+            f"on all {G} groups", flush=True,
         )
-        # the bound's inputs, computed from this run's shapes and data, and
-        # the dynamic shared memory the launch requests (from the kernel
-        # library itself)
+        # the launch geometry (the shared memory from the kernel library
+        # itself), and the search the data needs, as the plain version counts it
+        print(
+            f"# {name} launch: {G} blocks (one a group) of {ffd_scan.GROUP_WARPS} warps, "
+            f"{ffd_scan.smem_bytes(NP, HEADLINE_MAX_NODES)} B dynamic shared memory a "
+            f"block; search over {steps} group steps: "
+            + ", ".join(f"{stats[k]} {k} ({stats[k] / steps:.4f} a step)"
+                        for k in SEARCH_COUNTS)
+            + "; the busiest group: "
+            + ", ".join(f"{stats[f'max_group_{k}']} {k} "
+                        f"({stats[f'max_group_{k}'] / P_pad:.4f} a step)"
+                        for k in SEARCH_COUNTS[1:4]),
+            flush=True,
+        )
+        # the bound's inputs, computed from this run's shapes and data
         print(
             f"# {name} bound {max(bytes_ms, ops_ms):.4f} ms "
             f"({kernels[-1]['bound_by']}): G={G} P={P} P_pad={P_pad} planes={NP} "
             f"max_nodes={HEADLINE_MAX_NODES}, {bytes_moved} B moved ({bytes_ms:.4f} ms), "
-            f"{stats['node_tests']} node tests, {operations} operations "
-            f"({ops_ms:.4f} ms); {ffd_scan.smem_bytes(NP, HEADLINE_MAX_NODES)} B "
-            f"dynamic shared memory a block", flush=True,
+            f"min({stats['node_tests']} node tests, {stats['summary_tests']} summary tests "
+            f"+ {ffd_scan.NODE_BLOCK} x {stats['candidate_blocks']} candidate blocks) = "
+            f"{fit_tests} fit tests "
+            f"x {NP} planes x {ops_per_plane} = {operations} operations ({ops_ms:.4f} ms)",
+            flush=True,
         )
         del ops, got, want, plain_res
     phase("4a K1/K2 against their plain versions", t4)

@@ -339,3 +339,304 @@ def test_operand_checks():
             t_req, t_masks, t_allocs, max_nodes=4,
             node_caps=torch.ones(2, dtype=torch.int64),
         )
+
+
+# -- a step-level model of the kernels' search ------------------------------
+#
+# K1/K2 search each step in rounds: the blocks 0..lim/32 are tested against
+# their block summaries (the max free capacity of the block's nodes below
+# the cap, per plane or per packed field) in passes of 32, and the blocks
+# that pass are searched GROUP_WARPS at a time, warp w taking the w-th, the
+# round's hit being the lowest of the warps' hits. The model below runs
+# that search in numpy, as the kernel runs it, checks its `first` against
+# the lowest fitting node at every step, and counts the work the way
+# `_scan_plain`'s stats do.
+
+NO_NODE = 2**31 - 1
+
+
+def _f32_key_max(vals, valid):
+    """The max of f32 values as the kernel takes it: on keys that order the
+    bit patterns as the values order; NaN and invalid lanes at key 0, which
+    decodes to a NaN."""
+    b = vals.astype(np.float32).view(np.uint32).astype(np.uint64)
+    key = np.where(b >= 2**31, b ^ 0xFFFFFFFF, b | 2**31)
+    key = np.where(valid & ~np.isnan(vals), key, 0).max(axis=-1)
+    out = np.where(key >= 2**31, key & 0x7FFFFFFF, key ^ 0xFFFFFFFF)
+    return out.astype(np.uint32).view(np.float32)
+
+
+def _plan_field_masks(plan):
+    """Each packed plane's field masks, from the SWAR plan's shifts and
+    widths (the kernel reads the same fields off the guard bits)."""
+    return [[((1 << w) - 1) << shift for _, shift, w in fields] for fields in plan]
+
+
+def model_scan(stream, allocs, caps, M, guards=None, plan=None, bound="max",
+               refresh_every=1, W=ffd_scan.GROUP_WARPS):
+    """The kernels' search on numpy operands → (free [G, NP, M], opened
+    [G], placed [G, P_pad], counts, the counts of each group). ``bound`` is the block summary: "max"
+    (the kernel's: the f32 key max, or the SWAR max per field) or "or"
+    (the OR of the words). ``refresh_every`` = k refreshes the hit block's
+    summary on every k-th placement of a group (0: never, so summaries go
+    stale). Raises AssertionError on any step whose search misses the
+    lowest fitting node."""
+    stream, allocs, caps = (np.asarray(x) for x in (stream, allocs, caps))
+    G, P_pad, NP = stream.shape
+    NB = -(-M // 32)
+    swar = guards is not None
+    if swar:
+        gcol = np.asarray(guards, np.int64)[:, None]
+        masks = _plan_field_masks(plan)
+
+    def fits(free, req):                       # [NP, n] vs [NP] → [n]
+        if swar:
+            z = (free.astype(np.int64) | gcol) - req.astype(np.int64)[:, None]
+            return ((z & gcol) == gcol).all(axis=0)
+        return (req[:, None] <= free).all(axis=0)
+
+    def block_max(vals, valid):                # [NP, 32], [32] → [NP]
+        if bound == "or":
+            x = np.where(valid, vals.view(np.uint32), 0)
+            return np.bitwise_or.reduce(x, axis=1).astype(np.uint32).view(vals.dtype)
+        if not swar:
+            return _f32_key_max(vals, valid[None, :])
+        x = np.where(valid, vals, 0).astype(np.int64)
+        return np.array([sum(int((x[p] & fm).max()) for fm in masks[p])
+                         for p in range(NP)], np.int32)
+
+    counts = dict(summary_tests=0, candidate_blocks=0, rounds=0, placements=0)
+    per_group = []
+    free_out = np.empty((G, NP, M), stream.dtype)
+    opened_out = np.zeros(G, np.int32)
+    placed = np.zeros((G, P_pad), bool)
+    for g in range(G):
+        free = np.repeat(allocs[g][:, None], M, axis=1)
+        summ = np.repeat(allocs[g][:, None], NB, axis=1)
+        span = min(M, max(int(caps[g]), 0))
+        opened = n_placed = 0
+        for s in range(P_pad):
+            req = stream[g, s]
+            lim = min(opened, span - 1)
+            nblk = lim // 32 + 1 if lim >= 0 else 0
+            counts["summary_tests"] += nblk
+            first = NO_NODE
+            for q0 in range(0, nblk, 32):
+                blocks = np.arange(q0, min(q0 + 32, nblk))
+                cand = list(blocks[fits(summ[:, blocks], req)])
+                while cand and first == NO_NODE:
+                    slots = []
+                    for w in range(W):
+                        if w >= len(cand):
+                            slots.append(NO_NODE)
+                            continue
+                        nodes = cand[w] * 32 + np.arange(32)
+                        ok = (nodes <= lim) & fits(free[:, np.minimum(nodes, lim)], req)
+                        slots.append(int(nodes[ok][0]) if ok.any() else NO_NODE)
+                    counts["rounds"] += 1
+                    counts["candidate_blocks"] += min(W, len(cand))
+                    first = min(slots)
+                    cand = cand[W:]
+                if first != NO_NODE:
+                    break
+            hits = np.nonzero(fits(free[:, :lim + 1], req))[0] if lim >= 0 else []
+            assert first == (int(hits[0]) if len(hits) else NO_NODE), (g, s, first)
+            if first == NO_NODE:
+                continue
+            free[:, first] = free[:, first] - req
+            opened = max(opened, first + 1)
+            placed[g, s] = True
+            n_placed += 1
+            counts["placements"] += 1
+            if refresh_every and n_placed % refresh_every == 0:
+                nodes = first // 32 * 32 + np.arange(32)
+                summ[:, first // 32] = block_max(
+                    free[:, np.minimum(nodes, M - 1)], nodes < span
+                )
+        free_out[g], opened_out[g] = free, opened
+        per_group.append(dict(counts))
+        if g:
+            for key in counts:
+                per_group[g][key] -= sum(c[key] for c in per_group[:g])
+    return free_out, opened_out, placed, counts, per_group
+
+
+def _model_world(name, route):
+    """(req, masks, allocs, caps, max_nodes) of the model's worlds."""
+    if name.startswith("std"):
+        req, masks, allocs = rand_case(int(name[-1]), **STD)
+        return on_route(req, route), masks, allocs, None, M
+    rng = np.random.default_rng(len(name))
+    if name in ("m1000", "m1100"):
+        # pods of half a node to a whole node: the groups reach their caps,
+        # 1000 (a partial last block), 700 or 1100 (35 blocks: two passes)
+        P, caps, max_nodes = (1100, [1000, 700], 1000) if name == "m1000" else (1200, [1100], 1100)
+        req = np.zeros((P, 6), np.float32)
+        req[:, CPU] = rng.integers(500, 1001, P)
+        req[:, MEMORY] = rng.integers(64, 2048, P)
+        req[:, PODS] = 1.0
+        allocs = np.zeros((len(caps), 6), np.float32)
+        allocs[:, CPU] = 1000.0
+        allocs[:, MEMORY] = 4096.0
+        allocs[:, PODS] = 110.0
+        return (on_route(req, route), np.ones((len(caps), P), bool), allocs,
+                np.array(caps, np.int32), max_nodes)
+    if name == "masked":
+        req, masks, allocs = rand_case(7, **STD)
+        masks[2, :] = False
+        masks[4, ::2] = False
+        return on_route(req, route), masks, allocs, None, M
+    if name == "caps01":
+        req, masks, allocs = rand_case(8, **STD)
+        return on_route(req, route), masks, allocs, np.array([0, 1, 1, 0, 32], np.int32), M
+    # "zero-equal": requests equal to the alloc (free drops to exactly 0),
+    # zero requests (integral route) and halves
+    P = STD["P"]
+    half = 0.5 if route == "f32" else 0.0
+    req = np.zeros((P, 6), np.float32)
+    req[:, CPU] = np.tile([1000.0, 0.0, 500.0], P)[:P]
+    req[:, MEMORY] = np.tile([1000.0 + half, half, 500.0 + half], P)[:P]
+    req[:, PODS] = np.tile([1.0, 0.0, 1.0], P)[:P]
+    allocs = np.zeros((3, 6), np.float32)
+    allocs[:, CPU] = 1000.0
+    allocs[:, MEMORY] = 1000.0 + half
+    allocs[:, PODS] = 110.0
+    return req, rng.random((3, P)) > 0.2, allocs, np.array([32, 5, 2], np.int32), M
+
+
+MODEL_WORLDS = ["std0", "std1", "std2", "m1000", "m1100", "masked", "caps01", "zero-equal"]
+
+
+def _model_operands(name, route):
+    req, masks, allocs, caps, max_nodes = _model_world(name, route)
+    t_caps = None if caps is None else torch.tensor(caps)
+    ops = ffd_scan.prepare_scan(
+        torch.tensor(req), torch.tensor(masks), torch.tensor(allocs), max_nodes, t_caps
+    )
+    assert (ops.plan is not None) == (route == "swar")
+    return ops
+
+
+def _plain(ops, stats=None):
+    if ops.plan is not None:
+        return ffd_scan._scan_plain_swar(
+            ops.stream, ops.allocs, ops.caps, ops.guards, ops.max_nodes, stats
+        )
+    return ffd_scan._scan_plain_f32(ops.stream, ops.allocs, ops.caps, ops.max_nodes, stats)
+
+
+def _model(ops, **kw):
+    guards = None if ops.plan is None else ops.guards.numpy()
+    return model_scan(ops.stream.numpy(), ops.allocs.numpy(), ops.caps.numpy(),
+                      ops.max_nodes, guards, ops.plan, **kw)
+
+
+@pytest.mark.parametrize("world", MODEL_WORLDS)
+@pytest.mark.parametrize("route", ROUTES)
+def test_search_model_matches_plain_version(route, world):
+    """The kernels' search (W warps, interleaved candidate blocks, exact
+    block summaries refreshed on every placement) finds the lowest fitting
+    node at every step and ends with the plain version's free, opened and
+    placed, bit for bit; the plain version's search counts are the
+    model's."""
+    ops = _model_operands(world, route)
+    stats = {}
+    want = _plain(ops, stats)
+    free, opened, placed, counts, per_group = _model(ops)
+    assert_bits_equal(want[0], free)
+    assert_bits_equal(want[1], opened)
+    assert_bits_equal(want[2], placed)
+    for key, n in counts.items():
+        assert stats[key] == n, key
+    assert stats["candidate_blocks"] <= stats["summary_tests"]
+    for key in ("candidate_blocks", "rounds", "placements"):
+        assert stats[f"max_group_{key}"] == max(c[key] for c in per_group), key
+
+
+@pytest.mark.parametrize("refresh_every", [0, 3])
+@pytest.mark.parametrize("world", ["std0", "m1000", "zero-equal"])
+@pytest.mark.parametrize("route", ROUTES)
+def test_search_model_exact_with_stale_summaries(route, world, refresh_every):
+    """A summary that is never, or only sometimes, refreshed stays an upper
+    bound (free capacity only falls), so the search stays exact; it only
+    prunes less."""
+    ops = _model_operands(world, route)
+    want = _plain(ops)
+    free, opened, placed, counts, _ = _model(ops, refresh_every=refresh_every)
+    fresh = _model(ops)[3]
+    for a, b in zip(want, (free, opened, placed)):
+        assert_bits_equal(a, b)
+    assert counts["candidate_blocks"] >= fresh["candidate_blocks"]
+
+
+@pytest.mark.parametrize("W", [1, 3, 16])
+@pytest.mark.parametrize("world", ["std2", "m1100", "caps01"])
+@pytest.mark.parametrize("route", ROUTES)
+def test_search_model_exact_for_any_round_width(route, world, W):
+    """However many candidate blocks a round searches, the lowest hit of
+    the round is `first`: the search is exact for every width, and wider
+    rounds take fewer of them."""
+    ops = _model_operands(world, route)
+    want = _plain(ops)
+    free, opened, placed, counts, _ = _model(ops, W=W)
+    for a, b in zip(want, (free, opened, placed)):
+        assert_bits_equal(a, b)
+    assert counts["rounds"] >= _model(ops, W=W + 1)[3]["rounds"]
+
+
+@pytest.mark.parametrize("world", ["std1", "m1000", "m1100"])
+def test_swar_or_summary_is_exact_but_looser(world):
+    """On packed planes the OR of the words bounds every field (the fields
+    are disjoint and their guard bits clear): exact, but it passes at least
+    as many blocks as the field-wise max the kernel keeps."""
+    ops = _model_operands(world, "swar")
+    want = _plain(ops)
+    free, opened, placed, counts, _ = _model(ops, bound="or")
+    exact = _model(ops)[3]
+    for a, b in zip(want, (free, opened, placed)):
+        assert_bits_equal(a, b)
+    assert counts["candidate_blocks"] >= exact["candidate_blocks"]
+
+
+def test_f32_or_summary_is_rejected():
+    """The OR of f32 bit patterns is no bound: 2.0 | 1.5 is 0x7fc00000, a
+    NaN, and `req <= NaN` is false, so a pod that fits node 0 would be
+    pruned. The model catches the missed node; the key max keeps it."""
+    inf = np.float32(np.inf)
+    stream = np.full((1, 32, 1), inf, np.float32)
+    stream[0, :3, 0] = [2.0, 2.5, 1.0]   # node 0 keeps 2.0, node 1 keeps 1.5
+    allocs = np.array([[4.0]], np.float32)
+    caps = np.array([4], np.int32)
+    assert np.array([2.0, 1.5], np.float32).view(np.uint32)[0] | np.array(
+        [1.5], np.float32).view(np.uint32)[0] == 0x7FC00000
+    with pytest.raises(AssertionError):
+        model_scan(stream, allocs, caps, 4, bound="or")
+    free, opened, placed = model_scan(stream, allocs, caps, 4)[:3]
+    want = ffd_scan._scan_plain_f32(
+        torch.tensor(stream), torch.tensor(allocs), torch.tensor(caps), 4
+    )
+    for a, b in zip(want, (free, opened, placed)):
+        assert_bits_equal(a, b)
+    assert placed[0, :3].all() and free[0, 0, 0] == 1.0
+
+
+def test_f32_key_max_orders_like_the_values():
+    """The key max equals the float max on signed zeros, negatives, inf and
+    denormals, ignores NaN, and gives a NaN for no valid lane; the plain
+    version's block summaries agree (a summary of +0.0 or -0.0 passes the
+    same requests)."""
+    rng = np.random.default_rng(5)
+    vals = rng.normal(size=(64, 32)).astype(np.float32) * np.float32(1e3)
+    vals[0, :] = -0.0
+    vals[1, :4] = [np.inf, -np.inf, np.nan, 1e-45]
+    vals[2, :] = np.nan
+    vals[2, 7] = -3.0
+    valid = rng.random((64, 32)) > 0.2
+    valid[3, :] = False
+    got = _f32_key_max(vals, valid)
+    ref = np.where(valid & ~np.isnan(vals), vals, -np.inf).max(axis=1)
+    live = valid.any(axis=1) & (valid & ~np.isnan(vals)).any(axis=1)
+    np.testing.assert_array_equal(got[live], ref[live])
+    assert np.isnan(got[3])
+    twin = ffd_scan._f32_block_max(torch.tensor(vals)[:, None, :], torch.tensor(valid)[:, None, :])
+    np.testing.assert_array_equal(got, twin[:, 0, 0].numpy())

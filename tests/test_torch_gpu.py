@@ -88,6 +88,141 @@ def test_wide_carry_needs_opt_in_shared_memory(cuda):
     assert_results_equal(outs[1], outs[0])
 
 
+def _hold_scan_kernel(cuda, req, masks, allocs, caps, max_nodes):
+    """K1 or K2 (by the route the operands take) against its plain version
+    on the same card tensors, exactly, with its launch counted once."""
+    t_caps = None if caps is None else torch.tensor(caps, device=cuda)
+    ops = ffd_scan.prepare_scan(
+        *ffd_scan.operands_from_numpy(req, masks, allocs, None, cuda)[:3], max_nodes, t_caps
+    )
+    name = "ffd_scan_swar" if ops.plan is not None else "ffd_scan_f32"
+    before = ffd_scan.LAUNCHES[name]
+    got = ffd_scan.run_scan(ops)
+    torch.cuda.synchronize()
+    assert ffd_scan.LAUNCHES[name] == before + 1
+    if ops.plan is not None:
+        want = ffd_scan._scan_plain_swar(ops.stream, ops.allocs, ops.caps, ops.guards, max_nodes)
+    else:
+        want = ffd_scan._scan_plain_f32(ops.stream, ops.allocs, ops.caps, max_nodes)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    return ops, got
+
+
+def _scan_world(name, route):
+    """(req, masks, allocs, caps, max_nodes) of the search's edge worlds."""
+    rng = np.random.default_rng(len(name))
+    if name == "partial-last-block":
+        # half-node to whole-node pods: one group reaches its cap of 1000
+        # (nodes 992..999 make a partial last block), one its cap of 700,
+        # and the pods after each cap fit nowhere
+        P, G = 1500, 2
+        req = np.zeros((P, 6), np.float32)
+        req[:, CPU] = rng.integers(500, 1001, P)
+        req[:, MEMORY] = rng.integers(64, 2048, P)
+        req[:, PODS] = 1.0
+        allocs = np.zeros((G, 6), np.float32)
+        allocs[:, CPU] = 1000.0
+        allocs[:, MEMORY] = 4096.0
+        allocs[:, PODS] = 110.0
+        caps, M = np.array([1000, 700], np.int32), 1000
+        masks = np.ones((G, P), bool)
+    elif name == "wide-1024":
+        # 17 resource planes x 1024 nodes, the groups capped at 1024 and 40
+        P, G, R = 5000, 2, 17
+        req = rng.integers(1, 40, (P, R)).astype(np.float32)
+        masks = rng.random((G, P)) > 0.1
+        allocs = np.full((G, R), 100.0, np.float32)
+        caps, M = np.array([1024, 40], np.int32), 1024
+    elif name == "unplaceable-after-cap":
+        req, masks, allocs = rand_case(21, P=2000, G=4)
+        caps, M = np.array([3, 31, 32, 40], np.int32), 64
+    elif name == "masked-group":
+        req, masks, allocs = rand_case(22, P=400, G=3)
+        masks[1, :] = False
+        caps, M = np.array([64, 64, 64], np.int32), 64
+    elif name == "caps-0-1":
+        req, masks, allocs = rand_case(23, P=400, G=4)
+        caps, M = np.array([0, 1, 0, 1], np.int32), 64
+    elif name == "last-node-of-block":
+        # 31 whole-node pods fill nodes 0..30; a 600 pod opens node 31, the
+        # last of block 0; the 400 pod after it lands on node 31 as well
+        req = np.zeros((33, 6), np.float32)
+        req[:, CPU] = [1000.0] * 31 + [600.0, 400.0]
+        req[:, MEMORY] = req[:, CPU]
+        req[:, PODS] = 1.0
+        allocs = np.zeros((1, 6), np.float32)
+        allocs[:, CPU] = allocs[:, MEMORY] = 1000.0
+        allocs[:, PODS] = 110.0
+        masks, caps, M = np.ones((1, 33), bool), None, 64
+    else:  # "many-request-blocks": 5000 small pods, 157 staged blocks
+        req, masks, allocs = rand_case(24, P=5000, G=3)
+        req[:, CPU] //= 8
+        caps, M = None, 256
+    if route == "f32":
+        req = req.copy()
+        req[:, MEMORY] += 0.5
+        if name == "last-node-of-block":
+            allocs[:, MEMORY] += 1.0
+    return req, masks, allocs, caps, M
+
+
+SCAN_WORLDS = ["partial-last-block", "wide-1024", "unplaceable-after-cap", "masked-group",
+               "caps-0-1", "last-node-of-block", "many-request-blocks"]
+
+
+@pytest.mark.parametrize("world", SCAN_WORLDS)
+@pytest.mark.parametrize("route", ["swar", "f32"])
+def test_scan_kernel_search_edges(cuda, route, world):
+    """K1 and K2 against their plain versions where the search's rounds,
+    block summaries and staged requests meet their edges."""
+    ops, (free, opened, placed) = _hold_scan_kernel(cuda, *_scan_world(world, route))
+    assert (ops.plan is not None) == (route == "swar")
+    if world == "partial-last-block":
+        assert opened.tolist() == [1000, 700] and not placed[:, -100:].any()
+    elif world == "masked-group":
+        assert int(opened[1]) == 0 and not placed[1].any()
+    elif world == "caps-0-1":
+        assert opened.tolist() == [0, 1, 0, 1]
+    elif world == "last-node-of-block":
+        assert int(opened[0]) == 32 and placed[0, :33].all()
+        if route == "f32":
+            assert float(free[0, 0, 31]) == 0.0      # the CPU plane of node 31
+
+
+@pytest.mark.parametrize("route", ["swar", "f32"])
+def test_scan_kernel_empty_stream(cuda, route):
+    """An empty request stream stages no requests and places nothing: K1
+    and K2 return the allocs as the carry, as their plain versions do."""
+    req, masks, allocs, caps = _world(2, route, P=40, G=4)
+    ops = ffd_scan.prepare_scan(
+        *ffd_scan.operands_from_numpy(req, masks, allocs, caps, cuda)[:3], 64,
+        torch.tensor(caps, device=cuda),
+    )
+    assert (ops.plan is not None) == (route == "swar")
+    stream = ops.stream[:, :0].contiguous()
+    if ops.plan is not None:
+        args = (stream, ops.allocs, ops.caps, ops.guards, 64)
+        kernel, plain = ffd_scan.ffd_scan_swar, ffd_scan._scan_plain_swar
+    else:
+        args = (stream, ops.allocs, ops.caps, 64)
+        kernel, plain = ffd_scan.ffd_scan_f32, ffd_scan._scan_plain_f32
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(plain(*args), got):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[2].shape == (4, 0) and not got[1].any()
+
+
+def test_scan_launch_geometry(cuda):
+    """The shared memory of the headline launch, whose hit slots pin the
+    warps a group that the plain version's search counts assume."""
+    for NP in (2, 4, 17):
+        M = 1000
+        words = NP * M + NP * 32 + 2 * 32 * NP + NP + 2 * ffd_scan.GROUP_WARPS
+        assert ffd_scan.smem_bytes(NP, M) == 4 * words
+
+
 def test_estimator_on_card_equals_cpu(cuda):
     from autoscaler_tpu_torch.estimator.binpacking import BinpackingNodeEstimator
     from autoscaler_tpu_torch.utils.test_utils import build_test_node, build_test_pod

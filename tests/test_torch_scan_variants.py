@@ -1,0 +1,33 @@
+"""The committed design variants of K1/K2 (unified diffs against
+csrc/ffd_scan.cu, timed by ``autoscaler_tpu_torch.tools.scan_variants``)
+still apply to the source as it stands, and the applier is strict."""
+import pytest
+
+from autoscaler_tpu_torch.ops import _build
+from autoscaler_tpu_torch.tools.scan_variants import PATCH_DIR, apply_patch
+
+PATCHES = sorted(p.name for p in PATCH_DIR.glob("*.patch"))
+ENTRIES = ("int ffd_scan_f32(", "int ffd_scan_swar(", "int ffd_scan_smem_bytes(")
+
+
+def test_variants_are_committed():
+    assert len(PATCHES) >= 10
+
+
+@pytest.mark.parametrize("name", PATCHES)
+def test_variant_applies_to_the_source(name):
+    source = _build.source("ffd_scan").read_text()
+    patch = (PATCH_DIR / name).read_text()
+    assert not patch.startswith(("---", "@@")), "the first line says what the variant changes"
+    text = apply_patch(source, patch)
+    assert text != source
+    for entry in ENTRIES:
+        assert text.count(entry) == 1, f"{name} loses {entry}"
+
+
+def test_apply_patch_edits_in_place_and_refuses_a_missing_hunk():
+    text = "a\nb\nc\nd\n"
+    patch = "what\n--- a/f\n+++ b/f\n@@ -2,2 +2,2 @@\n b\n-c\n+C\n"
+    assert apply_patch(text, patch) == "a\nb\nC\nd\n"
+    with pytest.raises(ValueError):
+        apply_patch(text, patch.replace(" b\n", " x\n"))
