@@ -351,11 +351,11 @@ def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats, block_max
     return free, opened, placed
 
 
-def _search_counts(summ, req, first, opened, span, fit):
+def _search_counts(summ, req, first, opened, span, fit, round_blocks=GROUP_WARPS):
     """The kernels' search on N group steps, counted: the blocks 0..lim/32
     (lim = min(opened, span - 1)) tested against their summaries, in passes
-    of 32; within a pass, the blocks that pass searched GROUP_WARPS at a
-    time in node order until the round that holds `first` → [3, N] int64
+    of 32; within a pass, the blocks that pass searched ``round_blocks`` at
+    a time in node order until the round that holds `first` → [3, N] int64
     (summary tests, candidate blocks searched, rounds). summ [N, NP, NB],
     req [N, NP], first, opened and span [N]."""
     N, NP, NB = summ.shape
@@ -373,10 +373,10 @@ def _search_counts(summ, req, first, opened, span, fit):
         rank = (in_pass & (blk[None, q0:q0 + NODE_BLOCK] < hit[:, None])).sum(dim=1)
         at_hit = (hit >= q0) & (hit < q0 + NODE_BLOCK)
         before = hit >= q0 + NODE_BLOCK          # a pass ahead of the hit, or no hit
-        r = torch.where(at_hit, rank // GROUP_WARPS + 1,
-                        torch.where(before, -(-n // GROUP_WARPS), 0))
+        r = torch.where(at_hit, rank // round_blocks + 1,
+                        torch.where(before, -(-n // round_blocks), 0))
         rounds += r
-        searched += torch.minimum(n, r * GROUP_WARPS)
+        searched += torch.minimum(n, r * round_blocks)
     return torch.stack([nblk.to(torch.int64), searched, rounds])
 
 

@@ -46,10 +46,21 @@ import torch
 from autoscaler_tpu_torch.device import resolve_device
 from autoscaler_tpu_torch.ops import _build
 from autoscaler_tpu_torch.ops.binpack import BinpackResult, score_order
-from autoscaler_tpu_torch.ops.ffd_scan import BIG_I32, STEP_BLOCK, clamp_inf_allocs
+from autoscaler_tpu_torch.ops.ffd_scan import (
+    BIG_I32,
+    NODE_BLOCK,
+    SEARCH_CHUNK,
+    STEP_BLOCK,
+    _f32_block_max,
+    _fit_f32,
+    _search_counts,
+    clamp_inf_allocs,
+)
 
 MAX_SPREAD = 32          # the spread bitset payload is one int32 plane
 SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory a Hopper block may use
+GROUP_WARPS = 8          # warps of each group's block (kWarps in csrc/ffd_scan_affinity.cu)
+WARP_BLOCKS = 4          # candidate blocks a warp tests a round (kWarpBlocks there)
 
 # Launch count of the kernel: the wrapper adds one where it launches it,
 # and nowhere else.
@@ -245,14 +256,24 @@ def _scan_plain_aff(stream, bits, allocs, caps, nl, hl, spstat, num_planes,
     minimum lands on node `opened` exactly when the kernel's bounded test
     does. Steps that are inactive (+inf) in every group are skipped: they
     fit nowhere. ``stats``, when given, gets the work the data needs:
-    ``node_tests``, the node fit tests (nodes 0..first for a pod that fits
-    somewhere, every open node plus one closed node otherwise; none for
-    inactive rows or for a step a group-level spread term blocks);
-    ``gate_plane_tests``, the term-gate evaluations (each tested open node
-    that passes the fit, times the pod's term planes with a bit set);
-    ``host_gate_tests``, the hostname spread-gate evaluations (each such
-    node, times the hostname-level terms the pod declares); and
-    ``open_min_nodes``, the open nodes read by the hostname minima."""
+
+    - ``node_tests``, the node fit tests of a plain scan (nodes 0..first
+      for a pod that fits somewhere, every open node plus one closed node
+      otherwise; none for inactive rows or for a step a group-level spread
+      term blocks); ``gate_plane_tests``, the term-gate evaluations (each
+      tested open node that passes the fit, times the pod's term planes
+      with a bit set); ``host_gate_tests``, the hostname spread-gate
+      evaluations (each such node, times the hostname-level terms the pod
+      declares); and ``open_min_nodes``, the open nodes read by the
+      hostname minima;
+    - and, as the kernel searches (``ffd_scan._search_counts`` with the
+      gated `first`, rounds of GROUP_WARPS × WARP_BLOCKS candidate blocks):
+      ``summary_tests``, ``candidate_blocks``, ``rounds``, ``placements``
+      and the busiest group's ``max_group_*`` of the last three. Inactive
+      rows and steps that a group-level spread term blocks search nothing.
+      The block summaries are taken afresh from the carry before each step
+      (the kernel keeps them exact), and the search is counted SEARCH_CHUNK
+      active steps at a time."""
     G, P_pad, R = stream.shape
     TP, S, M = num_planes, num_spread, max_nodes
     dev = stream.device
@@ -281,7 +302,18 @@ def _scan_plain_aff(stream, bits, allocs, caps, nl, hl, spstat, num_planes,
         k: torch.zeros((), dtype=torch.int64, device=dev)
         for k in ("node_tests", "gate_plane_tests", "host_gate_tests", "open_min_nodes")
     }
-    for s in steps:
+    if stats is not None:
+        NB = -(-M // NODE_BLOCK)
+        span = torch.clamp(caps, min=0, max=M)
+        live = torch.zeros((G, 1, NB * NODE_BLOCK), dtype=torch.bool, device=dev)
+        live[:, 0, :M] = node_ids[None, :] < span[:, None]          # below the cap
+        C = min(SEARCH_CHUNK, len(steps))
+        summs = torch.empty((C, G, R, NB), dtype=torch.float32, device=dev)
+        firsts = torch.empty((C, G), dtype=torch.int32, device=dev)
+        openeds = torch.empty_like(firsts)
+        spans = torch.empty_like(firsts)
+        search = torch.zeros((3, G), dtype=torch.int64, device=dev)
+    for k, s in enumerate(steps):
         req = stream[:, s, :]                                       # [G, R]
         b = bits[:, s, :]
         m_p, a_p, x_p = b[:, :TP], b[:, TP:2 * TP], b[:, 2 * TP:3 * TP]  # [G, TP]
@@ -330,6 +362,21 @@ def _scan_plain_aff(stream, bits, allocs, caps, nl, hl, spstat, num_planes,
 
         first = torch.where(fits & gate, node_ids, BIG_I32).amin(dim=1)  # [G]
         place = first < caps
+        if stats is not None:
+            i = k % C
+            summs[i] = _f32_block_max(free, live)
+            firsts[i] = first
+            openeds[i] = opened
+            searched = active_rows[:, s] & group_ok if S else active_rows[:, s]
+            spans[i] = torch.where(searched, span, 0)   # an empty span searches nothing
+            if i == C - 1 or k == len(steps) - 1:
+                chunk = steps[k - i:k + 1]
+                search += _search_counts(
+                    summs[:i + 1].flatten(0, 1),
+                    stream[:, chunk, :].transpose(0, 1).flatten(0, 1),
+                    firsts[:i + 1].flatten(), openeds[:i + 1].flatten(),
+                    spans[:i + 1].flatten(), _fit_f32, GROUP_WARPS * WARP_BLOCKS,
+                ).unflatten(1, (i + 1, G)).sum(dim=1)
         # only the hit node changes; select, never a multiply by a 0/1
         # flag (inf * 0 is NaN)
         tgt = torch.clamp(first, max=M - 1).long()
@@ -364,8 +411,15 @@ def _scan_plain_aff(stream, bits, allocs, caps, nl, hl, spstat, num_planes,
         opened = torch.maximum(opened, torch.where(place, first + 1, 0))
         placed[:, s] = place
     if stats is not None:
-        for k, v in work.items():
-            stats[k] = stats.get(k, 0) + int(v)
+        for key, v in work.items():
+            stats[key] = stats.get(key, 0) + int(v)
+        search = torch.cat([search, placed.sum(dim=1)[None]])        # [4, G]
+        keys = ("summary_tests", "candidate_blocks", "rounds", "placements")
+        for key, n in zip(keys, search.sum(dim=1).tolist()):
+            stats[key] = stats.get(key, 0) + n
+        # the kernel ends with its slowest group: its share of the work
+        for key, n in zip(keys[1:], search[1:].amax(dim=1).tolist()):
+            stats[f"max_group_{key}"] = max(stats.get(f"max_group_{key}", 0), n)
     return free, opened, placed
 
 

@@ -1,25 +1,31 @@
-"""Times design variants of the FFD scan source (``csrc/ffd_scan.cu``,
-kernels K1 and K2) against each other on one CUDA card, at the headline
-shapes.
+"""Times design variants of a scan kernel's source against each other on
+one CUDA card, at the shapes of its main-path launches.
 
-    python3 -m autoscaler_tpu_torch.tools.scan_variants \\
+    python3 -m autoscaler_tpu_torch.tools.scan_variants [--kernel scan|aff] \\
         [--variant NAME ...] [--source NAME=PATH ...] [--reps 3] [--out FILE]
 
+``--kernel scan`` (the default) takes ``csrc/ffd_scan.cu`` (K1 and K2) and
+its variants in ``ffd_scan_variants/``, on the headline operands of both
+routes: integral requests (K2) and fractional memory (K1). ``--kernel
+aff`` takes ``csrc/ffd_scan_affinity.cu`` (K3) and its variants in
+``ffd_scan_affinity_variants/``, on the operands of K3's three main-path
+launches: the affinity workload, and the operands that ``estimate_many``
+hands K3 on the zone and hostname spread worlds (captured from the call).
+
 The variants are the checkout's own source ("this"); each committed
-variant, a unified diff against that source in ``ffd_scan_variants/``
-(NAME is the file's stem; all of them unless ``--variant`` names some;
-the first line of each says what it changes); and each ``--source``,
-another version of the whole file with the same C entry points, for
-example an older commit's, unpacked with ``git show``. Each is compiled
-with the flags of ``ops/_build.py`` into ``build/variants/`` (all
-compilers at once) and launched through its own library on the headline
-operands of both routes: integral requests (K2) and fractional memory
-(K1). Each launch is held against the plain version exactly (free,
-opened, placed); then each variant is timed with CUDA events in turns
-(every variant, then all again in reverse order), on the headline stream
-and on an all-zero stream, where every pod fits node 0 (the floor of the
-chain of dependent steps). Prints one line per variant and route and a
-JSON object last; ``--out`` also writes the JSON there.
+variant, a unified diff against that source (NAME is the file's stem; all
+of them unless ``--variant`` names some; the first line of each says what
+it changes); and each ``--source``, another version of the whole file with
+the same C entry points, for example an older commit's, unpacked with
+``git show``. Each is compiled with the flags of ``ops/_build.py`` into
+``build/variants/<kernel>/`` (all compilers at once) and launched through
+its own library. Each launch is held against the plain version exactly
+(free, opened, placed); then each variant is timed with CUDA events in
+turns (every variant, then all again in reverse order), on the real
+operands and on all-zero requests (and bits), where every pod fits node 0
+(the floor of the chain of dependent steps). Prints one line per variant
+and operand set and a JSON object last; ``--out`` also writes the JSON
+there.
 """
 from __future__ import annotations
 
@@ -34,10 +40,13 @@ from typing import List
 
 import torch
 
-from autoscaler_tpu_torch.ops import _build, ffd_scan
-from autoscaler_tpu_torch.utils.workload import HEADLINE_MAX_NODES, build_workload
+from autoscaler_tpu_torch.ops import _build, ffd_scan, ffd_scan_affinity
 
-PATCH_DIR = Path(__file__).resolve().parent / "ffd_scan_variants"
+TOOLS = Path(__file__).resolve().parent
+PATCH_DIR = TOOLS / "ffd_scan_variants"
+AFF_PATCH_DIR = TOOLS / "ffd_scan_affinity_variants"
+# --kernel → (the source's name in ops/_build.py, its variants' directory)
+KERNELS = {"scan": ("ffd_scan", PATCH_DIR), "aff": ("ffd_scan_affinity", AFF_PATCH_DIR)}
 VARIANT_DIR = _build.BUILD_DIR.parent / "variants"
 HUNK = re.compile(r"^@@[^\n]*\n", re.M)
 
@@ -69,17 +78,18 @@ def apply_patch(text: str, patch: str) -> str:
     return "".join(out + lines[pos:])
 
 
-def _variant_sources(args):
-    this = _build.source("ffd_scan")
+def _variant_sources(args, out_dir: Path):
+    src_name, patch_dir = KERNELS[args.kernel]
+    this = _build.source(src_name)
     sources = {"this": this}
     text = this.read_text()
-    patches = sorted(PATCH_DIR.glob("*.patch"))
+    patches = sorted(patch_dir.glob("*.patch"))
     names = args.variant or [p.stem for p in patches]
     known = {p.stem: p for p in patches}
     for name in names:
         if name not in known:
             raise SystemExit(f"no variant {name!r}; the variants are {sorted(known)}")
-        src = VARIANT_DIR / f"{name}.cu"
+        src = out_dir / f"{name}.cu"
         src.parent.mkdir(parents=True, exist_ok=True)
         src.write_text(apply_patch(text, known[name].read_text()))
         sources[name] = src
@@ -89,12 +99,12 @@ def _variant_sources(args):
     return sources
 
 
-def _build_all(sources):
+def _build_all(sources, src_name: str, out_dir: Path):
     """One nvcc a source, all at once → {name: loaded library}."""
-    VARIANT_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in sources.items():
-        lib = VARIANT_DIR / f"{name}.so"
+        lib = out_dir / f"{name}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)]
         procs[name] = (lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
@@ -108,7 +118,7 @@ def _build_all(sources):
             if "Used" in line or "spill" in line:
                 print(f"# {name}: {line.strip()}", flush=True)
         lib = ctypes.CDLL(str(path))
-        for fn_name, argtypes in _build.SIGNATURES["ffd_scan"].items():
+        for fn_name, argtypes in _build.SIGNATURES[src_name].items():
             if hasattr(lib, fn_name):
                 fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes
@@ -117,9 +127,10 @@ def _build_all(sources):
     return libs
 
 
-def _launch(lib, ops, stream):
-    """One launch of the route's kernel from ``lib`` on ``stream`` (the
-    prepared operands otherwise) → (free, opened, placed)."""
+def _launch_scan(lib, ops):
+    """One launch of the route's K1/K2 from ``lib`` on prepared operands
+    → (free, opened, placed)."""
+    stream = ops.stream
     G, P_pad, NP = stream.shape
     M = ops.max_nodes
     free = torch.empty((G, NP, M), dtype=stream.dtype, device=stream.device)
@@ -136,6 +147,100 @@ def _launch(lib, ops, stream):
     return free, opened, placed.view(torch.bool)
 
 
+def _launch_aff(lib, ops):
+    """One launch of K3 from ``lib`` on prepared operands → (free, opened,
+    placed)."""
+    stream = ops.stream
+    G, P_pad, R = stream.shape
+    M = ops.max_nodes
+    free = torch.empty((G, R, M), dtype=torch.float32, device=stream.device)
+    opened = torch.empty((G,), dtype=torch.int32, device=stream.device)
+    placed = torch.empty((G, P_pad), dtype=torch.uint8, device=stream.device)
+    cuda_stream = torch.cuda.current_stream().cuda_stream
+    err = lib.ffd_scan_aff(
+        stream.data_ptr(), ops.bits.data_ptr(), ops.allocs.data_ptr(), ops.caps.data_ptr(),
+        ops.nl.data_ptr(), ops.hl.data_ptr(),
+        ops.spstat.data_ptr() if ops.spstat is not None else None,
+        free.data_ptr(), opened.data_ptr(), placed.data_ptr(),
+        G, P_pad, R, ops.num_planes, ops.num_spread, M, cuda_stream,
+    )
+    _build.check(err, "ffd_scan_aff")
+    return free, opened, placed.view(torch.bool)
+
+
+def _scan_cases(dev):
+    """K1/K2's operand sets: (label, operands, plain result, all-zero
+    operands, launcher), one at a time."""
+    from autoscaler_tpu_torch.utils.workload import HEADLINE_MAX_NODES, build_workload
+
+    req, masks, allocs, caps = build_workload()
+    req_frac = req.copy()
+    req_frac[:, 1] += 0.5                 # fractional memory refuses the SWAR plan
+    for route, r in (("swar", req), ("f32", req_frac)):
+        t_ops = ffd_scan.operands_from_numpy(r, masks, allocs, caps, dev)
+        ops = ffd_scan.prepare_scan(*t_ops[:3], HEADLINE_MAX_NODES, t_ops[3])
+        assert (ops.plan is not None) == (route == "swar")
+        if ops.plan is not None:
+            want = ffd_scan._scan_plain_swar(
+                ops.stream, ops.allocs, ops.caps, ops.guards, HEADLINE_MAX_NODES
+            )
+        else:
+            want = ffd_scan._scan_plain_f32(ops.stream, ops.allocs, ops.caps, HEADLINE_MAX_NODES)
+        zeros = ops._replace(stream=torch.zeros_like(ops.stream))
+        yield route, ops, want, zeros, _launch_scan
+
+
+def _plain_aff(ops):
+    return ffd_scan_affinity._scan_plain_aff(
+        ops.stream, ops.bits, ops.allocs, ops.caps, ops.nl, ops.hl, ops.spstat,
+        ops.num_planes, ops.num_spread, ops.max_nodes,
+    )
+
+
+def _aff_cases(dev):
+    """K3's operand sets, as chip_smoke.py drives them: the affinity
+    workload, and what ``estimate_many`` hands K3 on each spread world
+    (the estimate runs with K3's plain version in its place, whose result
+    is kept as the reference)."""
+    from autoscaler_tpu_torch.estimator.binpacking import BinpackingNodeEstimator
+    from autoscaler_tpu_torch.estimator.limiter import ThresholdBasedEstimationLimiter
+    from autoscaler_tpu_torch.utils import workload as w
+
+    aff_np = w.build_affinity_workload(w.AFFINITY_PODS, w.AFFINITY_GROUPS, w.AFFINITY_TERMS)
+    ops = ffd_scan_affinity.prepare_scan_aff(
+        **ffd_scan_affinity.affinity_operands_from_numpy(*aff_np, device=dev),
+        max_nodes=w.AFFINITY_MAX_NODES,
+    )
+    cases = [("affinity", ops, _plain_aff(ops))]
+    estimator = BinpackingNodeEstimator(
+        ThresholdBasedEstimationLimiter(max_nodes=w.SPREAD_MAX_NODES), device=dev
+    )
+    real = ffd_scan_affinity.ffd_scan_aff
+    for label, key in (("spread-zone", w.ZONE), ("spread-hostname", w.HOSTNAME)):
+        pods, templates = w.build_spread_world(
+            w.SPREAD_PODS, w.SPREAD_GROUPS, w.SPREAD_APPS, topology_key=key
+        )
+        seen = []
+
+        def capture(ops):
+            seen.append((ops, _plain_aff(ops)))
+            return seen[-1][1]
+
+        ffd_scan_affinity.ffd_scan_aff = capture
+        try:
+            estimator.estimate_many(pods, templates)
+        finally:
+            ffd_scan_affinity.ffd_scan_aff = real
+        if len(seen) != 1:
+            raise SystemExit(f"{label}: estimate_many launched K3 {len(seen)} times, not once")
+        cases.append((label, *seen[0]))
+    for label, ops, want in cases:
+        zeros = ops._replace(
+            stream=torch.zeros_like(ops.stream), bits=torch.zeros_like(ops.bits)
+        )
+        yield label, ops, want, zeros, _launch_aff
+
+
 def _event_ms(fn, reps):
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -150,6 +255,7 @@ def _event_ms(fn, reps):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernel", choices=sorted(KERNELS), default="scan")
     parser.add_argument("--variant", action="append", default=[], metavar="NAME")
     parser.add_argument("--source", action="append", default=[], metavar="NAME=PATH")
     parser.add_argument("--reps", type=int, default=3)
@@ -164,47 +270,37 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    libs = _build_all(_variant_sources(args))
+    out_dir = VARIANT_DIR / args.kernel
+    libs = _build_all(_variant_sources(args, out_dir), KERNELS[args.kernel][0], out_dir)
 
-    req, masks, allocs, caps = build_workload()
-    req_frac = req.copy()
-    req_frac[:, 1] += 0.5                 # fractional memory refuses the SWAR plan
-    result = {"device": smi, "reps": args.reps, "variants": list(libs), "routes": {}}
-    for route, r in (("swar", req), ("f32", req_frac)):
-        t_ops = ffd_scan.operands_from_numpy(r, masks, allocs, caps, dev)
-        ops = ffd_scan.prepare_scan(*t_ops[:3], HEADLINE_MAX_NODES, t_ops[3])
-        assert (ops.plan is not None) == (route == "swar")
-        plain_args = (ops.stream, ops.allocs, ops.caps) + (
-            (ops.guards,) if ops.plan is not None else ()
-        ) + (HEADLINE_MAX_NODES,)
-        plain = (ffd_scan._scan_plain_swar if ops.plan is not None
-                 else ffd_scan._scan_plain_f32)
-        want = plain(*plain_args)
-        zeros = torch.zeros_like(ops.stream)
+    cases = _scan_cases(dev) if args.kernel == "scan" else _aff_cases(dev)
+    result = {"device": smi, "kernel": args.kernel, "reps": args.reps,
+              "variants": list(libs), "routes": {}}
+    for label, ops, want, zeros, launch in cases:
         rows = {}
         for name, lib in libs.items():
-            got = _launch(lib, ops, ops.stream)
+            got = launch(lib, ops)
             torch.cuda.synchronize()
             exact = all(torch.equal(a, b) for a, b in zip(want, got))
             rows[name] = {"exact": exact, "ms": [], "floor_ms": []}
         order = list(libs) + list(reversed(libs))
         for name in order:
             lib = libs[name]
-            rows[name]["ms"].append(_event_ms(lambda: _launch(lib, ops, ops.stream), args.reps))
-            rows[name]["floor_ms"].append(_event_ms(lambda: _launch(lib, ops, zeros), args.reps))
+            rows[name]["ms"].append(_event_ms(lambda: launch(lib, ops), args.reps))
+            rows[name]["floor_ms"].append(_event_ms(lambda: launch(lib, zeros), args.reps))
         P_pad = ops.stream.shape[1]
         for name, row in rows.items():
             ms = sum(row["ms"]) / len(row["ms"])
             floor = sum(row["floor_ms"]) / len(row["floor_ms"])
             row.update(mean_ms=ms, us_per_step=ms * 1e3 / P_pad, mean_floor_ms=floor)
             print(
-                f"# {route} {name}: {ms:.3f} ms ({row['ms'][0]:.3f}, {row['ms'][1]:.3f}), "
+                f"# {label} {name}: {ms:.3f} ms ({row['ms'][0]:.3f}, {row['ms'][1]:.3f}), "
                 f"{ms * 1e3 / P_pad:.4f} us a step, chain floor {floor:.3f} ms, "
                 f"{'exact' if row['exact'] else 'DIFFERS from the plain version'}",
                 flush=True,
             )
-        result["routes"][route] = rows
-        del want, zeros, ops, t_ops
+        result["routes"][label] = rows
+        del want, zeros, ops
     line = json.dumps(result)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -43,10 +43,11 @@ Phases (any failure raises and exits non-zero):
       exact patch of the exception-row and single-cell pods).
    Every kernel of the paths must have launched;
 4. each kernel at its headline shape against its plain version on the same
-   card tensors (K1/K2 on all 500 groups, with their launch geometry, chain
-   floor and the search counts of the data; K3 on all 100 groups), exactly;
-   the main paths' results against the plain versions' results, K3's
-   launches on the two spread worlds included (all 16 groups); the
+   card tensors, exactly: K1/K2 on all 500 groups, K3 on its three
+   launches (all 100 groups of the affinity workload, all 16 of each
+   spread world), each with its launch geometry, chain floor, the search
+   counts of the data and the bound recounted from them; the main paths'
+   results against the plain versions' results; the
    estimator's results and choices against the same calls on the CPU (the
    CPU takes a stride sample of the templates for the dynamic worlds:
    each group's result depends on its own template only); K4 on all 100k
@@ -101,21 +102,43 @@ def check(cond: bool, msg: str) -> None:
 # hostname-minimum read is one min. The per-step group scalars (new_ok,
 # group-level spread) are left out, which keeps the bound a lower bound.
 K3_OPS = {"gate_plane_tests": 16, "host_gate_tests": 3, "open_min_nodes": 1}
-# K1/K2's search, as their plain version counts it: blocks tested against
-# their summaries, candidate blocks searched, rounds (one barrier each),
-# placements (one barrier each), and the node tests of a plain scan; the
-# bound counts the fewer of the two searches' fit tests
+# The kernels' search, as their plain versions count it: blocks tested
+# against their summaries, candidate blocks searched, rounds (one barrier
+# each), placements (one barrier each), and the node tests of a plain scan;
+# the bound counts the fewer of the two searches' fit tests
 SEARCH_COUNTS = ("summary_tests", "candidate_blocks", "rounds", "placements", "node_tests")
+NODE_BLOCK = 32          # nodes a block summary covers (ops/ffd_scan.py)
+
+
+def fit_tests(stats: dict) -> int:
+    """The node fit tests the data needs: a plain scan's, or the pruned
+    search's summary tests and the node tests of its candidate blocks,
+    whichever is fewer."""
+    pruned = stats["summary_tests"] + NODE_BLOCK * stats["candidate_blocks"]
+    return min(stats["node_tests"], pruned)
 
 
 def k3_operations(stats: dict, R: int) -> int:
-    return stats["node_tests"] * R + sum(stats[k] * w for k, w in K3_OPS.items())
+    return fit_tests(stats) * R + sum(stats[k] * w for k, w in K3_OPS.items())
 
 
 def k3_work(stats: dict, R: int) -> str:
     return " + ".join(
-        [f"{stats['node_tests']} node tests x {R}"]
+        [f"min({stats['node_tests']} node tests, {stats['summary_tests']} summary tests "
+         f"+ {NODE_BLOCK} x {stats['candidate_blocks']} candidate blocks) = "
+         f"{fit_tests(stats)} fit tests x {R}"]
         + [f"{stats[k]} {k} x {w}" for k, w in K3_OPS.items()]
+    )
+
+
+def search_line(stats: dict, steps: int, P_pad: int) -> str:
+    """The search counts a group step, and the busiest group's a step."""
+    return (
+        f"search over {steps} group steps: "
+        + ", ".join(f"{stats[k]} {k} ({stats[k] / steps:.4f} a step)" for k in SEARCH_COUNTS)
+        + "; the busiest group: "
+        + ", ".join(f"{stats[f'max_group_{k}']} {k} ({stats[f'max_group_{k}'] / P_pad:.4f} a step)"
+                    for k in SEARCH_COUNTS[1:4])
     )
 
 
@@ -516,14 +539,7 @@ def main() -> int:
             + G * NP * HEADLINE_MAX_NODES * 4 + G * 4 + G * P_pad
         )
         ops_per_plane = 4 if ops.plan is not None else 1   # or, sub, and, cmp | cmp
-        # the fit tests the data needs: the node tests of a plain scan, or
-        # the pruned search's summary tests and the node tests of the
-        # candidate blocks it searches, whichever is fewer
-        pruned_tests = (
-            stats["summary_tests"] + ffd_scan.NODE_BLOCK * stats["candidate_blocks"]
-        )
-        fit_tests = min(stats["node_tests"], pruned_tests)
-        operations = fit_tests * NP * ops_per_plane
+        operations = fit_tests(stats) * NP * ops_per_plane
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         ops_ms = operations / FP32_OPS_PER_S * 1e3
         kernels.append({
@@ -538,7 +554,6 @@ def main() -> int:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
-            "parity": "exact",
             "call_ms": call_ms,
             "chain_floor_ms": floor_ms,
             "us_per_step": ms * 1e3 / P_pad,
@@ -554,14 +569,7 @@ def main() -> int:
         print(
             f"# {name} launch: {G} blocks (one a group) of {ffd_scan.GROUP_WARPS} warps, "
             f"{ffd_scan.smem_bytes(NP, HEADLINE_MAX_NODES)} B dynamic shared memory a "
-            f"block; search over {steps} group steps: "
-            + ", ".join(f"{stats[k]} {k} ({stats[k] / steps:.4f} a step)"
-                        for k in SEARCH_COUNTS)
-            + "; the busiest group: "
-            + ", ".join(f"{stats[f'max_group_{k}']} {k} "
-                        f"({stats[f'max_group_{k}'] / P_pad:.4f} a step)"
-                        for k in SEARCH_COUNTS[1:4]),
-            flush=True,
+            f"block; {search_line(stats, steps, P_pad)}", flush=True,
         )
         # the bound's inputs, computed from this run's shapes and data
         print(
@@ -569,117 +577,112 @@ def main() -> int:
             f"({kernels[-1]['bound_by']}): G={G} P={P} P_pad={P_pad} planes={NP} "
             f"max_nodes={HEADLINE_MAX_NODES}, {bytes_moved} B moved ({bytes_ms:.4f} ms), "
             f"min({stats['node_tests']} node tests, {stats['summary_tests']} summary tests "
-            f"+ {ffd_scan.NODE_BLOCK} x {stats['candidate_blocks']} candidate blocks) = "
-            f"{fit_tests} fit tests "
+            f"+ {NODE_BLOCK} x {stats['candidate_blocks']} candidate blocks) = "
+            f"{fit_tests(stats)} fit tests "
             f"x {NP} planes x {ops_per_plane} = {operations} operations ({ops_ms:.4f} ms)",
             flush=True,
         )
         del ops, got, want, plain_res
     phase("4a K1/K2 against their plain versions", t4)
 
-    # K3 at the affinity workload: all 100 groups and all 20k pods
-    t0 = time.perf_counter()
-    M_aff = AFFINITY_MAX_NODES
-    aff_prep = ffd_scan_affinity.prepare_scan_aff(**aff_ops, max_nodes=M_aff)
-    plain_args = (aff_prep.stream, aff_prep.bits, aff_prep.allocs, aff_prep.caps,
-                  aff_prep.nl, aff_prep.hl, aff_prep.spstat, aff_prep.num_planes,
-                  aff_prep.num_spread, M_aff)
-    got = ffd_scan_affinity.ffd_scan_aff(aff_prep)
+    # K3 on its three main-path launches: the affinity workload (all 100
+    # groups and all 20k pods), and the operands that the two spread worlds'
+    # estimate_many handed it (S = 32: the only launches where the spread
+    # gates and count planes run; all 16 groups). Each against its plain
+    # version with the search counts of the data, then timed, with its
+    # chain floor (all-zero requests and bits: every pod on node 0, a step
+    # is one summary pass, one round and a placement)
+    aff_prep = ffd_scan_affinity.prepare_scan_aff(**aff_ops, max_nodes=AFFINITY_MAX_NODES)
+    aff_got = ffd_scan_affinity.ffd_scan_aff(aff_prep)
     torch.cuda.synchronize()
-    stats = {}
-    t1 = time.perf_counter()
-    want = ffd_scan_affinity._scan_plain_aff(*plain_args, stats=stats)
-    torch.cuda.synchronize()
-    log(f"ffd_scan_aff: plain version with work count {time.perf_counter() - t1:.1f} s")
-    max_err = 0.0
-    for field, a, b in zip(("free", "opened", "placed"), want, got):
-        check(a.dtype == b.dtype and a.shape == b.shape, f"ffd_scan_aff: {field} layout")
-        check(torch.equal(a, b), f"ffd_scan_aff: {field} differs from the plain version")
-        max_err = max(max_err, float((a.double() - b.double()).abs().max()))
-    plain_res = ffd_scan_affinity.finish_scan_aff(aff_prep, *want)
-    for field, a, b in zip(plain_res._fields, plain_res, res_aff):
-        check(torch.equal(a, b), f"ffd_scan_aff: main-path {field} differs from the plain version")
-    ms = event_ms(lambda: ffd_scan_affinity.ffd_scan_aff(aff_prep))
-    call_ms = event_ms(lambda: ffd_scan_affinity.ffd_binpack_groups_affinity_cuda(
-        **aff_ops, max_nodes=M_aff
-    ))
-    plain_ms = event_ms(lambda: ffd_scan_affinity._scan_plain_aff(*plain_args), reps=1)
-    G_aff, P_pad_aff, R_aff = aff_prep.stream.shape
-    TP_aff = aff_prep.num_planes
-    NB_aff = aff_prep.bits.shape[2]
-    bytes_moved = (
-        aff_prep.stream.numel() * 4 + aff_prep.bits.numel() * 4 + aff_prep.allocs.numel() * 4
-        + aff_prep.caps.numel() * 4 + aff_prep.nl.numel() * 4 + aff_prep.hl.numel() * 4
-        + G_aff * R_aff * M_aff * 4 + G_aff * 4 + G_aff * P_pad_aff
-    )
-    operations = k3_operations(stats, R_aff)
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = operations / FP32_OPS_PER_S * 1e3
-    kernels.append({
-        "name": "ffd_scan_aff",
-        "route": "cuda",
-        "source": "autoscaler_tpu_torch/csrc/ffd_scan_affinity.cu",
-        "replaces": "autoscaler_tpu/ops/pallas_binpack_affinity.py:150",
-        "launches": launches["ffd_scan_aff"],
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
-        "parity": "exact",
-        "call_ms": call_ms,
-    })
-    print(
-        f"# ffd_scan_aff: {ms:.3f} ms kernel ({ms * 1e3 / P_pad_aff:.3f} us a step), "
-        f"{call_ms:.3f} ms whole call, {plain_ms:.1f} ms plain, parity exact on all "
-        f"{G_aff} groups", flush=True,
-    )
-    print(
-        f"# ffd_scan_aff bound {max(bytes_ms, ops_ms):.4f} ms ({kernels[-1]['bound_by']}): "
-        f"G={G_aff} P={AFFINITY_PODS} P_pad={P_pad_aff} R={R_aff} T={AFFINITY_TERMS} "
-        f"planes={TP_aff} bit_planes={NB_aff} max_nodes={M_aff}, {bytes_moved} B moved "
-        f"({bytes_ms:.4f} ms), {k3_work(stats, R_aff)} = {operations} operations "
-        f"({ops_ms:.4f} ms); "
-        f"{ffd_scan_affinity.affinity_smem_bytes(R_aff, TP_aff, 0, M_aff)} B dynamic "
-        f"shared memory a block", flush=True,
-    )
-    del got, want, plain_res
-    phase("4b K3 against its plain version", t0)
-
-    # K3 on the two spread worlds (S = 32: the only launches where the
-    # spread gates and count planes run): the main path's own launch
-    # against the plain version on the operands it was handed, all 16
-    # groups; then K3 timed on them
-    for variant in spread_worlds:
+    k3_launches = [("affinity workload", aff_prep, aff_got, res_aff, None)] + [
+        (f"{variant} spread world", *captured[variant], None, spread_card[variant][2])
+        for variant in spread_worlds
+    ]
+    for label, ops, got, main_res, host_s in k3_launches:
         t0 = time.perf_counter()
-        ops, got = captured[variant]
-        G_s, P_pad_s, R_s = ops.stream.shape
+        G_k, P_pad_k, R_k = ops.stream.shape
+        M_k = ops.max_nodes
+        plain_args = (ops.stream, ops.bits, ops.allocs, ops.caps, ops.nl, ops.hl, ops.spstat,
+                      ops.num_planes, ops.num_spread, M_k)
         stats = {}
-        want = ffd_scan_affinity._scan_plain_aff(
-            ops.stream, ops.bits, ops.allocs, ops.caps, ops.nl, ops.hl, ops.spstat,
-            ops.num_planes, ops.num_spread, ops.max_nodes, stats=stats,
-        )
+        want = ffd_scan_affinity._scan_plain_aff(*plain_args, stats=stats)
+        torch.cuda.synchronize()
+        log(f"ffd_scan_aff ({label}): plain version with work count "
+            f"{time.perf_counter() - t0:.1f} s")
+        max_err = 0.0
         for field, a, b in zip(("free", "opened", "placed"), want, got):
-            check(a.dtype == b.dtype and a.shape == b.shape,
-                  f"ffd_scan_aff ({variant} spread): {field} layout")
-            check(torch.equal(a, b),
-                  f"ffd_scan_aff ({variant} spread): {field} differs from the plain version")
-        sp_ms = event_ms(lambda: ffd_scan_affinity.ffd_scan_aff(ops))
+            check(a.dtype == b.dtype and a.shape == b.shape, f"ffd_scan_aff ({label}): {field} layout")
+            check(torch.equal(a, b), f"ffd_scan_aff ({label}): {field} differs from the plain version")
+            max_err = max(max_err, float((a.double() - b.double()).abs().max()))
+        if main_res is not None:
+            plain_res = ffd_scan_affinity.finish_scan_aff(ops, *want)
+            for field, a, b in zip(plain_res._fields, plain_res, main_res):
+                check(torch.equal(a, b),
+                      f"ffd_scan_aff ({label}): main-path {field} differs from the plain version")
+            del plain_res
+        ms = event_ms(lambda: ffd_scan_affinity.ffd_scan_aff(ops))
+        zeros = ops._replace(stream=torch.zeros_like(ops.stream), bits=torch.zeros_like(ops.bits))
+        floor_ms = event_ms(lambda: ffd_scan_affinity.ffd_scan_aff(zeros))
+        del zeros, want
+        bytes_moved = sum(
+            x.numel() * 4 for x in (ops.stream, ops.bits, ops.allocs, ops.caps, ops.nl, ops.hl,
+                                    ops.spstat) if x is not None
+        ) + G_k * R_k * M_k * 4 + G_k * 4 + G_k * P_pad_k
+        operations = k3_operations(stats, R_k)
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = operations / FP32_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        if main_res is not None:
+            call_ms = event_ms(lambda: ffd_scan_affinity.ffd_binpack_groups_affinity_cuda(
+                **aff_ops, max_nodes=AFFINITY_MAX_NODES
+            ))
+            plain_ms = event_ms(lambda: ffd_scan_affinity._scan_plain_aff(*plain_args), reps=1)
+            extra = f", {call_ms:.3f} ms whole call, {plain_ms:.1f} ms plain"
+            kernels.append({
+                "name": "ffd_scan_aff",
+                "route": "cuda",
+                "source": "autoscaler_tpu_torch/csrc/ffd_scan_affinity.cu",
+                "replaces": "autoscaler_tpu/ops/pallas_binpack_affinity.py:150",
+                "launches": launches["ffd_scan_aff"],
+                "max_abs_err": max_err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": None,
+                "call_ms": call_ms,
+                "chain_floor_ms": floor_ms,
+                "us_per_step": ms * 1e3 / P_pad_k,
+            })
+        else:
+            extra = f"; estimate_many + least-waste {host_s:.3f} s host clock"
         print(
-            f"# ffd_scan_aff on the {variant} spread world: {sp_ms:.3f} ms kernel "
-            f"({sp_ms * 1e3 / P_pad_s:.3f} us a step), parity exact on all {G_s} groups, "
-            f"G={G_s} P_pad={P_pad_s} R={R_s} "
-            f"planes={ops.num_planes} S={ops.num_spread} max_nodes={ops.max_nodes}, "
-            f"{ffd_scan_affinity.affinity_smem_bytes(R_s, ops.num_planes, ops.num_spread, ops.max_nodes)} "
-            f"B dynamic shared memory a block; work {k3_work(stats, R_s)} = "
-            f"{k3_operations(stats, R_s)} operations "
-            f"({k3_operations(stats, R_s) / FP32_OPS_PER_S * 1e3:.4f} ms at the peak rate); "
-            f"estimate_many + least-waste {spread_card[variant][2]:.3f} s host clock",
-            flush=True,
+            f"# ffd_scan_aff on the {label}: {ms:.3f} ms kernel "
+            f"({ms * 1e3 / P_pad_k:.4f} us a step), chain floor {floor_ms:.3f} ms "
+            f"({floor_ms * 1e3 / P_pad_k:.4f} us a step), parity exact on all {G_k} groups"
+            f"{extra}", flush=True,
         )
-        del want
-        phase(f"4b K3 on the {variant} spread world against its plain version", t0)
+        # the launch geometry (the shared memory from the kernel library
+        # itself), and the search the data needs, as the plain version counts it
+        smem = ffd_scan_affinity.affinity_smem_bytes(R_k, ops.num_planes, ops.num_spread, M_k)
+        print(
+            f"# ffd_scan_aff launch on the {label}: {G_k} blocks (one a group) of "
+            f"{ffd_scan_affinity.GROUP_WARPS} warps ({ffd_scan_affinity.WARP_BLOCKS} candidate "
+            f"blocks a warp a round), {smem} B dynamic shared memory a block; "
+            f"{search_line(stats, G_k * P_pad_k, P_pad_k)}", flush=True,
+        )
+        # the bound's inputs, computed from this run's shapes and data
+        print(
+            f"# ffd_scan_aff bound on the {label} {bound_ms:.4f} ms ({bound_by}): G={G_k} "
+            f"P_pad={P_pad_k} R={R_k} planes={ops.num_planes} bit_planes={ops.bits.shape[2]} "
+            f"S={ops.num_spread} max_nodes={M_k}, {bytes_moved} B moved ({bytes_ms:.4f} ms), "
+            f"{k3_work(stats, R_k)} = {operations} operations ({ops_ms:.4f} ms); "
+            f"{ms / bound_ms:.1f}x the bound", flush=True,
+        )
+        phase(f"4b K3 on the {label} against its plain version", t0)
+    del aff_got, k3_launches, captured
 
     # the estimator's results and choices against the same calls on the CPU
     t0 = time.perf_counter()
@@ -787,7 +790,6 @@ def main() -> int:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
-        "parity": "exact",
         "call_ms": call_ms,
     })
     probe_ops_count = probe_stats["class_tests"] + probe_stats["compares"]

@@ -16,7 +16,16 @@ import torch
 
 from autoscaler_tpu.ops import pallas_binpack as jpb
 from autoscaler_tpu_torch.ops import ffd_scan
-from torch_parity import CPU, GPU, MEMORY, PODS, assert_bits_equal, assert_results_equal, rand_case
+from torch_parity import (
+    CPU,
+    GPU,
+    MEMORY,
+    PODS,
+    assert_bits_equal,
+    assert_results_equal,
+    key_max_f32,
+    rand_case,
+)
 
 ROUTES = ["swar", "f32"]
 STD = dict(P=100, G=5)
@@ -355,17 +364,6 @@ def test_operand_checks():
 NO_NODE = 2**31 - 1
 
 
-def _f32_key_max(vals, valid):
-    """The max of f32 values as the kernel takes it: on keys that order the
-    bit patterns as the values order; NaN and invalid lanes at key 0, which
-    decodes to a NaN."""
-    b = vals.astype(np.float32).view(np.uint32).astype(np.uint64)
-    key = np.where(b >= 2**31, b ^ 0xFFFFFFFF, b | 2**31)
-    key = np.where(valid & ~np.isnan(vals), key, 0).max(axis=-1)
-    out = np.where(key >= 2**31, key & 0x7FFFFFFF, key ^ 0xFFFFFFFF)
-    return out.astype(np.uint32).view(np.float32)
-
-
 def _plan_field_masks(plan):
     """Each packed plane's field masks, from the SWAR plan's shifts and
     widths (the kernel reads the same fields off the guard bits)."""
@@ -400,7 +398,7 @@ def model_scan(stream, allocs, caps, M, guards=None, plan=None, bound="max",
             x = np.where(valid, vals.view(np.uint32), 0)
             return np.bitwise_or.reduce(x, axis=1).astype(np.uint32).view(vals.dtype)
         if not swar:
-            return _f32_key_max(vals, valid[None, :])
+            return key_max_f32(vals, valid[None, :])
         x = np.where(valid, vals, 0).astype(np.int64)
         return np.array([sum(int((x[p] & fm).max()) for fm in masks[p])
                          for p in range(NP)], np.int32)
@@ -633,7 +631,7 @@ def test_f32_key_max_orders_like_the_values():
     vals[2, 7] = -3.0
     valid = rng.random((64, 32)) > 0.2
     valid[3, :] = False
-    got = _f32_key_max(vals, valid)
+    got = key_max_f32(vals, valid)
     ref = np.where(valid & ~np.isnan(vals), vals, -np.inf).max(axis=1)
     live = valid.any(axis=1) & (valid & ~np.isnan(vals)).any(axis=1)
     np.testing.assert_array_equal(got[live], ref[live])

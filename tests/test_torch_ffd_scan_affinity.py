@@ -28,11 +28,14 @@ from autoscaler_tpu.ops import binpack as jbp
 from autoscaler_tpu.ops import pallas_binpack_affinity as jpa
 from autoscaler_tpu_torch.ops import ffd_scan_affinity as fa
 from torch_parity import (
+    AFF_SEARCH_WORLDS,
     CPU,
     PODS,
+    aff_search_world,
     assert_bits_equal,
     assert_results_equal,
     hostname_skew_pods,
+    key_max_f32,
     rand_world,
 )
 
@@ -186,7 +189,8 @@ def test_work_count_of_plain_scan():
     """The plain version counts the work the data needs: node fit tests
     up to the first hit (or every open node plus one closed node), and a
     term-gate test for each tested open node that fits, a term plane with
-    a bit set apiece; none for a pod that carries no term bit."""
+    a bit set apiece; none for a pod that carries no term bit. And the
+    kernel's search: one block, one summary test, one round a step."""
     req, masks, allocs = _uniform_world(4, cpu=100, cap_cpu=1000)
     match = np.zeros((1, P), bool)
     match[0, :3] = True                 # pods 0-2: hostname anti on themselves
@@ -203,8 +207,10 @@ def test_work_count_of_plain_scan():
     assert int(opened[0]) == 3 and int(placed.sum()) == 4
     # pods 0-2 test 1, 2 and 3 nodes (open nodes fit but fail the anti
     # gate: 0, 1 and 2 gate tests); pod 3 fits node 0 (1 test, no gate)
+    search = {"summary_tests": 4, "candidate_blocks": 4, "rounds": 4, "placements": 4}
     assert stats == {"node_tests": 7, "gate_plane_tests": 3,
-                     "host_gate_tests": 0, "open_min_nodes": 0}
+                     "host_gate_tests": 0, "open_min_nodes": 0, **search,
+                     **{f"max_group_{k}": n for k, n in search.items() if k != "summary_tests"}}
 
 
 # -- affinity worlds ----------------------------------------------------------
@@ -427,3 +433,238 @@ def test_32_spread_terms():
     args = spread_kernel_args(pods, zone_templates(3), pods_capacity=4)
     assert args[-1][0].shape == (P, 32) and args[-1][0][:, 31].any()
     run_both(*args, reference="xla")
+
+
+# -- a step-level model of K3's search ----------------------------------------
+#
+# K3 searches each step as K1/K2 do: the blocks 0..lim/32 (lim = min(opened,
+# min(cap, M) - 1)) are tested against their capacity summaries (the max
+# free capacity of the block's nodes below the cap, per resource) in passes
+# of 32, and the blocks that pass are searched in rounds of GROUP_WARPS ×
+# WARP_BLOCKS in node order, the round's hit being the lowest of its
+# blocks' hits; a node passes if it fits and passes the gates. Masked
+# steps, and steps that a group-level spread term blocks, search nothing.
+# The model below runs that search in numpy, checks its `first` against the
+# lowest node 0..lim that passes at every step, and counts the work the way
+# `_scan_plain_aff`'s stats do.
+
+NO_NODE = 2**31 - 1
+
+
+def model_scan_aff(stream, bits, allocs, caps, nl, hl, spstat, TP, S, M,
+                   W=fa.GROUP_WARPS * fa.WARP_BLOCKS):
+    """K3's search on numpy operands → (free [G, R, M], opened [G], placed
+    [G, P_pad], counts, the counts of each group), searching ``W``
+    candidate blocks a round. Besides the plain
+    version's search counts, ``counts`` holds ``blocked_steps`` (steps a
+    group-level term blocked) and ``gated_blocks`` (searched blocks where
+    some node fits on capacity and none passes the gates). Raises
+    AssertionError on any step whose search misses the lowest passing
+    node."""
+    G, P_pad, R = stream.shape
+    NB = -(-M // 32)
+    u32 = np.uint32
+    nl = nl.view(u32)
+    keys = ("summary_tests", "candidate_blocks", "rounds", "placements",
+            "blocked_steps", "gated_blocks")
+    counts = dict.fromkeys(keys, 0)
+    per_group = []
+    free_out = np.empty((G, R, M), np.float32)
+    opened_out = np.zeros(G, np.int32)
+    placed = np.zeros((G, P_pad), bool)
+    for g in range(G):
+        mine = dict.fromkeys(keys, 0)
+        free = np.repeat(allocs[g][:, None], M, axis=1)
+        summ = np.repeat(allocs[g][:, None], NB, axis=1)
+        pm = np.zeros((TP, M), u32)
+        ha = np.zeros((TP, M), u32)
+        pmt = np.zeros(TP, u32)
+        hat = np.zeros(TP, u32)
+        spc = np.zeros((S, M), np.int64)
+        spct = np.zeros(S, np.int64)
+        st = spstat[g].astype(np.int64) if S else None      # [8, S]
+        h = hl[g].view(u32)
+        span = min(M, max(int(caps[g]), 0))
+        opened = 0
+        for s in range(P_pad):
+            req = stream[g, s]
+            if np.isinf(req[0]):
+                continue
+            b = bits[g, s].view(u32)
+            mp, ap, xp = b[:TP], b[TP:2 * TP], b[2 * TP:3 * TP]
+            spof = int(b[3 * TP]) if S else 0
+            spmt = int(b[3 * TP + 1]) if S else 0
+            group_ok, minh = True, {}
+            for i in range(S):
+                if not spof >> i & 1:
+                    continue
+                self_i = spmt >> i & 1
+                if st[0, i] == 0:
+                    if st[1, i] != 0:
+                        cnt = st[4, i] + spct[i]
+                        if cnt + self_i - min(st[5, i], cnt) > st[2, i]:
+                            group_ok = False
+                else:
+                    v = spc[i, :opened].min() if opened else NO_NODE
+                    minh[i] = 0 if st[3, i] > st[7, i] + opened else min(st[6, i], v)
+            if not group_ok:
+                mine["blocked_steps"] += 1
+                continue
+            seed = mp & ~pmt
+            new_ok = not (
+                (ap & ~((nl & seed) | (~nl & h & (pmt | seed))))
+                | (xp & ~nl & pmt & h) | (mp & ~nl & hat & h)
+            ).any()
+
+            def fits(nodes):
+                return (req[:, None] <= free[:, nodes]).all(axis=0)
+
+            def gates(nodes):
+                c = lambda v: v[:, None]  # noqa: E731
+                dom_pm = (pm[:, nodes] & c(nl)) | c(pmt & ~nl)
+                dom_ha = (ha[:, nodes] & c(nl)) | c(hat & ~nl)
+                viol = ((c(ap) & (~c(h) | ~(dom_pm | c(seed))))
+                        | (c(xp) & dom_pm & c(h)) | (c(mp) & dom_ha & c(h)))
+                ok = (viol == 0).all(axis=0)
+                for i, mh in minh.items():
+                    ok &= ~(spc[i, nodes] + (spmt >> i & 1) - mh > st[2, i])
+                return np.where(nodes < opened, ok, new_ok)
+
+            lim = min(opened, span - 1)
+            nblk = lim // 32 + 1 if lim >= 0 else 0
+            mine["summary_tests"] += nblk
+            first = NO_NODE
+            for q0 in range(0, nblk, 32):
+                blocks = np.arange(q0, min(q0 + 32, nblk))
+                cand = list(blocks[(req[:, None] <= summ[:, blocks]).all(axis=0)])
+                while cand and first == NO_NODE:
+                    slots = []
+                    for blk in cand[:W]:
+                        nodes = np.minimum(blk * 32 + np.arange(32), lim)
+                        live = blk * 32 + np.arange(32) <= lim
+                        fit = live & fits(nodes)
+                        ok = fit & gates(nodes)
+                        mine["gated_blocks"] += int(fit.any() and not ok.any())
+                        slots.append(blk * 32 + int(np.argmax(ok)) if ok.any() else NO_NODE)
+                    mine["rounds"] += 1
+                    mine["candidate_blocks"] += len(slots)
+                    first = min(slots)
+                    cand = cand[W:]
+                if first != NO_NODE:
+                    break
+            every = np.arange(lim + 1)
+            hits = np.nonzero(fits(every) & gates(every))[0]
+            assert first == (int(hits[0]) if len(hits) else NO_NODE), (g, s, first)
+            if first == NO_NODE:
+                continue
+            free[:, first] = free[:, first] - req
+            pm[:, first] |= mp
+            ha[:, first] |= xp
+            pmt |= mp
+            hat |= xp
+            for i in range(S):
+                if spmt >> i & 1 and st[1, i] != 0:
+                    spc[i, first] += 1
+                    spct[i] += 1
+            opened = max(opened, first + 1)
+            placed[g, s] = True
+            mine["placements"] += 1
+            nodes = first // 32 * 32 + np.arange(32)
+            summ[:, first // 32] = key_max_f32(free[:, np.minimum(nodes, M - 1)],
+                                               (nodes < span)[None, :])
+        free_out[g], opened_out[g] = free, opened
+        per_group.append(mine)
+        for key in keys:
+            counts[key] += mine[key]
+    return free_out, opened_out, placed, counts, per_group
+
+
+def _search_operands(name):
+    (req, masks, allocs, match, aff, anti, nl, hl, caps, spread,
+     M) = aff_search_world(name)
+    ops = fa.affinity_operands_from_numpy(
+        req, masks, allocs, match, aff, anti, nl, hl, caps, spread, device="cpu"
+    )
+    return fa.prepare_scan_aff(**ops, max_nodes=M)
+
+
+def _plain_aff(ops, stats=None):
+    return fa._scan_plain_aff(
+        ops.stream, ops.bits, ops.allocs, ops.caps, ops.nl, ops.hl, ops.spstat,
+        ops.num_planes, ops.num_spread, ops.max_nodes, stats=stats,
+    )
+
+
+def _model_aff(ops, **kw):
+    spstat = None if ops.spstat is None else ops.spstat.numpy()
+    return model_scan_aff(
+        ops.stream.numpy(), ops.bits.numpy(), ops.allocs.numpy(), ops.caps.numpy(),
+        ops.nl.numpy(), ops.hl.numpy(), spstat, ops.num_planes, ops.num_spread,
+        ops.max_nodes, **kw,
+    )
+
+
+@pytest.mark.parametrize("world", AFF_SEARCH_WORLDS)
+def test_aff_search_model_matches_plain_version(world):
+    """K3's search (rounds of candidate blocks in node order, exact capacity
+    summaries refreshed on every placement, the gates on the node tests,
+    the search stopped at min(opened, min(cap, M) - 1)) finds the lowest
+    passing node at every step and ends with the plain version's free,
+    opened and placed, bit for bit; the plain version's search counts are
+    the model's."""
+    ops = _search_operands(world)
+    stats = {}
+    want = _plain_aff(ops, stats)
+    free, opened, placed, counts, per_group = _model_aff(ops)
+    assert_bits_equal(want[0], free)
+    assert_bits_equal(want[1], opened)
+    assert_bits_equal(want[2], placed)
+    for key in ("summary_tests", "candidate_blocks", "rounds", "placements"):
+        assert stats[key] == counts[key], key
+    for key in ("candidate_blocks", "rounds", "placements"):
+        assert stats[f"max_group_{key}"] == max(c[key] for c in per_group), key
+    assert stats["candidate_blocks"] <= stats["summary_tests"]
+    # the worlds reach the edges they are named for
+    M, caps = ops.max_nodes, ops.caps.tolist()
+    if world == "m1000":
+        assert M == 1000 and opened.tolist() == [1000, 700] and not placed[:, -100:].any()
+    elif world == "cap-in-block":
+        assert opened.tolist() == caps == [40, 70, 3]
+    elif world == "caps-0-1":
+        assert opened.tolist() == [0, 1, 0, 1]
+    elif world == "last-node-of-block":
+        assert int(opened[0]) == 32 and placed[0, :33].all() and free[0, CPU, 31] == 0.0
+    elif world == "gates-reject":
+        assert counts["gated_blocks"] > 0 and counts["rounds"] > stats["placements"]
+        assert max(c["rounds"] for c in per_group) > ops.stream.shape[1]  # several a step
+    elif world == "zone-blocked":
+        assert counts["blocked_steps"] > 0
+    elif world == "masked":
+        assert int(opened[1]) == 0 and not placed[1].any()
+
+
+@pytest.mark.parametrize("W", [1, 3, 16])
+@pytest.mark.parametrize("world", ["rand", "cap-in-block", "caps-0-1"])
+def test_aff_search_model_exact_for_any_round_width(world, W):
+    """However many candidate blocks a round searches, the lowest passing
+    node of the round is `first`: the search is exact for every width,
+    and wider rounds take fewer of them."""
+    ops = _search_operands(world)
+    want = _plain_aff(ops)
+    free, opened, placed, counts, _ = _model_aff(ops, W=W)
+    for a, b in zip(want, (free, opened, placed)):
+        assert_bits_equal(a, b)
+    assert counts["rounds"] >= _model_aff(ops, W=W + 1)[3]["rounds"]
+
+
+def test_aff_search_counts_follow_the_kernel_constants():
+    """The plain version counts rounds of GROUP_WARPS × WARP_BLOCKS blocks,
+    the kernel's kWarps × kWarpBlocks: the constants are read from the
+    source."""
+    import re
+
+    from autoscaler_tpu_torch.ops import _build
+
+    text = _build.source("ffd_scan_affinity").read_text()
+    for name, want in (("kWarps", fa.GROUP_WARPS), ("kWarpBlocks", fa.WARP_BLOCKS)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", text).group(1)) == want

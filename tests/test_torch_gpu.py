@@ -12,12 +12,15 @@ import torch
 
 from autoscaler_tpu_torch.ops import ffd_scan, ffd_scan_affinity, fit_reduce
 from torch_parity import (
+    AFF_SEARCH_WORLDS,
     CPU,
     MEMORY,
     PODS,
+    aff_search_world,
     assert_results_equal,
     hostname_skew_pods,
     rand_case,
+    rand_spread,
     rand_world,
 )
 
@@ -246,20 +249,6 @@ def test_estimator_on_card_equals_cpu(cuda):
         assert [p.name for p in on_card[g][1]] == [p.name for p in on_cpu[g][1]]
 
 
-def _spread_tuple(rng, P, G, S):
-    """A random 11-array spread tuple: zone and hostname terms, skews 1-2,
-    some static context and minDomains."""
-    nl = np.arange(S) % 2 == 0
-    return (
-        rng.random((P, S)) < 0.3, rng.random((P, S)) < 0.5, nl,
-        rng.integers(1, 3, S).astype(np.int32), rng.integers(1, 3, S).astype(np.int32),
-        rng.random((G, S)) < 0.9, rng.integers(0, 3, (G, S)).astype(np.int32),
-        rng.integers(0, 2, (G, S)).astype(np.int32),
-        np.where(rng.random((G, S)) < 0.5, 2**30, 0).astype(np.int32),
-        rng.integers(0, 3, (G, S)).astype(np.int32), rng.random((G, S)) < 0.2,
-    )
-
-
 @pytest.mark.parametrize("S", [0, 4, 32])
 @pytest.mark.parametrize("T", [5, 40])
 def test_affinity_kernel_matches_plain_version(cuda, T, S):
@@ -267,7 +256,7 @@ def test_affinity_kernel_matches_plain_version(cuda, T, S):
     without spread, one and two term planes."""
     P, G, M = 300, 8, 64
     req, masks, allocs, match, aff, anti, nl, hl, caps = rand_world(T, P=P, G=G, T=T, max_nodes=M)
-    spread = _spread_tuple(np.random.default_rng(S), P, G, S) if S else None
+    spread = rand_spread(np.random.default_rng(S), P, G, S) if S else None
     ops = ffd_scan_affinity.prepare_scan_aff(**ffd_scan_affinity.affinity_operands_from_numpy(
         req, masks, allocs, match, aff, anti, nl, hl, caps, spread, cuda
     ), max_nodes=M)
@@ -321,7 +310,7 @@ def test_affinity_kernel_hostname_gate_binds(cuda):
 def test_affinity_entry_on_card_equals_cpu(cuda):
     P, G, M = 500, 6, 128
     req, masks, allocs, match, aff, anti, nl, hl, caps = rand_world(9, P=P, G=G, T=12, max_nodes=M)
-    spread = _spread_tuple(np.random.default_rng(9), P, G, 8)
+    spread = rand_spread(np.random.default_rng(9), P, G, 8)
     outs = []
     for dev in (cuda, "cpu"):
         ops = ffd_scan_affinity.affinity_operands_from_numpy(
@@ -333,11 +322,72 @@ def test_affinity_entry_on_card_equals_cpu(cuda):
 
 def test_affinity_smem_bytes_from_the_kernel_library(cuda):
     """The C side's formula, as the launch and the estimator's gate read
-    it: (R + 2 TP + S) M words of carry plus staging and group scalars."""
-    R, TP, S, M = 6, 1, 32, 1024
-    words = (R + 2 * TP + S) * M + 32 * (R + 3 * TP + 2) + 4 * TP + 10 * S
-    assert ffd_scan_affinity.affinity_smem_bytes(R, TP, S, M) == 4 * words
+    it: (R + 2 TP + S) M words of carry, the capacity summaries [R,
+    ceil(M / 32)], two staged blocks of 32 steps, the group scalars and
+    two rounds' hit slots of GROUP_WARPS warps."""
+    for R, TP, S, M in ((6, 1, 32, 1024), (6, 2, 0, 1000), (17, 1, 4, 64)):
+        BP = 3 * TP + (2 if S else 0)
+        words = ((R + 2 * TP + S) * M + R * -(-M // 32) + 2 * 32 * (R + BP) + 4 * TP
+                 + 9 * S + 2 * ffd_scan_affinity.GROUP_WARPS)
+        assert ffd_scan_affinity.affinity_smem_bytes(R, TP, S, M) == 4 * words
     assert ffd_scan_affinity.affinity_smem_bytes(6, 1, 0, 1024) < 48 * 1024
+
+
+def _plain_aff(ops):
+    return ffd_scan_affinity._scan_plain_aff(
+        ops.stream, ops.bits, ops.allocs, ops.caps, ops.nl, ops.hl, ops.spstat,
+        ops.num_planes, ops.num_spread, ops.max_nodes,
+    )
+
+
+@pytest.mark.parametrize("world", AFF_SEARCH_WORLDS)
+def test_affinity_kernel_search_edges(cuda, world):
+    """K3 against its plain version where the search's rounds, capacity
+    summaries, gates and staged steps meet their edges (the worlds of the
+    search model in tests/test_torch_ffd_scan_affinity.py): M = 1000 with a
+    partial last block, caps 0, 1 and inside a block, a placement on the
+    last node of a block, gates that reject capacity hits over several
+    rounds, a group-level term that blocks steps, S = 32, ~94 staged
+    blocks of 32 steps, masked groups."""
+    (req, masks, allocs, match, aff, anti, nl, hl, caps, spread,
+     M) = aff_search_world(world)
+    ops = ffd_scan_affinity.prepare_scan_aff(**ffd_scan_affinity.affinity_operands_from_numpy(
+        req, masks, allocs, match, aff, anti, nl, hl, caps, spread, cuda
+    ), max_nodes=M)
+    before = ffd_scan_affinity.LAUNCHES["ffd_scan_aff"]
+    free, opened, placed = got = ffd_scan_affinity.ffd_scan_aff(ops)
+    torch.cuda.synchronize()
+    assert ffd_scan_affinity.LAUNCHES["ffd_scan_aff"] == before + 1
+    for a, b in zip(_plain_aff(ops), got):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if world == "m1000":
+        assert opened.tolist() == [1000, 700] and not placed[:, -100:].any()
+    elif world == "cap-in-block":
+        assert opened.tolist() == [40, 70, 3]
+    elif world == "caps-0-1":
+        assert opened.tolist() == [0, 1, 0, 1]
+    elif world == "last-node-of-block":
+        assert int(opened[0]) == 32 and placed[0, :33].all() and float(free[0, CPU, 31]) == 0.0
+    elif world == "masked":
+        assert int(opened[1]) == 0 and not placed[1].any()
+    elif world == "s32":
+        assert ops.num_spread == 32
+
+
+def test_affinity_kernel_empty_stream(cuda):
+    """An empty stream stages nothing and places nothing: K3 returns the
+    allocs as the carry, as its plain version does."""
+    (req, masks, allocs, match, aff, anti, nl, hl, caps, spread,
+     M) = aff_search_world("rand")
+    ops = ffd_scan_affinity.prepare_scan_aff(**ffd_scan_affinity.affinity_operands_from_numpy(
+        req, masks, allocs, match, aff, anti, nl, hl, caps, spread, cuda
+    ), max_nodes=M)
+    ops = ops._replace(stream=ops.stream[:, :0].contiguous(), bits=ops.bits[:, :0].contiguous())
+    got = ffd_scan_affinity.ffd_scan_aff(ops)
+    torch.cuda.synchronize()
+    for a, b in zip(_plain_aff(ops), got):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[2].shape == (4, 0) and not got[1].any()
 
 
 def test_estimator_dynamic_route_on_card_equals_cpu(cuda):

@@ -1,13 +1,16 @@
 """The committed design variants of K1/K2 (unified diffs against
-csrc/ffd_scan.cu, timed by ``autoscaler_tpu_torch.tools.scan_variants``)
-still apply to the source as it stands, and the applier is strict."""
+csrc/ffd_scan.cu) and of K3 (against csrc/ffd_scan_affinity.cu), timed by
+``autoscaler_tpu_torch.tools.scan_variants``, still apply to the sources
+as they stand, and the applier is strict."""
 import pytest
 
 from autoscaler_tpu_torch.ops import _build
-from autoscaler_tpu_torch.tools.scan_variants import PATCH_DIR, apply_patch
+from autoscaler_tpu_torch.tools.scan_variants import AFF_PATCH_DIR, PATCH_DIR, apply_patch
 
 PATCHES = sorted(p.name for p in PATCH_DIR.glob("*.patch"))
 ENTRIES = ("int ffd_scan_f32(", "int ffd_scan_swar(", "int ffd_scan_smem_bytes(")
+AFF_PATCHES = sorted(p.name for p in AFF_PATCH_DIR.glob("*.patch"))
+AFF_ENTRIES = ("int ffd_scan_aff(", "int ffd_scan_aff_smem_bytes(")
 
 
 def test_variants_are_committed():
@@ -22,6 +25,22 @@ def test_variant_applies_to_the_source(name):
     text = apply_patch(source, patch)
     assert text != source
     for entry in ENTRIES:
+        assert text.count(entry) == 1, f"{name} loses {entry}"
+
+
+def test_aff_variants_are_committed():
+    names = {name.removesuffix(".patch") for name in AFF_PATCHES}
+    assert {"stage1", "stage12"} <= names and len(names) >= 6
+
+
+@pytest.mark.parametrize("name", AFF_PATCHES)
+def test_aff_variant_applies_to_the_source(name):
+    source = _build.source("ffd_scan_affinity").read_text()
+    patch = (AFF_PATCH_DIR / name).read_text()
+    assert not patch.startswith(("---", "@@")), "the first line says what the variant changes"
+    text = apply_patch(source, patch)
+    assert text != source
+    for entry in AFF_ENTRIES:
         assert text.count(entry) == 1, f"{name} loses {entry}"
 
 

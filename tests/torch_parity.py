@@ -152,3 +152,139 @@ def mask_world(tu, obj, seed, P=40, N=12, place=True):
         for i, pod in enumerate(pods):
             pod.node_name = nodes[node_of_pod[i]].name if node_of_pod[i] >= 0 else ""
     return nodes, pods, node_of_pod
+
+
+def rand_spread(rng, P, G, S):
+    """A random 11-array spread tuple (the order of the port's
+    ``SPREAD_DTYPES``): zone and hostname terms, skews 1-2, some static
+    context and minDomains."""
+    nl = np.arange(S) % 2 == 0
+    return (
+        rng.random((P, S)) < 0.3, rng.random((P, S)) < 0.5, nl,
+        rng.integers(1, 3, S).astype(np.int32), rng.integers(1, 3, S).astype(np.int32),
+        rng.random((G, S)) < 0.9, rng.integers(0, 3, (G, S)).astype(np.int32),
+        rng.integers(0, 2, (G, S)).astype(np.int32),
+        np.where(rng.random((G, S)) < 0.5, 2**30, 0).astype(np.int32),
+        rng.integers(0, 3, (G, S)).astype(np.int32), rng.random((G, S)) < 0.2,
+    )
+
+
+def key_max_f32(vals, valid):
+    """The max of f32 values over the last axis as the scan kernels take
+    it: on keys that order the bit patterns as the values order; NaN and
+    invalid lanes at key 0, which decodes to a NaN."""
+    b = vals.astype(np.float32).view(np.uint32).astype(np.uint64)
+    key = np.where(b >= 2**31, b ^ 0xFFFFFFFF, b | 2**31)
+    key = np.where(valid & ~np.isnan(vals), key, 0).max(axis=-1)
+    out = np.where(key >= 2**31, key & 0x7FFFFFFF, key ^ 0xFFFFFFFF)
+    return out.astype(np.uint32).view(np.float32)
+
+
+def _terms(P, T, G, node_level=True):
+    z = np.zeros((T, P), bool)
+    return z, z.copy(), z.copy(), np.full(T, node_level), np.ones((G, T), bool)
+
+
+def _one_spread(P, G, S, node_level, min_others=0):
+    """S spread terms that no pod declares or matches yet: maxSkew 1,
+    minDomains 1, no static context (a static minimum of 2^30, so the
+    minimum over the open nodes is the one that binds)."""
+    return [
+        np.zeros((P, S), bool), np.zeros((P, S), bool), np.asarray(node_level, bool),
+        np.ones(S, np.int32), np.ones(S, np.int32), np.ones((G, S), bool),
+        np.zeros((G, S), np.int32), np.broadcast_to(np.asarray(min_others, np.int32), (G, S)).copy(),
+        np.full((G, S), 2**30, np.int32), np.zeros((G, S), np.int32), np.zeros((G, S), bool),
+    ]
+
+
+# The edge worlds of K3's search, for its numpy model on the CPU and for
+# the kernel on the card: (req, masks, allocs, match, aff_of, anti_of,
+# node_level, has_label, caps, spread, max_nodes).
+AFF_SEARCH_WORLDS = ["rand", "masked", "caps-0-1", "s32", "cap-in-block", "m1000",
+                     "last-node-of-block", "gates-reject", "zone-blocked", "many-chunks"]
+
+
+def aff_search_world(name):
+    rng = np.random.default_rng(len(name))
+    if name in ("rand", "masked", "caps-0-1", "s32", "many-chunks"):
+        # random requests and terms (two term planes) beside random spread
+        # terms, 300 pods (3000 small ones in ~94 staged blocks of 32)
+        P, G, M = (3000, 3, 256) if name == "many-chunks" else (300, 4, 64)
+        req, masks, allocs, match, aff, anti, nl, hl, caps = rand_world(
+            len(name), P=P, G=G, T=40, max_nodes=M
+        )
+        if name == "many-chunks":
+            req[:, CPU] //= 8
+        if name == "masked":
+            masks[1, :] = False
+            masks[2, ::2] = False
+        if name == "caps-0-1":
+            caps = np.array([0, 1, 0, 1], np.int32)
+        spread = rand_spread(rng, P, G, 32 if name == "s32" else 4)
+        return req, masks, allocs, match, aff, anti, nl, hl, caps, spread, M
+    if name in ("m1000", "cap-in-block"):
+        # half-node to whole-node pods: the groups reach their caps, 1000
+        # (nodes 992..999 make a partial last block) and 700, or 40, 70
+        # and 3 inside a block of 100 nodes; one pod in ten with hostname
+        # anti-affinity on itself, one in twenty with a hostname spread
+        P, G, M, caps = (
+            (1500, 2, 1000, [1000, 700]) if name == "m1000" else (400, 3, 100, [40, 70, 3])
+        )
+        req = np.zeros((P, 6), np.float32)
+        req[:, CPU] = rng.integers(500, 1001, P)
+        req[:, MEMORY] = rng.integers(64, 2048, P)
+        req[:, PODS] = 1.0
+        allocs = np.zeros((G, 6), np.float32)
+        allocs[:, CPU] = 1000.0
+        allocs[:, MEMORY] = 4096.0
+        allocs[:, PODS] = 110.0
+        match, aff, anti, nl, hl = _terms(P, 1, G)
+        match[0, ::10] = anti[0, ::10] = True
+        spread = _one_spread(P, G, 1, [True])
+        spread[0][::20, 0] = True
+        spread[1][:, 0] = True
+        return (req, np.ones((G, P), bool), allocs, match, aff, anti, nl, hl,
+                np.array(caps, np.int32), tuple(spread), M)
+    if name == "last-node-of-block":
+        # 31 whole-node pods fill nodes 0..30; a 600 pod opens node 31, the
+        # last of block 0; the 400 pod after it lands on node 31 as well
+        P, G, M = 33, 1, 64
+        req = np.zeros((P, 6), np.float32)
+        req[:, CPU] = [1000.0] * 31 + [600.0, 400.0]
+        req[:, MEMORY] = req[:, CPU]
+        req[:, PODS] = 1.0
+        allocs = np.zeros((G, 6), np.float32)
+        allocs[:, CPU] = allocs[:, MEMORY] = 1000.0
+        allocs[:, PODS] = 110.0
+        return (req, np.ones((G, P), bool), allocs, *_terms(P, 1, G),
+                np.array([M], np.int32), None, M)
+    if name == "gates-reject":
+        # tiny pods that fit every node: two in three hold hostname
+        # anti-affinity on themselves (a node each), the others a hostname
+        # spread of maxSkew 1 that every pod matches; the open nodes' blocks
+        # pass their summaries and fail the gates, over more than 32 blocks
+        # (two passes, a round each)
+        P, G, M = 1800, 2, 1500
+        req = np.zeros((P, 6), np.float32)
+        req[:, CPU] = rng.integers(5, 20, P)
+        req[:, PODS] = 1.0
+        allocs = np.zeros((G, 6), np.float32)
+        allocs[:, CPU] = 4000.0
+        allocs[:, PODS] = 110.0
+        match, aff, anti, nl, hl = _terms(P, 1, G)
+        match[0] = anti[0] = np.arange(P) % 3 != 0
+        spread = _one_spread(P, G, 1, [True])
+        spread[0][::3, 0] = True
+        spread[1][:, 0] = True
+        return (req, np.ones((G, P), bool), allocs, match, aff, anti, nl, hl,
+                np.array([M, 1100], np.int32), tuple(spread), M)
+    # "zone-blocked": a zone spread term (group-level) whose budget runs
+    # out after 1, 6 or 101 matching pods, blocking every later step that
+    # declares it, and a hostname spread term
+    P, G, M = 300, 3, 64
+    req, masks, allocs, match, aff, anti, nl, hl, caps = rand_world(5, P=P, G=G, T=5, max_nodes=M)
+    spread = _one_spread(P, G, 2, [False, True], min_others=np.array([[0], [5], [100]]))
+    spread[0][:, 0] = rng.random(P) < 0.5
+    spread[0][:, 1] = rng.random(P) < 0.2
+    spread[1][:] = True
+    return req, masks, allocs, match, aff, anti, nl, hl, caps, tuple(spread), M
