@@ -14,9 +14,11 @@ or pending legacy-volume conflicts take:
 
 - the run-compressed route (``ops/binpack.ffd_binpack_groups_runs``) when
   equivalence dedup at least halves the pod count;
-- otherwise the plain route, ``ops/ffd_scan.ffd_binpack_groups_cuda``,
-  which launches the hand-written kernels K1/K2 for CUDA tensors and runs
-  their plain versions for CPU tensors.
+- otherwise the plain route: ``ops/ffd_scan``'s glue and the hand-written
+  kernels K1/K2 for CUDA tensors (their plain versions for CPU tensors),
+  when the carry of the kernel planes fits one block's shared memory; else
+  the torch loop ``ops/binpack.ffd_binpack_groups``, on the same device.
+  ``ROUTES`` counts which of the two served (``scan_route``, the gate).
 
 Worlds that need the dynamic (term-gated) scan take:
 
@@ -29,8 +31,10 @@ Worlds that need the dynamic (term-gated) scan take:
   tensors (its plain version for CPU tensors), when the spread terms fit
   its bitset (S <= 32) and its carry fits one block's shared memory; else
   the torch loop ``ops/binpack.ffd_binpack_groups_affinity``, on the same
-  device. ``ROUTES`` counts which of the two served. The gate is a check on
-  the shapes, made before the call, as the JAX package makes it.
+  device. ``ROUTES`` counts which of the two served (``kernel_route``).
+
+Both gates check the shapes before the call, as the JAX package's
+``pallas_gate`` does; a launch that fails still raises.
 
 ``estimate`` (one template) runs ``ffd_binpack``, or the torch loop
 ``ffd_binpack_groups_affinity`` with one group in a dynamic world, as the
@@ -52,17 +56,15 @@ from autoscaler_tpu_torch.core.scaleup.equivalence import build_pod_groups
 from autoscaler_tpu_torch.device import resolve_device
 from autoscaler_tpu_torch.estimator.limiter import ThresholdBasedEstimationLimiter
 from autoscaler_tpu_torch.kube.objects import NUM_RESOURCES, Node, Pod
-from autoscaler_tpu_torch.ops import ffd_scan_affinity
+from autoscaler_tpu_torch.ops import ffd_scan, ffd_scan_affinity
 from autoscaler_tpu_torch.ops.binpack import (
     ffd_binpack,
+    ffd_binpack_groups,
     ffd_binpack_groups_affinity,
     ffd_binpack_groups_runs,
     ffd_binpack_groups_runs_affinity,
 )
-from autoscaler_tpu_torch.ops.ffd_scan import (
-    ffd_binpack_groups_cuda,
-    operands_from_numpy,
-)
+from autoscaler_tpu_torch.ops.ffd_scan import operands_from_numpy
 from autoscaler_tpu_torch.snapshot.affinity import (
     SpreadTermTensors,
     build_affinity_terms,
@@ -78,9 +80,10 @@ from autoscaler_tpu_torch.snapshot.packer import (
 )
 from autoscaler_tpu_torch.snapshot.tensors import bucket_size
 
-# Which scan served each per-pod dynamic estimate: the kernel K3, or the
-# torch loop when the term state is too wide for it.
-ROUTES = {"ffd_scan_aff": 0, "affinity_loop": 0}
+# Which scan served each per-pod estimate: on the plain route the kernels
+# K1/K2 or the torch loop when their carry is too wide; on the dynamic
+# route the kernel K3 or the torch loop when the term state is too wide.
+ROUTES = {"ffd_scan": 0, "binpack_loop": 0, "ffd_scan_aff": 0, "affinity_loop": 0}
 
 
 def _pack_pods(
@@ -157,6 +160,17 @@ def _spread_tuple(sp: SpreadTermTensors, conv=np.asarray) -> tuple:
     )
 
 
+def scan_route(device: torch.device, planes: int, max_nodes: int) -> str:
+    """The plain route's gate, on the shapes alone: "ffd_scan" unless, on a
+    CUDA card, K1/K2's carry of ``planes`` kernel planes (fixed by
+    ``ffd_scan.plan_scan``) over ``max_nodes`` nodes asks for more shared memory
+    than a block may use; then "binpack_loop". The CPU runs K1/K2's plain
+    versions, which have no shared-memory limit."""
+    if device.type == "cuda" and ffd_scan.smem_bytes(planes, max_nodes) > ffd_scan.SMEM_PER_BLOCK:
+        return "binpack_loop"
+    return "ffd_scan"
+
+
 def kernel_route(device: torch.device, R: int, T: int, S: int, max_nodes: int) -> str:
     """The per-pod dynamic route's gate, on the shapes alone: "ffd_scan_aff"
     when the spread terms fit K3's bitset (S <= 32, S = 0 when no pod
@@ -168,7 +182,7 @@ def kernel_route(device: torch.device, R: int, T: int, S: int, max_nodes: int) -
     if device.type == "cuda":
         TP = max((T + 31) // 32, 1)
         smem = ffd_scan_affinity.affinity_smem_bytes(R, TP, S, max_nodes)
-        if smem > ffd_scan_affinity.SMEM_PER_BLOCK:
+        if smem > ffd_scan.SMEM_PER_BLOCK:
             return "affinity_loop"
     return "ffd_scan_aff"
 
@@ -345,12 +359,7 @@ class BinpackingNodeEstimator:
                 vol_comps, cluster,
             )
         else:
-            req_t, masks_t, allocs_t, caps_t = operands_from_numpy(
-                req, masks, allocs, caps, self.device
-            )
-            res = ffd_binpack_groups_cuda(
-                req_t, masks_t, allocs_t, max_nodes=scan_cap, node_caps=caps_t,
-            )
+            res = self._estimate_many_plain(req, masks, allocs, caps, scan_cap)
         counts = res.node_count.cpu().numpy()
         scheds = res.scheduled.cpu().numpy()
         return {
@@ -360,6 +369,24 @@ class BinpackingNodeEstimator:
             )
             for gi, g in enumerate(names)
         }
+
+    def _estimate_many_plain(self, req, masks, allocs, caps, scan_cap):
+        """The plain per-pod route: the glue's host probe fixes the kernel
+        planes, the shape gate picks K1/K2 or the torch loop, and only the
+        route taken builds its operands, on the estimator's device."""
+        req_t, masks_t, allocs_t, caps_t = operands_from_numpy(
+            req, masks, allocs, caps, self.device
+        )
+        plan = ffd_scan.plan_scan(req_t, allocs_t)
+        route = scan_route(self.device, plan.planes, scan_cap)
+        ROUTES[route] += 1
+        if route == "ffd_scan":
+            return ffd_scan.ffd_binpack_groups_cuda(
+                req_t, masks_t, allocs_t, max_nodes=scan_cap, node_caps=caps_t, scan_plan=plan
+            )
+        return ffd_binpack_groups(
+            req_t, masks_t, allocs_t, max_nodes=scan_cap, node_caps=caps_t
+        )
 
     def _estimate_many_dynamic(
         self, pods, names, templates, req, masks, allocs, caps, scan_cap,

@@ -44,6 +44,7 @@ BIG_I32 = 2**31 - 1
 STEP_BLOCK = 32  # the kernels stage 32 steps at a time: P pads to a multiple
 NODE_BLOCK = 32  # nodes a warp tests at once, and a block summary covers
 GROUP_WARPS = 8  # warps of each group's block (kWarps in csrc/ffd_scan.cu)
+SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory a Hopper block may use
 
 # Launch counts of the kernels: each wrapper adds one where it launches
 # its kernel, and nowhere else.
@@ -181,32 +182,21 @@ def _check_operands(pod_req, pod_masks, template_allocs, node_caps):
         raise ValueError(f"node_caps must be [{G}], got {tuple(node_caps.shape)}")
 
 
-def prepare_scan(
-    pod_req: torch.Tensor,          # [P, R] f32
-    pod_masks: torch.Tensor,        # [G, P] bool
-    template_allocs: torch.Tensor,  # [G, R] f32
-    max_nodes: int,
-    node_caps: Optional[torch.Tensor] = None,  # [G] i32
-) -> ScanOperands:
-    """Everything before the kernel: caps, scores and their stable sort, the
-    inf clamp, the one host probe (axis compression, SWAR plan), and the
-    sorted request stream with inactive pods set to +inf or the
-    sentinel."""
-    _check_operands(pod_req, pod_masks, template_allocs, node_caps)
-    if max_nodes < 1:
-        raise ValueError(f"max_nodes must be >= 1, got {max_nodes}")
-    dev = pod_req.device
-    P, R_full = pod_req.shape
-    G = pod_masks.shape[0]
-    if node_caps is None:
-        node_caps = torch.full((G,), max_nodes, dtype=torch.int32, device=dev)
-    caps = torch.clamp(node_caps, max=max_nodes).contiguous()
-    order = score_order(pod_req, template_allocs)                   # [G, P]
-    allocs = clamp_inf_allocs(pod_req, template_allocs)
+class ScanPlan(NamedTuple):
+    """What the one host probe fixes before the stream is built."""
 
-    # ONE host fetch: per-axis usage (exact compression), per-axis maxima
-    # and integrality (the SWAR decision). Non-finite requests never occur
-    # by construction; the isfinite guard keeps an inf out of _swar_plan.
+    keep: List[int]          # resource axes kept by the compression
+    plan: Optional[list]     # SWAR field plan, or None (f32 route)
+    planes: int              # NP, the kernel planes of the carry
+
+
+def plan_scan(pod_req: torch.Tensor, template_allocs: torch.Tensor) -> ScanPlan:
+    """The glue's ONE host fetch: per-axis usage (exact compression),
+    per-axis maxima and integrality (the SWAR decision), and from them the
+    kernel planes. Non-finite requests never occur by construction; the
+    isfinite guard keeps an inf out of _swar_plan."""
+    R_full = pod_req.shape[1]
+    allocs = clamp_inf_allocs(pod_req, template_allocs)
     ints_ok = (
         (pod_req >= 0).all()
         & torch.isfinite(pod_req).all()
@@ -226,6 +216,35 @@ def prepare_scan(
     plan = None
     if probe[-1] > 0:
         plan = _swar_plan([max(req_max[r], alloc_max[r]) for r in keep])
+    return ScanPlan(keep, plan, len(keep) if plan is None else len(plan))
+
+
+def prepare_scan(
+    pod_req: torch.Tensor,          # [P, R] f32
+    pod_masks: torch.Tensor,        # [G, P] bool
+    template_allocs: torch.Tensor,  # [G, R] f32
+    max_nodes: int,
+    node_caps: Optional[torch.Tensor] = None,  # [G] i32
+    scan_plan: Optional[ScanPlan] = None,
+) -> ScanOperands:
+    """Everything before the kernel: caps, scores and their stable sort, the
+    inf clamp, the one host probe (``plan_scan``, unless ``scan_plan`` is
+    given), and the sorted request stream with inactive pods set to +inf or
+    the sentinel."""
+    _check_operands(pod_req, pod_masks, template_allocs, node_caps)
+    if max_nodes < 1:
+        raise ValueError(f"max_nodes must be >= 1, got {max_nodes}")
+    dev = pod_req.device
+    P, R_full = pod_req.shape
+    G = pod_masks.shape[0]
+    if node_caps is None:
+        node_caps = torch.full((G,), max_nodes, dtype=torch.int32, device=dev)
+    caps = torch.clamp(node_caps, max=max_nodes).contiguous()
+    order = score_order(pod_req, template_allocs)                   # [G, P]
+    allocs = clamp_inf_allocs(pod_req, template_allocs)
+    if scan_plan is None:
+        scan_plan = plan_scan(pod_req, template_allocs)
+    keep, plan = scan_plan.keep, scan_plan.plan
     if len(keep) < R_full:
         keep_t = torch.tensor(keep, device=dev)
         pod_req = pod_req[:, keep_t]
@@ -556,11 +575,12 @@ def ffd_binpack_groups_cuda(
     template_allocs: torch.Tensor,  # [G, R] f32
     max_nodes: int,
     node_caps: Optional[torch.Tensor] = None,  # [G] i32
+    scan_plan: Optional[ScanPlan] = None,
 ) -> BinpackResult:
     """The plain FFD over every node group in one scan — the port of
     ``ffd_binpack_groups_pallas``. Returns BinpackResult(node_count [G] i32,
     scheduled [G, P] bool, node_used [G, max_nodes, R] f32) on the inputs'
-    device."""
+    device. ``scan_plan``, when given, is ``plan_scan``'s on the same operands."""
     P, R = pod_req.shape
     G = pod_masks.shape[0]
     if P == 0 or G == 0:
@@ -571,5 +591,5 @@ def ffd_binpack_groups_cuda(
             scheduled=torch.zeros((G, P), dtype=torch.bool, device=dev),
             node_used=torch.zeros((G, max_nodes, R), dtype=torch.float32, device=dev),
         )
-    ops = prepare_scan(pod_req, pod_masks, template_allocs, max_nodes, node_caps)
+    ops = prepare_scan(pod_req, pod_masks, template_allocs, max_nodes, node_caps, scan_plan)
     return finish_scan(ops, *run_scan(ops))

@@ -58,7 +58,6 @@ from autoscaler_tpu_torch.ops.ffd_scan import (
 )
 
 MAX_SPREAD = 32          # the spread bitset payload is one int32 plane
-SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory a Hopper block may use
 GROUP_WARPS = 8          # warps of each group's block (kWarps in csrc/ffd_scan_affinity.cu)
 WARP_BLOCKS = 4          # candidate blocks a warp tests a round (kWarpBlocks there)
 

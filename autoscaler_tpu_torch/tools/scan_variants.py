@@ -1,7 +1,7 @@
-"""Times design variants of a scan kernel's source against each other on
-one CUDA card, at the shapes of its main-path launches.
+"""Times design variants of a kernel's source against each other on one
+CUDA card, at the shapes of its main-path launches.
 
-    python3 -m autoscaler_tpu_torch.tools.scan_variants [--kernel scan|aff] \\
+    python3 -m autoscaler_tpu_torch.tools.scan_variants [--kernel scan|aff|fit] \\
         [--variant NAME ...] [--source NAME=PATH ...] [--reps 3] [--out FILE]
 
 ``--kernel scan`` (the default) takes ``csrc/ffd_scan.cu`` (K1 and K2) and
@@ -11,6 +11,11 @@ aff`` takes ``csrc/ffd_scan_affinity.cu`` (K3) and its variants in
 ``ffd_scan_affinity_variants/``, on the operands of K3's three main-path
 launches: the affinity workload, and the operands that ``estimate_many``
 hands K3 on the zone and hostname spread worlds (captured from the call).
+``--kernel fit`` takes ``csrc/fit_reduce.cu`` (K4) and its variants in
+``fit_reduce_variants/``, on the fit bench's operands (fit-K4), on the
+operands that the snapshot probe's ``first_fit_node`` hands K4 (captured
+from the call on the packed 15k-node world), and, for the sources that
+have the rows entry, on the probe's special rows.
 
 The variants are the checkout's own source ("this"); each committed
 variant, a unified diff against that source (NAME is the file's stem; all
@@ -20,12 +25,12 @@ the same C entry points, for example an older commit's, unpacked with
 ``git show``. Each is compiled with the flags of ``ops/_build.py`` into
 ``build/variants/<kernel>/`` (all compilers at once) and launched through
 its own library. Each launch is held against the plain version exactly
-(free, opened, placed); then each variant is timed with CUDA events in
-turns (every variant, then all again in reverse order), on the real
-operands and on all-zero requests (and bits), where every pod fits node 0
-(the floor of the chain of dependent steps). Prints one line per variant
-and operand set and a JSON object last; ``--out`` also writes the JSON
-there.
+(free, opened, placed for the scans; any, count, first for the fit); then
+each variant is timed with CUDA events in turns (every variant, then all
+again in reverse order), on the real operands and, for the scans, on
+all-zero requests (and bits), where every pod fits node 0 (the floor of
+the chain of dependent steps). Prints one line per variant and operand
+set and a JSON object last; ``--out`` also writes the JSON there.
 """
 from __future__ import annotations
 
@@ -40,13 +45,18 @@ from typing import List
 
 import torch
 
-from autoscaler_tpu_torch.ops import _build, ffd_scan, ffd_scan_affinity
+from autoscaler_tpu_torch.ops import _build, ffd_scan, ffd_scan_affinity, fit_reduce
 
 TOOLS = Path(__file__).resolve().parent
 PATCH_DIR = TOOLS / "ffd_scan_variants"
 AFF_PATCH_DIR = TOOLS / "ffd_scan_affinity_variants"
+FIT_PATCH_DIR = TOOLS / "fit_reduce_variants"
 # --kernel → (the source's name in ops/_build.py, its variants' directory)
-KERNELS = {"scan": ("ffd_scan", PATCH_DIR), "aff": ("ffd_scan_affinity", AFF_PATCH_DIR)}
+KERNELS = {
+    "scan": ("ffd_scan", PATCH_DIR),
+    "aff": ("ffd_scan_affinity", AFF_PATCH_DIR),
+    "fit": ("fit_reduce", FIT_PATCH_DIR),
+}
 VARIANT_DIR = _build.BUILD_DIR.parent / "variants"
 HUNK = re.compile(r"^@@[^\n]*\n", re.M)
 
@@ -241,10 +251,82 @@ def _aff_cases(dev):
         yield label, ops, want, zeros, _launch_aff
 
 
+def _launch_fit(lib, ops):
+    """One launch of K4 from ``lib`` → FitReduction."""
+    P, R = ops[0].shape
+    N = ops[1].shape[0]
+    CP, CN = ops[4].shape
+    count = torch.zeros((P,), dtype=torch.int32, device=ops[0].device)
+    first = torch.full((P,), fit_reduce.BIG_I32, dtype=torch.int32, device=ops[0].device)
+    err = lib.fit_reduce(*(t.data_ptr() for t in ops), count.data_ptr(), first.data_ptr(),
+                         P, N, R, CP, CN, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "fit_reduce")
+    any_fit = count > 0
+    return fit_reduce.FitReduction(any_fit, count, torch.where(any_fit, first, -1))
+
+
+def _launch_rows(lib, ops):
+    """One launch of K4's rows entry from ``lib`` → FitReduction."""
+    req, free, rows, slots = ops
+    S, R = req.shape
+    N = free.shape[0]
+    count = torch.zeros((S,), dtype=torch.int32, device=req.device)
+    first = torch.full((S,), fit_reduce.BIG_I32, dtype=torch.int32, device=req.device)
+    err = lib.fit_reduce_rows(req.data_ptr(), free.data_ptr(), rows.data_ptr(),
+                              slots.data_ptr(), count.data_ptr(), first.data_ptr(), S, N, R,
+                              torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "fit_reduce_rows")
+    any_fit = count > 0
+    return fit_reduce.FitReduction(any_fit, count, torch.where(any_fit, first, -1))
+
+
+def _fit_cases(dev):
+    """K4's operand sets: the fit bench's (fit-K4), those the snapshot
+    probe's ``first_fit_node`` hands K4 (captured from the call), and the
+    probe's special rows for the rows entry."""
+    from autoscaler_tpu_torch.ops import fit
+    from autoscaler_tpu_torch.snapshot.cluster_snapshot import ClusterSnapshot
+    from autoscaler_tpu_torch.utils.workload import build_fit_workload, build_snapshot_world
+
+    ops = tuple(torch.tensor(a, device=dev) for a in build_fit_workload())
+    yield "fit-K4", ops, fit_reduce._fit_reduce_plain(*ops), None, _launch_fit
+    del ops
+    nodes, pods = build_snapshot_world()
+    snapshot = ClusterSnapshot(device=dev)
+    for node in nodes:
+        snapshot.add_node(node)
+    for pod in pods:
+        snapshot.add_pod(pod)
+    tensors, _ = snapshot.tensors()
+    seen = []
+    real = fit_reduce.fit_reduce_cuda
+
+    def capture(*operands):
+        seen.append(operands)
+        return real(*operands)
+
+    fit_reduce.fit_reduce_cuda = capture
+    try:
+        fit.first_fit_node(tensors)
+    finally:
+        fit_reduce.fit_reduce_cuda = real
+    if len(seen) != 1:
+        raise SystemExit(f"first_fit_node launched K4 {len(seen)} times, not once")
+    yield "probe", seen[0], fit_reduce._fit_reduce_plain(*seen[0]), None, _launch_fit
+    special = fit_reduce.special_pods(tensors)
+    rows_ops = (tensors.pod_req[special.clamp(min=0)].contiguous(), tensors.free(),
+                fit_reduce.special_rows(tensors), special.to(torch.int32))
+    yield "probe-rows", rows_ops, fit_reduce._fit_reduce_rows_plain(*rows_ops), None, _launch_rows
+
+
 def _event_ms(fn, reps):
+    """Mean device time of ``reps`` calls after one warm-up, queued behind
+    ~10 ms of a spinning card so that the events time the card, not the
+    host's launches."""
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     fn()
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -273,32 +355,35 @@ def main(argv=None) -> int:
     out_dir = VARIANT_DIR / args.kernel
     libs = _build_all(_variant_sources(args, out_dir), KERNELS[args.kernel][0], out_dir)
 
-    cases = _scan_cases(dev) if args.kernel == "scan" else _aff_cases(dev)
+    cases = {"scan": _scan_cases, "aff": _aff_cases, "fit": _fit_cases}[args.kernel](dev)
     result = {"device": smi, "kernel": args.kernel, "reps": args.reps,
               "variants": list(libs), "routes": {}}
     for label, ops, want, zeros, launch in cases:
+        entry = "fit_reduce_rows" if launch is _launch_rows else None
+        here = {name: lib for name, lib in libs.items() if entry is None or hasattr(lib, entry)}
         rows = {}
-        for name, lib in libs.items():
+        for name, lib in here.items():
             got = launch(lib, ops)
             torch.cuda.synchronize()
             exact = all(torch.equal(a, b) for a, b in zip(want, got))
             rows[name] = {"exact": exact, "ms": [], "floor_ms": []}
-        order = list(libs) + list(reversed(libs))
+        order = list(here) + list(reversed(here))
         for name in order:
-            lib = libs[name]
+            lib = here[name]
             rows[name]["ms"].append(_event_ms(lambda: launch(lib, ops), args.reps))
-            rows[name]["floor_ms"].append(_event_ms(lambda: launch(lib, zeros), args.reps))
-        P_pad = ops.stream.shape[1]
+            if zeros is not None:
+                rows[name]["floor_ms"].append(_event_ms(lambda: launch(lib, zeros), args.reps))
         for name, row in rows.items():
             ms = sum(row["ms"]) / len(row["ms"])
-            floor = sum(row["floor_ms"]) / len(row["floor_ms"])
-            row.update(mean_ms=ms, us_per_step=ms * 1e3 / P_pad, mean_floor_ms=floor)
-            print(
-                f"# {label} {name}: {ms:.3f} ms ({row['ms'][0]:.3f}, {row['ms'][1]:.3f}), "
-                f"{ms * 1e3 / P_pad:.4f} us a step, chain floor {floor:.3f} ms, "
-                f"{'exact' if row['exact'] else 'DIFFERS from the plain version'}",
-                flush=True,
-            )
+            row["mean_ms"] = ms
+            line = f"# {label} {name}: {ms:.3f} ms ({row['ms'][0]:.3f}, {row['ms'][1]:.3f})"
+            if zeros is not None:
+                P_pad = ops.stream.shape[1]
+                floor = sum(row["floor_ms"]) / len(row["floor_ms"])
+                row.update(us_per_step=ms * 1e3 / P_pad, mean_floor_ms=floor)
+                line += f", {ms * 1e3 / P_pad:.4f} us a step, chain floor {floor:.3f} ms"
+            print(f"{line}, {'exact' if row['exact'] else 'DIFFERS from the plain version'}",
+                  flush=True)
         result["routes"][label] = rows
         del want, zeros, ops
     line = json.dumps(result)

@@ -40,7 +40,13 @@ Phases (any failure raises and exits non-zero):
       packed into factored ``SnapshotTensors`` and probed by
       ``DebuggingSnapshotter.capture`` (``fits_any_node``) and
       ``first_fit_node``, each through ``fit_reduce_exact`` (K4 plus the
-      exact patch of the exception-row and single-cell pods).
+      exact patch of the exception-row and single-cell pods, whose true
+      rows go through K4's rows entry);
+   i. the plain route's shape gate: a 300-pod world with 7 f32 planes
+      (fractional memory, four host ports) at a scan cap of 8192 through
+      ``estimate_many``, whose carry exceeds a block's shared memory, so
+      the torch loop serves it ("binpack_loop"), and the same world with 6
+      planes, which launches K1.
    Every kernel of the paths must have launched;
 4. each kernel at its headline shape against its plain version on the same
    card tensors, exactly: K1/K2 on all 500 groups, K3 on its three
@@ -50,13 +56,18 @@ Phases (any failure raises and exits non-zero):
    results against the plain versions' results; the
    estimator's results and choices against the same calls on the CPU (the
    CPU takes a stride sample of the templates for the dynamic worlds:
-   each group's result depends on its own template only); K4 on all 100k
-   pods of the tiled fit and on the probe's two launches (4e); the probe's
-   ``fit_reduce_exact`` on all 131 072 pod rows against a reduction of
-   ``dense_sched()`` rows chunked by pods (4f);
-5. timings with CUDA events: each kernel alone, its whole entry call, and
-   the plain version; K3 on the zone and hostname spread worlds; K4 on the
-   probe's operands and the whole ``fit_reduce_exact`` there.
+   each group's result depends on its own template only); the gate worlds
+   against the CPU; K4 on all 100k pods of the tiled fit and on the
+   probe's two launches, and its rows entry on the probe's special rows,
+   with K4's launch geometry, registers and SASS instructions a pair
+   (4e); the probe's ``fit_reduce_exact`` on all 131 072 pod rows against
+   a reduction of ``dense_sched()`` rows chunked by pods, and its exact
+   patch timed in parts (4f);
+5. timings with CUDA events, each run queued behind ~10 ms of a spinning
+   card so that they time the card and not the host's launches: each
+   kernel alone, its whole entry call, and the plain version; K3 on the
+   zone and hostname spread worlds; K4 on the probe's operands, the whole
+   ``fit_reduce_exact`` there and its exact patch in parts.
 
 The last two lines of standard output are the kernels line (one JSON
 object) and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -67,6 +78,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -83,6 +95,9 @@ REPLICATED_CONTROLLERS = 300
 REPS = 3
 CPU_TEMPLATE_STRIDE = 2      # spread worlds: every other template on the CPU
 CPU_RUNS_TEMPLATE_STRIDE = 20  # replicated affinity world: 5 of 100 templates
+HOST_LEAD_CYCLES = 20_000_000  # ~10 ms of the card's clock before each timing
+GATE_PODS = 300          # the plain-route gate worlds
+GATE_MAX_NODES = 5000    # a scan cap of 8192
 HOSTNAME_KEY = "kubernetes.io/hostname"
 
 
@@ -140,6 +155,62 @@ def search_line(stats: dict, steps: int, P_pad: int) -> str:
         + ", ".join(f"{stats[f'max_group_{k}']} {k} ({stats[f'max_group_{k}'] / P_pad:.4f} a step)"
                     for k in SEARCH_COUNTS[1:4])
     )
+
+
+def k4_registers(report: str) -> list:
+    """'<kernel>: <registers line>' for each kernel of ptxas's report."""
+    out, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            short = re.search(r"\d(fit_reduce_(?:kernel|generic))ILi(\d+)E", m.group(1))
+            gate = {"0": "class bits", "1": "class bytes", "2": "rows"}.get(short.group(2), "?") if short else "?"
+            name = f"{short.group(1)}<{gate}>" if short else m.group(1)
+        elif "Used" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}")
+    return out
+
+
+# SASS opcodes issued on the ALU pipe (logic, compares, integer add and
+# select); IMAD, FADD and the uniform datapath are not
+ALU_OPS = ("LOP3", "FSETP", "ISETP", "PLOP3", "SEL", "IADD3", "VIADD", "SHF", "LEA", "POPC",
+           "FLO", "BREV", "VIMNMX", "IMNMX", "FMNMX", "PRMT")
+
+
+def k4_sass_loops(lib_path) -> dict:
+    """{live resources: (instructions a pair, ALU instructions a pair)} of
+    the class-bits kernel's inner loops, from ``cuobjdump -sass``: a loop is
+    a backward branch whose body holds one predicated instruction a pair
+    (the verdict's bit) besides the branch, shared-memory loads and, at NL
+    live resources, NL FSETP a pair."""
+    import os
+
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    out = {}
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        if "fit_reduce_kernelILi0E" not in func.split("\n", 1)[0]:
+            continue
+        rows = []
+        for line in func.splitlines():
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9.]+)", line)
+            if m:
+                rows.append((int(m.group(1), 16), m.group(2), m.group(3), line))
+        for addr, _, op, line in rows:
+            target = re.search(r"BRA\s+.*?0x([0-9a-f]+)", line)
+            if not op.startswith("BRA") or not target or int(target.group(1), 16) >= addr:
+                continue
+            body = [r for r in rows if int(target.group(1), 16) <= r[0] <= addr]
+            pairs = sum(1 for r in body if r[1] and not r[2].startswith("BRA"))
+            fsetp = sum(1 for r in body if r[2].startswith("FSETP"))
+            if pairs < 8 or fsetp % pairs or not any(r[2].startswith("LDS") for r in body):
+                continue
+            nl = fsetp // pairs
+            alu = sum(1 for r in body if r[2].split(".")[0] in ALU_OPS)
+            if nl not in out or len(body) / pairs < out[nl][0]:
+                out[nl] = (len(body) / pairs, alu / pairs)
+    return out
 
 
 def main() -> int:
@@ -284,6 +355,22 @@ def main() -> int:
             SPREAD_PODS, SPREAD_GROUPS, SPREAD_APPS, topology_key=HOSTNAME_KEY
         ),
     }
+    # the gate worlds: unique pods with fractional memory (the f32 route)
+    # and 4 or 3 distinct host ports (one virtual plane each)
+    gate_worlds = {}
+    for ports in (4, 3):
+        g_rng = np.random.default_rng(21)
+        pods_g = []
+        for i in range(GATE_PODS):
+            pod = build_test_pod(f"gate-{i}", cpu_m=float(g_rng.integers(50, 2000)),
+                                 mem=(float(g_rng.integers(64, 2048)) + 0.5) * MB)
+            if i % 3 == 0:
+                pod.host_ports = (9000 + i % ports,)
+            pods_g.append(pod)
+        gate_worlds[ports] = (pods_g, {
+            f"ng-{j}": build_test_node(f"gate-t{j}", cpu_m=4000.0 * (1 + j), mem=8 * GB)
+            for j in range(3)
+        })
     fit_np = build_fit_workload()
     fit_ops = tuple(torch.tensor(a, device=dev) for a in fit_np)   # copies
     world_nodes, world_pods = build_snapshot_world()
@@ -306,9 +393,12 @@ def main() -> int:
             return self.template
 
     def event_ms(fn, reps=REPS):
-        """Mean device time of ``reps`` calls, by CUDA events."""
+        """Mean device time of ``reps`` calls, by CUDA events. The card
+        first spins for HOST_LEAD_CYCLES, so that the host queues the calls
+        ahead of it and the events time the card, not the host's launches."""
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         start.record()
         for _ in range(reps):
             fn()
@@ -431,9 +521,17 @@ def main() -> int:
     probe_launches = []
     real_fit = fit_reduce.fit_reduce_cuda
 
+    rows_launches = []
+    real_rows = fit_reduce.fit_reduce_rows
+
     def capture_fit(*operands):
         out = real_fit(*operands)
         probe_launches.append((operands, out))
+        return out
+
+    def capture_rows(*operands):
+        out = real_rows(*operands)
+        rows_launches.append((operands, out))
         return out
 
     def probe_path():
@@ -448,12 +546,14 @@ def main() -> int:
         return tensors, meta, first, t1 - t0, time.perf_counter() - t1
 
     fit_reduce.fit_reduce_cuda = capture_fit
+    fit_reduce.fit_reduce_rows = capture_rows
     try:
         (probe_t, probe_meta, probe_first, t_pack, t_probe), counts, _ = run_path(
             "snapshot probe", probe_path
         )
     finally:
         fit_reduce.fit_reduce_cuda = real_fit
+        fit_reduce.fit_reduce_rows = real_rows
     check(counts["fit_reduce"] == 2, "the snapshot probe did not run K4 twice")
     check(probe_t.sched_mask is None, "the snapshot world did not pack factored")
     n_exc = int((probe_t.pod_exc >= 0).sum())
@@ -472,6 +572,23 @@ def main() -> int:
         f"pods fit free capacity, {int((probe_first >= 0).sum())} pods have a first fit",
         flush=True,
     )
+    check(counts["fit_reduce_rows"] == 2, "the snapshot probe did not run K4's rows entry twice")
+
+    # the plain route's gate: 7 f32 planes at a scan cap of 8192 ask for
+    # more shared memory than a block may use (the torch loop serves); 6
+    # planes launch K1
+    gate_limiter = ThresholdBasedEstimationLimiter(max_nodes=GATE_MAX_NODES)
+    gate_card = {}
+    for ports, route in ((4, "binpack_loop"), (3, "ffd_scan")):
+        pods_g, tmpl_g = gate_worlds[ports]
+        out, counts, _ = run_path(
+            f"plain-route gate ({3 + ports} planes)",
+            lambda: BinpackingNodeEstimator(gate_limiter).estimate_many(pods_g, tmpl_g),
+        )
+        check(counts[f"route:{route}"] == 1 and counts["ffd_scan_f32"] == int(route == "ffd_scan")
+              and sum(counts[f"route:{k}"] for k in binpacking.ROUTES) == 1,
+              f"the {3 + ports}-plane world did not take the {route} route")
+        gate_card[ports] = out
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main paths")
     check(
@@ -740,6 +857,10 @@ def main() -> int:
                         CPU_TEMPLATE_STRIDE)
     compare_sampled("replicated affinity world", cpu_estimator, replicated_aff, templates,
                     replicated_aff_card, CPU_RUNS_TEMPLATE_STRIDE)
+    for ports, (pods_g, tmpl_g) in gate_worlds.items():
+        compare_sampled(f"plain-route gate world ({3 + ports} planes)",
+                        BinpackingNodeEstimator(gate_limiter, device="cpu"), pods_g, tmpl_g,
+                        gate_card[ports], 1)
 
     # K4 against its plain version on the card: the tiled fit's main-path
     # launch on all 100k pods, and the probe's two launches on the operands
@@ -755,7 +876,7 @@ def main() -> int:
             err = max(err, float((a.double() - b.double()).abs().max()))
         return err
 
-    fit_stats, probe_stats = {}, {}
+    fit_stats, probe_stats, rows_stats = {}, {}, {}
     max_err = hold("fit_reduce (fit-K4)", fit_reduce._fit_reduce_plain(*fit_ops, stats=fit_stats),
                    res_fit)
     for k, (operands, got) in enumerate(probe_launches):
@@ -763,19 +884,31 @@ def main() -> int:
             f"fit_reduce (probe launch {k})",
             fit_reduce._fit_reduce_plain(*operands, stats=probe_stats if k == 0 else None), got,
         ))
+    rows_err = 0.0
+    for k, (operands, got) in enumerate(rows_launches):
+        rows_err = max(rows_err, hold(
+            f"fit_reduce_rows (probe launch {k})",
+            fit_reduce._fit_reduce_rows_plain(*operands, stats=rows_stats if k == 0 else None), got,
+        ))
     ms = event_ms(lambda: fit_reduce.fit_reduce_cuda(*fit_ops))
     plain_ms = event_ms(lambda: fit_reduce._fit_reduce_plain(*fit_ops), reps=1)
     probe_ops = probe_launches[0][0]
     probe_k4_ms = event_ms(lambda: fit_reduce.fit_reduce_cuda(*probe_ops))
+    rows_ops = rows_launches[0][0]
+    rows_ms = event_ms(lambda: fit_reduce.fit_reduce_rows(*rows_ops))
+    rows_plain_ms = event_ms(lambda: fit_reduce._fit_reduce_rows_plain(*rows_ops), reps=1)
     call_ms = event_ms(lambda: fit_reduce.fit_reduce_exact(probe_t))
     P_f, R_f = fit_ops[0].shape
     N_f = fit_ops[1].shape[0]
     CP_f, CN_f = fit_ops[4].shape
     # operands read once (f32 rows, i32 classes, bool mask and validity),
-    # outputs written once (bool, i32, i32)
+    # outputs written once (bool, i32, i32); the operations: a class test a
+    # live pair, and the compares of each pair that passes it up to the first
+    # that fails, on the resources that can fail in its (block, tile) only
+    # (the fewer of the plain and the pruned count: see _fit_reduce_plain)
     bytes_moved = (P_f * R_f * 4 + N_f * R_f * 4 + P_f * 4 + N_f * 4 + CP_f * CN_f + N_f
                    + P_f * (1 + 4 + 4))
-    operations = fit_stats["class_tests"] + fit_stats["compares"]
+    operations = fit_stats["class_tests"] + fit_stats["live_compares"]
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = operations / FP32_OPS_PER_S * 1e3
     kernels.append({
@@ -792,7 +925,31 @@ def main() -> int:
         "library_ms": None,
         "call_ms": call_ms,
     })
-    probe_ops_count = probe_stats["class_tests"] + probe_stats["compares"]
+    # the rows entry on the probe's special rows: the slots read once, and
+    # for the real slots alone their R requests and [N] bool rows (padding
+    # slots are never read); the outputs written once
+    S_r, R_r = rows_ops[0].shape
+    N_r = rows_ops[1].shape[0]
+    real_r = int((rows_ops[3] >= 0).sum())
+    rows_bytes = (real_r * R_r * 4 + N_r * R_r * 4 + real_r * N_r + S_r * 4
+                  + S_r * (1 + 4 + 4))
+    rows_operations = rows_stats["row_tests"] + rows_stats["live_compares"]
+    rows_bytes_ms = rows_bytes / HBM_BYTES_PER_S * 1e3
+    rows_ops_ms = rows_operations / FP32_OPS_PER_S * 1e3
+    kernels.append({
+        "name": "fit_reduce_rows",
+        "route": "cuda",
+        "source": "autoscaler_tpu_torch/csrc/fit_reduce.cu",
+        "replaces": "autoscaler_tpu/ops/pallas_fit.py:78",
+        "launches": launches["fit_reduce_rows"],
+        "max_abs_err": rows_err,
+        "ms": rows_ms,
+        "plain_ms": rows_plain_ms,
+        "bound_ms": max(rows_bytes_ms, rows_ops_ms),
+        "bound_by": "bytes" if rows_bytes_ms >= rows_ops_ms else "operations",
+        "library_ms": None,
+    })
+    probe_ops_count = probe_stats["class_tests"] + probe_stats["live_compares"]
     print(
         f"# fit_reduce: {ms:.3f} ms kernel at fit-K4 ({P_f} pods x {N_f} nodes, "
         f"{ms * 1e9 / (P_f * N_f):.4f} ps a pair), {plain_ms:.1f} ms plain, parity exact on "
@@ -801,15 +958,64 @@ def main() -> int:
         f"both launches ({len(probe_launches)})", flush=True,
     )
     print(
-        f"# fit_reduce bound {max(bytes_ms, ops_ms):.4f} ms ({kernels[-1]['bound_by']}): "
+        f"# fit_reduce bound {max(bytes_ms, ops_ms):.4f} ms ({kernels[-2]['bound_by']}): "
         f"P={P_f} N={N_f} R={R_f} CP={CP_f} CN={CN_f}, {bytes_moved} B moved "
         f"({bytes_ms:.4f} ms), {fit_stats['class_tests']} class tests + "
-        f"{fit_stats['compares']} compares = {operations} operations ({ops_ms:.4f} ms); "
-        f"{fit_reduce.smem_bytes(R_f, CP_f, CN_f)} B dynamic shared memory a block; probe "
-        f"launch: {probe_stats['class_tests']} class tests + {probe_stats['compares']} "
-        f"compares = {probe_ops_count} operations "
-        f"({probe_ops_count / FP32_OPS_PER_S * 1e3:.4f} ms at the peak rate)", flush=True,
+        f"min({fit_stats['compares']} compares, {fit_stats['live_compares']} on live "
+        f"resources) = {operations} operations ({ops_ms:.4f} ms); "
+        f"{ms / max(bytes_ms, ops_ms):.2f}x the bound; probe launch: "
+        f"{probe_stats['class_tests']} class tests + min({probe_stats['compares']} "
+        f"compares, {probe_stats['live_compares']} on live resources) = {probe_ops_count} "
+        f"operations ({probe_ops_count / FP32_OPS_PER_S * 1e3:.4f} ms at the peak rate; "
+        f"{probe_k4_ms / max(bytes_ms, probe_ops_count / FP32_OPS_PER_S * 1e3):.2f}x)",
+        flush=True,
     )
+    print(
+        f"# fit_reduce_rows: {rows_ms:.3f} ms kernel on the probe's {S_r} special slots "
+        f"({real_r} pods) x "
+        f"{N_r} nodes (R={R_r}), {rows_plain_ms:.1f} ms plain, parity exact on both launches "
+        f"({len(rows_launches)}); bound {max(rows_bytes_ms, rows_ops_ms):.4f} ms "
+        f"({kernels[-1]['bound_by']}): {rows_bytes} B moved ({rows_bytes_ms:.4f} ms), "
+        f"{rows_stats['row_tests']} row tests + min({rows_stats['compares']} compares, "
+        f"{rows_stats['live_compares']} on live resources) = {rows_operations} operations "
+        f"({rows_ops_ms:.4f} ms); {rows_ms / max(rows_bytes_ms, rows_ops_ms):.2f}x the bound",
+        flush=True,
+    )
+    # the launch geometry and shared memory (from the kernel library), the
+    # registers (ptxas), the live resources a (block, tile) the data leaves,
+    # and the SASS instructions a pair of the inner loops
+    smi_clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    sm_hz = float(smi_clock) * 1e6
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, ops_l, stats_l in (("fit-K4", fit_ops, fit_stats),
+                                  ("probe", probe_ops, probe_stats)):
+        P_l, R_l = ops_l[0].shape
+        N_l = ops_l[1].shape[0]
+        CP_l, CN_l = ops_l[4].shape
+        gx, gy, per_sm = fit_reduce.launch_geometry(P_l, N_l, R_l, CP_l, CN_l)
+        print(
+            f"# fit_reduce launch at {label}: grid {gx} x {gy} blocks of 128 threads "
+            f"({per_sm} resident an SM, {sms} SMs), "
+            f"{fit_reduce.smem_bytes(R_l, CP_l, CN_l)} B dynamic shared memory a block; "
+            f"live resources a (block, tile): {stats_l['live_counts']}", flush=True,
+        )
+    gx, gy, per_sm = fit_reduce.launch_geometry(S_r, N_r, R_r, rows=True)
+    print(f"# fit_reduce_rows launch: grid {gx} x {gy} ({per_sm} resident an SM), "
+          f"{fit_reduce.rows_smem_bytes(R_r)} B dynamic shared memory a block", flush=True)
+    for line in k4_registers(_build.BUILD_LOGS["fit_reduce"]):
+        print(f"# fit_reduce.cu {line}", flush=True)
+    loops = k4_sass_loops(_build.build("fit_reduce")["fit_reduce"])
+    pairs = P_f * N_f
+    for nl, (per_pair, alu_per_pair) in sorted(loops.items()):
+        print(
+            f"# fit_reduce SASS inner loop at {nl} live resources: {per_pair:.3f} instructions "
+            f"a pair, {alu_per_pair:.3f} on the ALU pipe; floor at fit-K4's {pairs} pairs "
+            f"({sms} SMs at {smi_clock} MHz): issue {pairs * per_pair / (sms * 128 * sm_hz) * 1e3:.4f}"
+            f" ms, ALU pipe {pairs * alu_per_pair / (sms * 64 * sm_hz) * 1e3:.4f} ms", flush=True,
+        )
     phase("4e K4 against its plain version", t0)
 
     # the probe's exact reduction on every pod row against an independent
@@ -842,6 +1048,33 @@ def main() -> int:
         f"rows ({int(ref.any_fit.sum())} fit somewhere, "
         f"{int(ref.fit_count.sum())} fitting pairs)", flush=True,
     )
+    # the exact patch in parts: the static special slots, their true rows,
+    # the rows entry, and the scatter over K4's result
+    E_p, K_p = probe_t.exc_rows.shape[0], probe_t.cell_pod.shape[0]
+    special = fit_reduce.special_pods(probe_t)
+    srows = fit_reduce.special_rows(probe_t)
+    sreq = probe_t.pod_req[special.clamp(min=0)]
+    slots = special.to(torch.int32)
+    part = fit_reduce.fit_reduce_rows(sreq, free_d, srows, slots)
+    base = fit_reduce.fit_reduce_cuda(*probe_ops)
+    parts_ms = {
+        "slots": event_ms(lambda: fit_reduce.special_pods(probe_t)),
+        "row build": event_ms(lambda: fit_reduce.special_rows(probe_t)),
+        "request gather": event_ms(lambda: probe_t.pod_req[special.clamp(min=0)]),
+        "fit and reduction (rows entry)": event_ms(lambda: fit_reduce.fit_reduce_rows(
+            sreq, free_d, srows, slots)),
+        "scatter": event_ms(lambda: fit_reduce.patch_reduction(
+            base, special, part, probe_t.pod_valid)),
+        "free": event_ms(probe_t.free),
+    }
+    print(
+        f"# probe exact patch: S = E + K = {E_p} + {K_p} = {E_p + K_p} slots "
+        f"({int((special >= 0).sum())} pods), {N_r} nodes; "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in parts_ms.items())
+        + f"; sum {sum(parts_ms.values()):.4f} ms; whole call {call_ms:.3f} ms = K4 "
+        f"{probe_k4_ms:.3f} ms + {call_ms - probe_k4_ms:.3f} ms", flush=True,
+    )
+    del special, srows, sreq, slots, part, base
     phase("4f the probe against a dense path", t0)
 
     # where the burst estimate's time goes: the host operand build (mask

@@ -23,6 +23,7 @@ import autoscaler_tpu_torch.expander.core as texp
 import autoscaler_tpu_torch.kube.objects as tobj
 import autoscaler_tpu_torch.utils.test_utils as ttu
 from autoscaler_tpu_torch.ops import ffd_scan, ffd_scan_affinity
+from torch_parity import port_world
 
 JAX = SimpleNamespace(obj=jobj, tu=jtu, est=jest, lim=jlim, exp=jexp)
 TORCH = SimpleNamespace(obj=tobj, tu=ttu, est=tes, lim=tlim, exp=texp)
@@ -397,14 +398,14 @@ def test_replicated_world_runs_affinity_route():
     groups = tes.build_pod_groups(pods)
     assert len(groups) * 2 <= len(pods)
     results, routed = run_dynamic(specs)
-    assert routed == {"ffd_scan_aff": 0, "affinity_loop": 0}
+    assert routed == {k: 0 for k in tes.ROUTES}
     assert_same(results)
 
 
 def test_replicated_world_with_spread_runs_affinity_route():
     specs = dynamic_spec(16, 140, replicated=True, apps=7, spread=1.0, spread_key=HOST)
     results, routed = run_dynamic(specs)
-    assert routed == {"ffd_scan_aff": 0, "affinity_loop": 0}
+    assert routed == {k: 0 for k in tes.ROUTES}
     assert_same(results)
 
 
@@ -442,6 +443,78 @@ def test_kernel_route_gate(monkeypatch):
     assert tes.kernel_route(cuda, 6, 4, 64, 16) == "affinity_loop"
     assert tes.kernel_route(cpu, 6, 64, 32, 2048) == "ffd_scan_aff"
     assert tes.kernel_route(cpu, 6, 4, 33, 16) == "affinity_loop"
+
+
+def scan_smem(planes, max_nodes):
+    """csrc/ffd_scan.cu's smem_bytes: the carry [NP, M], the block
+    summaries [NP, ceil(M/32)], two staged request blocks [2, 32, NP], the
+    guards [NP] and two rounds' hit slots [2, 8], in 4-byte words."""
+    return 4 * (planes * max_nodes + planes * -(-max_nodes // 32) + 64 * planes + planes + 16)
+
+
+@pytest.mark.parametrize("max_nodes,widest", [(1024, 51), (2048, 26), (4096, 13), (8192, 6)])
+def test_scan_route_gate(monkeypatch, max_nodes, widest):
+    """The plain route's gate reads K1/K2's shared memory from the kernel
+    library on a card (the C formula here): the widest carry that fits a
+    block launches the kernel, one plane more takes the torch loop. The
+    CPU never asks, and runs the plain versions."""
+    import torch
+
+    seen = []
+
+    def smem(planes, m):
+        seen.append((planes, m))
+        return scan_smem(planes, m)
+
+    monkeypatch.setattr(ffd_scan, "smem_bytes", smem)
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    assert scan_smem(widest, max_nodes) <= ffd_scan.SMEM_PER_BLOCK < scan_smem(widest + 1, max_nodes)
+    assert tes.scan_route(cuda, widest, max_nodes) == "ffd_scan"
+    assert tes.scan_route(cuda, widest + 1, max_nodes) == "binpack_loop"
+    assert seen == [(widest, max_nodes), (widest + 1, max_nodes)]
+    assert tes.scan_route(cpu, widest + 1, max_nodes) == "ffd_scan"
+    assert len(seen) == 2
+
+
+def test_plain_route_gate_counts_routes(monkeypatch):
+    """A world with 7 f32 planes at a scan cap of 8192: on the CPU the gate
+    keeps the plain versions ("ffd_scan"); where a card's gate refuses the
+    kernel ("binpack_loop") the torch loop answers the same, and ROUTES
+    counts each. No kernel launches on the CPU, and the loop route builds
+    no request stream for the kernels."""
+    pods, templates = port_world(ttu, 150, ports=4)
+    est = tes.BinpackingNodeEstimator(tlim.ThresholdBasedEstimationLimiter(max_nodes=5000),
+                                      device="cpu")
+    req, _, _ = tes._build_group_arrays(pods, sorted(templates), templates, pad=256)
+    assert req.shape[1] == 6 + 4
+    launches = dict(ffd_scan.LAUNCHES)
+    routes = dict(tes.ROUTES)
+    on_kernel_route = est.estimate_many(pods, templates)
+    assert {k: tes.ROUTES[k] - routes[k] for k in tes.ROUTES} == {
+        k: int(k == "ffd_scan") for k in tes.ROUTES
+    }
+    decided = []
+
+    def card_gate(device, planes, max_nodes):
+        decided.append((planes, max_nodes))
+        return "binpack_loop"
+
+    def no_stream(*args, **kwargs):
+        raise AssertionError("the loop route built the kernels' request stream")
+
+    monkeypatch.setattr(tes, "scan_route", card_gate)
+    monkeypatch.setattr(ffd_scan, "prepare_scan", no_stream)
+    routes = dict(tes.ROUTES)
+    on_loop = est.estimate_many(pods, templates)
+    assert decided == [(7, 8192)]
+    assert {k: tes.ROUTES[k] - routes[k] for k in tes.ROUTES} == {
+        k: int(k == "binpack_loop") for k in tes.ROUTES
+    }
+    assert ffd_scan.LAUNCHES == launches
+    assert any(n > 0 for n, _ in on_loop.values())
+    for g in templates:
+        assert on_loop[g][0] == on_kernel_route[g][0]
+        assert [p.name for p in on_loop[g][1]] == [p.name for p in on_kernel_route[g][1]]
 
 
 @pytest.mark.parametrize("cluster", [False, True])

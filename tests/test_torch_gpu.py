@@ -18,6 +18,7 @@ from torch_parity import (
     PODS,
     aff_search_world,
     assert_results_equal,
+    fit_case,
     hostname_skew_pods,
     rand_case,
     rand_spread,
@@ -406,30 +407,19 @@ def test_estimator_dynamic_route_on_card_equals_cpu(cuda):
         assert [p.name for p in on_card[g][1]] == [p.name for p in on_cpu[g][1]]
 
 
-def _fit_case(seed, P, N, R=6, CP=4, CN=3):
-    """tests/test_pallas_fit.py::build_case widened to R axes, with
-    classless pods, -1 node classes and invalid nodes."""
-    rng = np.random.default_rng(seed)
-    req = rng.integers(0, 60, (P, R)).astype(np.float32)
-    free = rng.integers(0, 200, (N, R)).astype(np.float32)
-    pod_class = rng.integers(-1, CP, P).astype(np.int32)
-    node_class = rng.integers(-1, CN, N).astype(np.int32)
-    class_mask = rng.random((CP, CN)) > 0.3
-    node_valid = rng.random(N) > 0.05
-    free[~node_valid] = 0
-    return req, free, pod_class, node_class, class_mask, node_valid
-
-
 @pytest.mark.parametrize(
     "P,N,R,CP,CN",
     [(64, 64, 6, 4, 3), (1000, 1500, 6, 40, 24), (300, 700, 11, 4, 3),
-     (70, 130, 1, 8, 8), (517, 2049, 8, 200, 200)],
+     (70, 130, 1, 8, 8), (517, 2049, 8, 200, 200),
+     # ragged: N < 32, P past one block, R = 9, CN = 32 / 33, CP = 64 / 65
+     (513, 20, 6, 8, 8), (700, 300, 9, 65, 33), (300, 400, 8, 64, 32),
+     (260, 255, 6, 65, 33), (130, 519, 1, 8, 8), (1025, 768, 8, 64, 33)],
 )
 def test_fit_reduce_kernel_matches_plain_version(cuda, P, N, R, CP, CN):
     """K4 against its plain version on the same card tensors: ragged
     sizes, R from 1 to 11 (the generic-R path above 8), a class mask too
     large for shared memory (200 x 200), and the launch count."""
-    ops = tuple(torch.tensor(a, device=cuda) for a in _fit_case(P + N, P, N, R, CP, CN))
+    ops = tuple(torch.tensor(a, device=cuda) for a in fit_case(P + N, P, N, R, CP, CN))
     before = fit_reduce.LAUNCHES["fit_reduce"]
     got = fit_reduce.fit_reduce_cuda(*ops)
     torch.cuda.synchronize()
@@ -437,7 +427,7 @@ def test_fit_reduce_kernel_matches_plain_version(cuda, P, N, R, CP, CN):
     want = fit_reduce._fit_reduce_plain(*ops)
     for a, b in zip(want, got):
         assert a.dtype == b.dtype and torch.equal(a, b)
-    ref = fit_reduce.reference_fit_reduce(*_fit_case(P + N, P, N, R, CP, CN))
+    ref = fit_reduce.reference_fit_reduce(*fit_case(P + N, P, N, R, CP, CN))
     for a, b in zip(ref, got):
         np.testing.assert_array_equal(a, b.cpu().numpy())
 
@@ -469,3 +459,107 @@ def test_fit_reduce_exact_on_card_equals_cpu(cuda):
     assert (t.pod_exc >= 0).any() and (t.cell_pod >= 0).any()
     for a, b in zip(outs[1], outs[0]):
         assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("S,N,R", [(5, 20, 6), (515, 528, 6), (40, 261, 9), (33, 64, 1),
+                                   (700, 1000, 8)])
+def test_fit_reduce_rows_kernel_matches_plain_version(cuda, S, N, R):
+    """K4's rows entry against its plain version on the same card tensors:
+    rows staged by the aligned path (N a multiple of 16) and byte by byte,
+    the generic path (R = 9), and the launch count."""
+    from torch_parity import rows_case
+
+    ops = tuple(torch.tensor(a, device=cuda) for a in rows_case(S + N, S, N, R))
+    before = fit_reduce.LAUNCHES["fit_reduce_rows"]
+    got = fit_reduce.fit_reduce_rows(*ops)
+    torch.cuda.synchronize()
+    assert fit_reduce.LAUNCHES["fit_reduce_rows"] == before + 1
+    want = fit_reduce._fit_reduce_rows_plain(*ops)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S,N,R", [(3 * 512 + 7, 528, 6), (700, 261, 9), (40, 64, 1)])
+def test_fit_reduce_rows_kernel_skips_padding_slots(cuda, S, N, R):
+    """The rows entry told the slots: padding rows (a negative slot, here
+    with requests of NaN, which would keep every resource live) count
+    nothing, a block of them leaves at once, and the rest equal the plain
+    version; the compacting kernel, the generic path and the aligned and
+    byte-by-byte staging."""
+    from torch_parity import rows_case
+
+    req, free, rows, slots = rows_case(S + N, S, N, R, padding=0.2)
+    slots[512:1024] = -1
+    req[slots < 0] = np.nan
+    ops = tuple(torch.tensor(a, device=cuda) for a in (req, free, rows, slots))
+    got = fit_reduce.fit_reduce_rows(*ops)
+    want = fit_reduce._fit_reduce_rows_plain(*ops)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert not got.fit_count[ops[3] < 0].any() and got.fit_count.any()
+
+
+def test_fit_reduce_waits_on_no_host_value(cuda):
+    """K4's launch and the factored snapshot's exact reduction run under
+    the sync debug mode "error": any wait on the card raises."""
+    import autoscaler_tpu_torch.kube.objects as tobj
+    import autoscaler_tpu_torch.utils.test_utils as ttu
+    from autoscaler_tpu_torch.snapshot.packer import pack
+    from torch_parity import mask_world
+
+    nodes, pods, _ = mask_world(ttu, tobj, 0, P=300, N=40)
+    t, _ = pack(nodes, pods, dense_mask=False, device=cuda)
+    ops = tuple(torch.tensor(a, device=cuda) for a in fit_case(3, 600, 700))
+    want = (fit_reduce.fit_reduce_cuda(*ops), fit_reduce.fit_reduce_exact(t))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = (fit_reduce.fit_reduce_cuda(*ops), fit_reduce.fit_reduce_exact(t))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(want, got):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("ports,route", [(4, "binpack_loop"), (3, "ffd_scan")])
+def test_plain_route_gate_on_card(cuda, ports, route):
+    """At a scan cap of 8192, 7 f32 planes ask for more shared memory than
+    a block may use: the gate sends the estimate to the torch loop, which
+    equals the CPU estimate; one plane fewer launches K1."""
+    from autoscaler_tpu_torch.estimator import binpacking
+    from autoscaler_tpu_torch.estimator.limiter import ThresholdBasedEstimationLimiter
+    from autoscaler_tpu_torch.utils import test_utils as ttu
+    from torch_parity import port_world
+
+    pods, templates = port_world(ttu, 300, ports=ports)
+    limiter = ThresholdBasedEstimationLimiter(max_nodes=5000)
+    routes = dict(binpacking.ROUTES)
+    launches = dict(ffd_scan.LAUNCHES)
+    on_card = binpacking.BinpackingNodeEstimator(limiter).estimate_many(pods, templates)
+    torch.cuda.synchronize()
+    assert {k: binpacking.ROUTES[k] - routes[k] for k in binpacking.ROUTES} == {
+        k: int(k == route) for k in binpacking.ROUTES
+    }
+    assert ffd_scan.LAUNCHES["ffd_scan_f32"] == launches["ffd_scan_f32"] + int(route == "ffd_scan")
+    assert ffd_scan.LAUNCHES["ffd_scan_swar"] == launches["ffd_scan_swar"]
+    on_cpu = binpacking.BinpackingNodeEstimator(limiter, device="cpu").estimate_many(pods, templates)
+    assert any(n > 0 for n, _ in on_card.values())
+    for g in templates:
+        assert on_card[g][0] == on_cpu[g][0]
+        assert [p.name for p in on_card[g][1]] == [p.name for p in on_cpu[g][1]]
+
+
+@pytest.mark.parametrize("P,N,R,CN,rows", [(100_000, 15_000, 6, 24, False),
+                                           (131_072, 16_384, 6, 16, False),
+                                           (5_143, 16_384, 6, 0, True), (300, 700, 11, 3, False)])
+def test_fit_reduce_launch_geometry(cuda, P, N, R, CN, rows):
+    """The launch geometry the kernel library reports is the numpy model's
+    split (tests/test_torch_fit_reduce_model.py) at the card's
+    multiprocessor count and the kernel's resident blocks."""
+    from test_torch_fit_reduce_model import geometry
+
+    gx, gy, per_sm = fit_reduce.launch_geometry(P, N, R, 40, CN, rows=rows)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert per_sm >= 1
+    assert (gx, gy) == geometry(P, N, sms, per_sm)[:2]

@@ -288,3 +288,51 @@ def aff_search_world(name):
     spread[0][:, 1] = rng.random(P) < 0.2
     spread[1][:] = True
     return req, masks, allocs, match, aff, anti, nl, hl, caps, tuple(spread), M
+
+
+def fit_case(seed, P, N, R=6, CP=4, CN=3):
+    """K4's operands: tests/test_pallas_fit.py::build_case widened to R
+    axes, with classless pods, -1 node classes and invalid nodes."""
+    rng = np.random.default_rng(seed)
+    req = rng.integers(0, 60, (P, R)).astype(np.float32)
+    free = rng.integers(0, 200, (N, R)).astype(np.float32)
+    pod_class = rng.integers(-1, CP, P).astype(np.int32)
+    node_class = rng.integers(-1, CN, N).astype(np.int32)
+    class_mask = rng.random((CP, CN)) > 0.3
+    node_valid = rng.random(N) > 0.05
+    free[~node_valid] = 0
+    return req, free, pod_class, node_class, class_mask, node_valid
+
+
+def rows_case(seed, S, N, R=6, padding=0.0):
+    """The rows entry's operands: requests, free capacity, [S, N] rows
+    (about a third false) and the slots (each row's index; -1 for a
+    ``padding`` share of them)."""
+    rng = np.random.default_rng(seed)
+    req = rng.integers(0, 60, (S, R)).astype(np.float32)
+    free = rng.integers(0, 200, (N, R)).astype(np.float32)
+    rows = rng.random((S, N)) > 0.3
+    slots = np.where(rng.random(S) < padding, -1, np.arange(S)).astype(np.int32)
+    return req, free, rows, slots
+
+
+def port_world(tu, n_pods, ports, seed=21):
+    """Unique pending pods built with ``tu`` (a package's test_utils), with
+    fractional memory (the f32 route) and ``ports`` distinct host ports
+    (one virtual plane each), and three templates: cpu, memory, pods and
+    the ports make 3 + ports kernel planes."""
+    rng = np.random.default_rng(seed)
+    pods = []
+    for i in range(n_pods):
+        pod = tu.build_test_pod(
+            f"w{i}", cpu_m=float(rng.integers(50, 2000)),
+            mem=(float(rng.integers(64, 2048)) + 0.5) * 2**20,
+        )
+        if ports and i % 3 == 0:
+            pod.host_ports = (9000 + i % ports,)
+        pods.append(pod)
+    templates = {
+        f"ng-{j}": tu.build_test_node(f"t{j}", cpu_m=4000.0 * (1 + j), mem=8 * 2**30)
+        for j in range(3)
+    }
+    return pods, templates
