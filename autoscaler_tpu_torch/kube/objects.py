@@ -1,9 +1,11 @@
 """Lightweight Kubernetes-shaped object model: the port's own copy of the
-subset of ``autoscaler_tpu/kube/objects.py`` that the scale-up estimate
-reads (resource vectors, pods, nodes, taints, selectors, volumes).
+subset of ``autoscaler_tpu/kube/objects.py`` that the scale-up half of a
+reconcile tick reads (resource vectors, pods, nodes, taints, selectors,
+volumes).
 
 The control plane works on these plain dataclasses; the estimator flattens
-them into dense tensors. Only the fields the estimate reads are modeled.
+them into dense tensors. Only the fields the scale-up path reads are
+modeled.
 The reference's process-global pod-profile id registry is not copied: the
 mask engine and the term tensors intern ``Pod.profile_key()`` locally,
 per pass.
@@ -30,6 +32,11 @@ RESOURCE_NAMES = ("cpu", "memory", "ephemeral-storage", "gpu", "tpu", "pods")
 NO_SCHEDULE = "NoSchedule"
 PREFER_NO_SCHEDULE = "PreferNoSchedule"
 NO_EXECUTE = "NoExecute"
+
+# Taints the autoscaler itself manages (cluster-autoscaler/utils/taints/
+# taints.go ToBeDeletedTaint / DeletionCandidateTaint); templates drop them.
+TO_BE_DELETED_TAINT = "ToBeDeletedByClusterAutoscaler"
+DELETION_CANDIDATE_TAINT = "DeletionCandidateOfClusterAutoscaler"
 
 # Pseudo-resource namespace for the minimal DRA ResourceClaim model: a claim
 # of device class <c> becomes the counted extended resource
@@ -64,6 +71,13 @@ class Resources:
         for name, qty in b:
             m[name] = m.get(name, 0.0) + sign * qty
         return tuple(sorted((k, v) for k, v in m.items() if v != 0.0))
+
+    def __add__(self, other: "Resources") -> "Resources":
+        base = [a + b for a, b in zip(self.as_tuple(), other.as_tuple())]
+        return Resources(
+            *base,
+            extended=self._merge_extended(self.extended, other.extended, 1.0),
+        )
 
     def __sub__(self, other: "Resources") -> "Resources":
         base = [a - b for a, b in zip(self.as_tuple(), other.as_tuple())]
@@ -289,6 +303,11 @@ class Pod:
             pk = (self.namespace, tuple(sorted(self.labels.items())))
             self.__dict__["_profile_key"] = pk
         return pk
+
+    def effective_requests(self) -> Resources:
+        """The requests with the pods count at 1: what the pod charges a
+        node (a template's daemon overhead sums these)."""
+        return dataclasses.replace(self.requests, pods=1.0)
 
 
 @dataclass

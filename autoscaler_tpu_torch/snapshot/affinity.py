@@ -18,10 +18,11 @@ template's non-hostname labels). A group whose template lacks the label
 can never satisfy a required affinity term over it, and never violates an
 anti term.
 
-Not here yet: the spread schedule contexts of the hinting and removal
-simulators (``build_spread_schedule_context``,
-``build_spread_context_from_meta``), which come with the
-filter-out-schedulable slice.
+The spread schedule context of the hinting simulator
+(``build_spread_schedule_context``, ``build_spread_context_from_meta``)
+counts domains over the existing nodes instead: it is built on the host
+in numpy, as in JAX, and handed to ``ops/schedule.greedy_schedule`` as
+nine torch tensors on the snapshot's device.
 """
 from __future__ import annotations
 
@@ -29,7 +30,9 @@ from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from autoscaler_tpu_torch.device import resolve_device
 from autoscaler_tpu_torch.kube import objects as k8s
 from autoscaler_tpu_torch.kube.objects import (
     LabelSelector,
@@ -355,6 +358,152 @@ def _spread_node_eligible(c, all_keys, declarer: Pod, node: Node) -> bool:
         return False
     return True
 
+
+# the spread schedule context's nine arrays, in order, with their dtypes
+SCHEDULE_CONTEXT_DTYPES = (
+    ("sp_of", np.bool_),          # [P, S]: pod row declares term s
+    ("sp_match", np.bool_),       # [P, S]: pod row matches term s's selector
+    ("node_dom", np.int32),       # [S, N]: node's domain id by label, -1 none
+    ("sp_elig", np.bool_),        # [S, N]: node contributes counts to term s
+    ("dom_valid", np.bool_),      # [S, D]: domain registered by an eligible node
+    ("static_counts", np.int32),  # [S, D]: matching placed pods on eligible nodes
+    ("skew", np.int32),           # [S]
+    ("min_dom", np.int32),        # [S]
+    ("domnum", np.int32),         # [S]: registered domains
+)
+
+
+def spread_context_from_numpy(arrays, device=None) -> tuple:
+    """The nine arrays of a spread schedule context (JAX's tuple as numpy,
+    in ``SCHEDULE_CONTEXT_DTYPES`` order) → torch tensors on ``device``
+    (None = the first CUDA card), each copied, never aliased."""
+    dev = resolve_device(device)
+    if len(arrays) != len(SCHEDULE_CONTEXT_DTYPES):
+        raise ValueError(f"expected 9 arrays, got {len(arrays)}")
+    return tuple(
+        torch.tensor(np.asarray(a, dtype), device=dev)
+        for a, (_name, dtype) in zip(arrays, SCHEDULE_CONTEXT_DTYPES)
+    )
+
+
+def build_spread_context_from_meta(pending, meta, tensors):
+    """The spread context for the pods ``pending`` of a packed snapshot:
+    the placed pods and their nodes come from ``meta``, the arrays are
+    sized to the padded ``tensors`` and land on their device."""
+    placed = [p for p in meta.pods if p.node_name]
+    node_of = [meta.node_index.get(p.node_name, -1) for p in placed]
+    return build_spread_schedule_context(
+        pending, meta.nodes, placed, node_of,
+        meta.pod_index, int(tensors.pod_req.shape[0]),
+        num_node_cols=int(tensors.node_valid.shape[0]),
+        device=tensors.device,
+    )
+
+
+def build_spread_schedule_context(
+    pending: Sequence[Pod],
+    nodes: Sequence[Node],
+    placed_pods: Sequence[Pod],
+    node_of: Sequence[int],
+    pod_index: Dict[str, int],
+    num_pod_rows: int,
+    num_node_cols: int | None = None,
+    device=None,
+):
+    """Spread context for ``ops/schedule.greedy_schedule``: domains over
+    the existing nodes (the hinting path), where ``build_spread_terms``
+    counts over templates. → the nine tensors of
+    ``SCHEDULE_CONTEXT_DTYPES`` on ``device`` (None = the first CUDA
+    card), or None when no pending pod carries a hard constraint. Terms
+    intern as the template world's do, with the eligibility signature.
+
+    - node_dom [S, N]: a node's domain id by label (Filter judges any
+      labelled node, even a policy-ineligible one: its count is 0)
+    - sp_elig [S, N]: the node passes the term's inclusion policies and
+      carries all the declaring pod's constraint keys
+    - dom_valid [S, D]: a domain registered by at least one eligible node
+    - static_counts [S, D]: matching placed pods on eligible nodes
+    """
+    if not has_hard_spread(pending):
+        return None
+    dev = resolve_device(device)
+    term_list, idx_decls = _intern_spread_terms(pending, with_sig=True)
+    decls = [(pod_index[pending[i].key()], t) for i, t in idx_decls]
+
+    S_real = len(term_list)
+    S = bucket_size(S_real, minimum=4)
+    N = len(nodes)
+    NN = max(num_node_cols if num_node_cols is not None else N, N, 1)
+    sp_of = np.zeros((num_pod_rows, S), bool)
+    sp_match = np.zeros((num_pod_rows, S), bool)
+    # padded node columns stay -1 (no domain) and ineligible
+    node_dom = np.full((S, NN), -1, np.int32)
+    sp_elig = np.zeros((S, NN), bool)
+    skew = np.zeros((S,), np.int32)
+    min_dom = np.ones((S,), np.int32)
+    domnum = np.zeros((S,), np.int32)
+    doms_per_term: List[Dict[str, int]] = []
+    for t, (c, sel, ns, declarer, all_keys) in enumerate(term_list):
+        skew[t] = c.max_skew
+        min_dom[t] = c.min_domains or 1
+        dom_ids: Dict[str, int] = {}
+        for j, n in enumerate(nodes):
+            val = n.labels.get(c.topology_key)
+            if val is None:
+                continue
+            node_dom[t, j] = dom_ids.setdefault(val, len(dom_ids))
+            sp_elig[t, j] = _spread_node_eligible(c, all_keys, declarer, n)
+        doms_per_term.append(dom_ids)
+    D = bucket_size(max((len(d) for d in doms_per_term), default=1), minimum=8)
+    dom_valid = np.zeros((S, D), bool)
+    static_counts = np.zeros((S, D), np.int32)
+    for t in range(S_real):
+        for j in range(N):
+            if sp_elig[t, j] and node_dom[t, j] >= 0:
+                dom_valid[t, node_dom[t, j]] = True
+        domnum[t] = int(dom_valid[t].sum())
+    # selector verdicts depend only on (namespace, labels): evaluate them
+    # once a distinct profile and count the placed pods with bincount
+    prof_index: Dict[Tuple, int] = {}
+    prof_of = np.empty(len(placed_pods), np.int64)
+    profiles: List[Tuple[str, Dict[str, str]]] = []
+    live = np.empty(len(placed_pods), bool)
+    node_j = np.asarray(
+        [j if j is not None else -1 for j in node_of], np.int64
+    ) if placed_pods else np.empty(0, np.int64)
+    for qi, q in enumerate(placed_pods):
+        pid = prof_index.setdefault(q.profile_key(), len(prof_index))
+        prof_of[qi] = pid
+        if pid == len(profiles):
+            profiles.append((q.namespace, q.labels))
+        live[qi] = q.deletion_ts is None
+    for t, (c, sel, ns, _declarer, _keys) in enumerate(term_list):
+        if not placed_pods:
+            continue
+        prof_match = np.fromiter(
+            (pns == ns and sel.matches(lbls) for pns, lbls in profiles),
+            bool,
+            count=len(profiles),
+        )
+        sel_pods = prof_match[prof_of] & live & (node_j >= 0)
+        jj = node_j[sel_pods]
+        ok = sp_elig[t, jj] & (node_dom[t, jj] >= 0)
+        doms = node_dom[t, jj[ok]]
+        if doms.size:
+            static_counts[t, : doms.max() + 1] += np.bincount(
+                doms, minlength=doms.max() + 1
+            ).astype(np.int32)
+    for pod_row, t in decls:
+        sp_of[pod_row, t] = True
+    for t, (c, sel, ns, _declarer, _keys) in enumerate(term_list):
+        for p in pending:
+            if p.namespace == ns and sel.matches(p.labels):
+                sp_match[pod_index[p.key()], t] = True
+    return spread_context_from_numpy(
+        (sp_of, sp_match, node_dom, sp_elig, dom_valid, static_counts,
+         skew, min_dom, domnum),
+        dev,
+    )
 
 def build_spread_terms(
     pods: Sequence[Pod],

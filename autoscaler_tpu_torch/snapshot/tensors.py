@@ -99,21 +99,25 @@ class SnapshotTensors:
 
     def sched_rows(self, pods: torch.Tensor) -> torch.Tensor:
         """[S, N] bool — the non-resource verdicts of the pods ``pods`` [S]
-        (int, each in [0, P)), in either mask form, in one batched pass."""
+        (int, each in [0, P)), in either mask form, in one batched pass.
+        Device indices stay on the device: no step makes the host wait."""
+        pods = pods.long()
         if self.sched_mask is not None:
-            return self.sched_mask[pods]
-        pc = self.pod_class[pods]
+            return self.sched_mask.index_select(0, pods)
+        N = self.num_nodes
+        pc = self.pod_class.index_select(0, pods)
         nc = self.node_class
-        rows = self.class_mask[pc.clamp(min=0)][:, nc.clamp(min=0)]
+        rows = self.class_mask.index_select(0, pc.clamp(min=0).long())
+        rows = rows.index_select(1, nc.clamp(min=0).long())
         rows &= (pc >= 0)[:, None] & (nc >= 0)[None, :]
-        # single-cell overrides aimed at these pods; padding cells carry -1
-        # and match no pod
-        hit_s, hit_k = torch.nonzero(
-            self.cell_pod[None, :] == pods[:, None], as_tuple=True
-        )
-        rows[hit_s, self.cell_node[hit_k].long()] = self.cell_val[hit_k]
-        e = self.pod_exc[pods]
-        exc = self.exc_rows[e.clamp(min=0)]
+        # single-cell overrides aimed at these pods (padding cells carry -1
+        # and match no pod); the others drop into a column past the end
+        hit = self.cell_pod[None, :] == pods[:, None]
+        col = torch.where(hit, self.cell_node.long()[None, :], N)
+        rows = torch.cat([rows, rows.new_zeros((rows.shape[0], 1))], dim=1)
+        rows = rows.scatter_(1, col, self.cell_val[None, :] & hit)[:, :N]
+        e = self.pod_exc.index_select(0, pods)
+        exc = self.exc_rows.index_select(0, e.clamp(min=0).long())
         return torch.where((e >= 0)[:, None], exc, rows)
 
     def sched_row(self, pod_idx: Index) -> torch.Tensor:

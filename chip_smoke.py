@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port's main paths, the scale-up estimate with and
-without dynamic inter-pod affinity and hard topology spread, and the
-cluster snapshot's predicate fit, on one CUDA card through its
-hand-written kernels, and holds every kernel against its plain PyTorch
-version.
+without dynamic inter-pod affinity and hard topology spread, the cluster
+snapshot's predicate fit and the scale-up half of a reconcile tick, on
+one CUDA card through its hand-written kernels, and holds every kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -46,7 +46,22 @@ Phases (any failure raises and exits non-zero):
       (fractional memory, four host ports) at a scan cap of 8192 through
       ``estimate_many``, whose carry exceeds a block's shared memory, so
       the torch loop serves it ("binpack_loop"), and the same world with 6
-      planes, which launches K1.
+      planes, which launches K1;
+   j. the scale-up tick: the snapshot world of (h) plus (b)'s 30k burst in
+      a ``ClusterSnapshot`` on the card, run through ``run_once``'s
+      sequence (static_autoscaler.py:629-631, :712): ``fork``,
+      ``FilterOutSchedulablePodListProcessor.process`` (the hinting
+      simulator's ``greedy_schedule`` loop on the card), ``revert``, then
+      ``ScaleUpOrchestrator.scale_up`` over what is still pending, on a
+      ``TestCloudProvider`` whose 100 groups are (b)'s templates with the
+      world's zone key beside "zone" (min 0, max 1000, target 0),
+      least-waste with seeded ties; the estimate must launch the kernel
+      its route names (K1/K2 on ``ffd_scan``, K3 on ``ffd_scan_aff``);
+   k. the same tick with one burst pod in twenty that carries no selector
+      and no toleration given a zone DoNotSchedule spread (maxSkew 1) on
+      one of the world's first 24 apps: the spread context over the placed
+      pods, the gate and commit in the greedy loop, and the orchestrator's
+      cluster context into K3 with at most 32 spread terms.
    Every kernel of the paths must have launched;
 4. each kernel at its headline shape against its plain version on the same
    card tensors, exactly: K1/K2 on all 500 groups, K3 on its three
@@ -62,12 +77,21 @@ Phases (any failure raises and exits non-zero):
    with K4's launch geometry, registers and SASS instructions a pair
    (4e); the probe's ``fit_reduce_exact`` on all 131 072 pod rows against
    a reduction of ``dense_sched()`` rows chunked by pods, and its exact
-   patch timed in parts (4f);
+   patch timed in parts (4f); both ticks again on a ``ClusterSnapshot``
+   on the CPU of the same objects: every filtered key and assignment, the
+   snapshot after the revert, the whole ScaleUpResult and the provider's
+   target sizes equal (4g);
 5. timings with CUDA events, each run queued behind ~10 ms of a spinning
    card so that they time the card and not the host's launches: each
    kernel alone, its whole entry call, and the plain version; K3 on the
    zone and hostname spread worlds; K4 on the probe's operands, the whole
-   ``fit_reduce_exact`` there and its exact patch in parts.
+   ``fit_reduce_exact`` there and its exact patch in parts; each tick's
+   split by the host clock (pack, spread context, greedy loop, commit
+   loop, scale_up with its estimate, kernel and expander), the greedy
+   loop's span on the card (CUDA events around it), its launches, kernels
+   and device time a step (torch.profiler on 100 steps, which run
+   eagerly, less a run of one step), and the card-busy time and idle
+   share derived from them.
 
 The last two lines of standard output are the kernels line (one JSON
 object) and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -241,6 +265,7 @@ def main() -> int:
     from autoscaler_tpu_torch.ops import _build, ffd_scan, ffd_scan_affinity, fit, fit_reduce
     from autoscaler_tpu_torch.snapshot.cluster_snapshot import ClusterSnapshot
     from autoscaler_tpu_torch.snapshot.tensors import bucket_size
+    from autoscaler_tpu_torch.tools import tick_probe
     from autoscaler_tpu_torch.utils.test_utils import (
         GB,
         MB,
@@ -380,6 +405,13 @@ def main() -> int:
     for pod in world_pods:
         snapshot.add_pod(pod)
     world_pending = snapshot.pending_pods()
+    # the scale-up ticks: 3b's templates, each copied with the world's zone
+    # key beside "zone" (3b's operands stay as they were), and the burst
+    # with one pod in twenty of those that carry no selector and no
+    # toleration given a zone DoNotSchedule spread on one of the world's
+    # first 24 apps (the placed pods of that app count)
+    tick_templates = tick_probe.zoned_templates(templates)
+    spread_burst = tick_probe.spread_burst(burst)
     phase("operand set-up", t0)
 
     class Group:
@@ -589,6 +621,43 @@ def main() -> int:
               and sum(counts[f"route:{k}"] for k in binpacking.ROUTES) == 1,
               f"the {3 + ports}-plane world did not take the {route} route")
         gate_card[ports] = out
+    # the scale-up half of a reconcile tick (static_autoscaler.py:629-631,
+    # :712): fork, filter-out-schedulable, revert, scale_up on the
+    # TestCloudProvider; the burst without (3j) and with (3k) spread
+    tick_card = {}
+    for label, extra in (("3j", burst), ("3k", spread_burst)):
+        rec, counts, _ = run_path(f"scale-up tick {label}", lambda extra=extra: tick_probe.run_tick(
+            world_nodes, world_pods, extra, tick_templates, dev, timed=True))
+        tick_card[label] = rec
+        out = rec["out"]
+        route = [k for k in ("ffd_scan", "ffd_scan_aff") if counts[f"route:{k}"]]
+        check(len(route) == 1 and sum(counts[f"route:{k}"] for k in binpacking.ROUTES) == 1,
+              f"tick {label}: the estimate did not take one kernel route: {counts}")
+        kernel_launches = (counts["ffd_scan_swar"] + counts["ffd_scan_f32"]
+                           if route[0] == "ffd_scan" else counts["ffd_scan_aff"])
+        check(kernel_launches == 1 and counts["fit_reduce"] == 0,
+              f"tick {label}: the estimate did not launch the kernel of its route {route[0]}")
+        check(label == "3j" or route[0] == "ffd_scan_aff",
+              "tick 3k: the spread leftovers did not take K3")
+        check(rec["greedy_devices"] == ("cuda", "cuda"),
+              f"tick {label}: greedy_schedule's outputs are not on the card")
+        check(rec["reverted"], f"tick {label}: revert() did not restore the snapshot")
+        res = out["result"]
+        check(res.scaled_up and res.new_nodes > 0 and out["filtered"] and out["still"],
+              f"tick {label}: filtered nothing, left nothing or scaled nothing")
+        rec["route"] = route[0]
+        grown = {g: n for g, n in out["sizes"] if n}
+        print(
+            f"# tick {label}: {rec['pending']} pending in ({len(extra)} burst), "
+            f"{len(out['filtered'])} filtered onto existing nodes, {len(out['still'])} "
+            f"still pending; route {route[0]}, launches "
+            f"{ {k: v for k, v in counts.items() if v} }; spread terms S = "
+            f"{rec['spread_terms']} interned (K3's S = {rec['k3_spread']}); chosen "
+            f"{res.chosen_group}, new_nodes {res.new_nodes}, executed {res.executed}, "
+            f"{res.options_considered} options; target sizes after: {grown}", flush=True,
+        )
+    check(tick_card["3k"]["spread_terms"] <= 32 and tick_card["3k"]["k3_spread"] <= 32,
+          "tick 3k: more spread terms than K3's bitset holds")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main paths")
     check(
@@ -1077,6 +1146,25 @@ def main() -> int:
     del special, srows, sreq, slots, part, base
     phase("4f the probe against a dense path", t0)
 
+    # both ticks again on ClusterSnapshots on the CPU, of the same objects:
+    # every filtered key and assignment, the snapshot after the revert, the
+    # whole ScaleUpResult and the provider afterwards must be equal
+    for label, extra in (("3j", burst), ("3k", spread_burst)):
+        t0 = time.perf_counter()
+        cpu_rec = tick_probe.run_tick(world_nodes, world_pods, extra, tick_templates, "cpu")
+        on_cpu, on_card = cpu_rec["out"], tick_card[label]["out"]
+        diff = tick_probe.tick_differences(on_card, on_cpu)
+        check(not diff, f"tick {label}: {diff} differ from the CPU")
+        print(
+            f"# tick {label}: card equals CPU: {len(on_cpu['filtered'])} filtered keys and "
+            f"their assignments, {len(on_cpu['still'])} still pending, the snapshot after "
+            f"revert, the whole ScaleUpResult ({on_cpu['result'].chosen_group} "
+            f"+{on_cpu['result'].new_nodes}) and {len(on_cpu['sizes'])} target sizes; on "
+            f"the CPU: pack {cpu_rec['pack_s']:.3f} s, filter-out {cpu_rec['filter_s']:.3f} s, "
+            f"scale_up {cpu_rec['scale_up_s']:.3f} s", flush=True,
+        )
+        phase(f"4g tick {label} on the CPU", t0)
+
     # where the burst estimate's time goes: the host operand build (mask
     # engine, packing) and the scan call on the card
     names = sorted(templates)
@@ -1094,6 +1182,14 @@ def main() -> int:
         f"replicated {t_replicated:.3f} s, affinity workload {t_aff:.3f} s, "
         f"replicated affinity {t_replicated_aff:.3f} s, fit-K4 {t_fit:.3f} s", flush=True,
     )
+    # where the ticks' time goes (tools/tick_probe.split_line): the host
+    # clock of each part; the greedy loop's span on the card, its launches
+    # and device time a step (torch.profiler), the card-busy time and the
+    # idle share derived from them; the estimate's kernel on its operands
+    for label, rec in tick_card.items():
+        _, kernel_fn, kernel_args = rec["kernel"]
+        print(tick_probe.split_line(label, rec, tick_probe.profile_tick(rec),
+                                    event_ms(lambda: kernel_fn(*kernel_args))), flush=True)
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

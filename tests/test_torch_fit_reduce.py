@@ -298,7 +298,9 @@ def test_fit_reduce_exact_waits_on_no_host_value(monkeypatch):
     """The factored branch on meta tensors, which hold no values: a
     ``nonzero``, a boolean selection or an ``item`` there raises, so this
     shows that the patch's sizes are all static. The kernel wrappers stand
-    in by their plain versions, which take no host value either."""
+    in by their plain versions, which take no host value either. The
+    snapshot's batched row read is static too (the greedy loop reads rows
+    through it)."""
     import dataclasses
 
     _, (_, tf) = packed(0)
@@ -312,7 +314,9 @@ def test_fit_reduce_exact_waits_on_no_host_value(monkeypatch):
     assert [t.device.type for t in out] == ["meta"] * 3
     assert all(t.shape == (tf.num_pods,) for t in out)
     with pytest.raises(Exception):
-        meta.sched_rows(torch.zeros((1,), dtype=torch.int64, device="meta"))
+        torch.nonzero(meta.pod_valid)
+    rows = meta.sched_rows(torch.zeros((3,), dtype=torch.int64, device="meta"))
+    assert rows.device.type == "meta" and rows.shape == (3, tf.num_nodes)
 
 
 @pytest.mark.parametrize("S,N,R", [(7, 30, 6), (70, 300, 9), (1, 1, 1)])

@@ -563,3 +563,102 @@ def test_fit_reduce_launch_geometry(cuda, P, N, R, CN, rows):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert per_sm >= 1
     assert (gx, gy) == geometry(P, N, sms, per_sm)[:2]
+
+
+def _tick(spread, device, form_limit=None):
+    """The scale-up half of tests/torch_parity.tick_world's tick on
+    ``device``: fork, filter-out, revert, scale_up (least-waste, seeded)."""
+    import autoscaler_tpu_torch.cloudprovider.test_provider as tprov
+    import autoscaler_tpu_torch.kube.objects as tobj
+    import autoscaler_tpu_torch.snapshot.cluster_snapshot as tcs
+    import autoscaler_tpu_torch.utils.test_utils as ttu
+    from autoscaler_tpu_torch.clusterstate.registry import ClusterStateRegistry
+    from autoscaler_tpu_torch.config.options import AutoscalingOptions
+    from autoscaler_tpu_torch.core.podlistprocessor import FilterOutSchedulablePodListProcessor
+    from autoscaler_tpu_torch.core.scaleup.orchestrator import ScaleUpOrchestrator
+    from torch_parity import canon, tick_world
+
+    snap, pending, provider = tick_world(ttu, tobj, tprov, tcs, spread, device=device)
+    snap.fork()
+    still, filtered = FilterOutSchedulablePodListProcessor().process(snap, pending)
+    snap.revert()
+    opts = AutoscalingOptions(expander="least-waste", expander_random_seed=0)
+    orch = ScaleUpOrchestrator(provider, opts, ClusterStateRegistry(provider, opts), device=device)
+    res = orch.scale_up(still, snap.nodes(), 5.0, pods_of_node=snap.pods_on_node)
+    return ([p.key() for p in filtered], [p.key() for p in still], canon(res),
+            [(g.id(), g.target_size()) for g in provider.node_groups()])
+
+
+@pytest.mark.parametrize("spread,route,kernel", [(False, "ffd_scan", "ffd_scan_swar"),
+                                                 (True, "ffd_scan_aff", "ffd_scan_aff")])
+@pytest.mark.parametrize("factored", [False, True], ids=["dense", "factored"])
+def test_scale_up_tick_on_card_equals_cpu(cuda, spread, route, kernel, factored, monkeypatch):
+    """The tick's filter-out loop runs on the card and its estimate
+    launches the kernel its route names; every filtered key, the whole
+    ScaleUpResult and the provider afterwards equal the tick on the CPU."""
+    from autoscaler_tpu_torch.estimator import binpacking
+    from autoscaler_tpu_torch.ops import schedule
+    from autoscaler_tpu_torch.snapshot import packer
+
+    if factored:
+        monkeypatch.setattr(packer, "DENSE_MASK_CELL_LIMIT", 16)
+    devices = []
+    real = schedule.greedy_schedule
+
+    def spy(snap, *args, **kwargs):
+        out = real(snap, *args, **kwargs)
+        devices.append((snap.sched_mask is None, out.placed.device.type, out.dest.device.type))
+        return out
+
+    monkeypatch.setattr(schedule, "greedy_schedule", spy)
+    routes = dict(binpacking.ROUTES)
+    launches = {**ffd_scan.LAUNCHES, **ffd_scan_affinity.LAUNCHES}
+    on_card = _tick(spread, cuda)
+    torch.cuda.synchronize()
+    assert devices == [(factored, "cuda", "cuda")]
+    assert binpacking.ROUTES[route] == routes[route] + 1
+    now = {**ffd_scan.LAUNCHES, **ffd_scan_affinity.LAUNCHES}
+    assert now[kernel] == launches[kernel] + 1
+    assert _tick(spread, "cpu") == on_card
+    assert on_card[0] and on_card[1]
+
+
+def test_greedy_schedule_waits_on_no_host_value(cuda, monkeypatch):
+    """The greedy loop on a factored snapshot with the spread gate in play
+    runs under the sync debug mode "error" (no step makes the host wait),
+    and equals the loop on the CPU."""
+    import autoscaler_tpu_torch.kube.objects as tobj
+    import autoscaler_tpu_torch.utils.test_utils as ttu
+    from autoscaler_tpu_torch.ops.schedule import greedy_schedule
+    from autoscaler_tpu_torch.snapshot.affinity import build_spread_context_from_meta
+    from autoscaler_tpu_torch.snapshot.packer import pack
+    from torch_parity import mask_world
+
+    nodes, pods, _ = mask_world(ttu, tobj, 2, P=300, N=40)
+    for i, p in enumerate(pods):
+        if not p.node_name and i % 3 == 0:
+            p.topology_spread = (tobj.TopologySpreadConstraint(
+                max_skew=1, topology_key="zone",
+                selector=tobj.LabelSelector.from_dict({"app": p.labels["app"]}),
+            ),)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        t, meta = pack(nodes, pods, dense_mask=False, device=dev)
+        pending = [p for p in meta.pods if not p.node_name]
+        ctx = build_spread_context_from_meta(pending, meta, t)
+        slots = torch.tensor([meta.pod_index[p.key()] for p in pending] + [-1],
+                             dtype=torch.int32, device=dev)
+        hints = torch.full_like(slots, -1)
+        hints[::4] = 3
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = greedy_schedule(t, slots, hints, spread=ctx)
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        out[dev.type] = (res.placed.cpu(), res.dest.cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert out["cpu"][0].any()

@@ -100,6 +100,72 @@ def test_port_imports_and_estimates_with_jax_blocked():
     assert proc.stdout.strip() == "OK 4 6 [2, 2, 0, 2, 2, 2]"
 
 
+# the modules of the scale-up half of a tick (filter-out-schedulable and the
+# orchestrator with what it runs on), each at its JAX counterpart's path
+TICK_MODULES = (
+    "ops/schedule.py", "simulator/hinting.py", "core/podlistprocessor.py",
+    "core/scaleup/orchestrator.py", "core/scaleup/resource_manager.py",
+    "processors/pipeline.py", "processors/nodegroupset.py", "processors/nodeinfos.py",
+    "cloudprovider/interface.py", "cloudprovider/test_provider.py",
+    "clusterstate/backoff.py", "clusterstate/registry.py", "config/options.py",
+    "explain/reasons.py", "utils/errors.py",
+)
+
+_TICK_BLOCKED = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.path.insert(0, "tests")
+import autoscaler_tpu_torch.cloudprovider.test_provider as prov
+import autoscaler_tpu_torch.kube.objects as obj
+import autoscaler_tpu_torch.snapshot.cluster_snapshot as cs
+import autoscaler_tpu_torch.utils.test_utils as tu
+from autoscaler_tpu_torch.clusterstate.registry import ClusterStateRegistry
+from autoscaler_tpu_torch.config.options import AutoscalingOptions
+from autoscaler_tpu_torch.core.podlistprocessor import FilterOutSchedulablePodListProcessor
+from autoscaler_tpu_torch.core.scaleup.orchestrator import ScaleUpOrchestrator
+from autoscaler_tpu_torch.snapshot.affinity import build_spread_context_from_meta
+from torch_parity import tick_world
+snap, pending, provider = tick_world(tu, obj, prov, cs, True, device="cpu")
+snap.fork()
+still, filtered = FilterOutSchedulablePodListProcessor().process(snap, pending)
+snap.revert()
+opts = AutoscalingOptions(expander="least-waste", expander_random_seed=0)
+res = ScaleUpOrchestrator(provider, opts, ClusterStateRegistry(provider, opts),
+                          device="cpu").scale_up(still, snap.nodes(), 5.0,
+                                                 pods_of_node=snap.pods_on_node)
+loaded = [m for m in sys.modules if m == "autoscaler_tpu" or m.startswith("autoscaler_tpu.")]
+assert not loaded, loaded
+print("OK", len(filtered), len(still), res.chosen_group, res.new_nodes)
+"""
+
+
+def test_tick_modules_are_ported():
+    for rel in TICK_MODULES:
+        assert (PORT / rel).is_file(), rel
+        assert (REPO / "autoscaler_tpu" / rel).is_file(), rel
+        assert f"autoscaler_tpu_torch/{rel}" in PORT_FILES
+    from autoscaler_tpu_torch.snapshot import affinity
+
+    assert callable(affinity.build_spread_schedule_context)
+    assert callable(affinity.build_spread_context_from_meta)
+
+
+def test_tick_runs_with_jax_blocked():
+    """Filter-out-schedulable and scale_up on the CPU with jax blocked: the
+    tick of tests/torch_parity.tick_world (spread in play) imports nothing
+    of the JAX package."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", _TICK_BLOCKED], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ok, n_filtered, n_still, group, new_nodes = proc.stdout.split()
+    assert ok == "OK" and int(n_filtered) > 0 and int(n_still) > 0
+    assert group.startswith("ng-") and int(new_nodes) > 0
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     from autoscaler_tpu_torch.device import resolve_device
     from autoscaler_tpu_torch.estimator.binpacking import BinpackingNodeEstimator

@@ -54,11 +54,14 @@ def rand_case(seed, P=200, G=5, R=6, fractional=False):
 
 
 def canon(x):
-    """A structure of dataclasses, dicts and sequences → plain nested
-    tuples, so the two packages' objects (distinct classes with the same
-    names and fields) compare by value."""
+    """A structure of dataclasses, enums, dicts and sequences → plain
+    nested tuples, so the two packages' objects (distinct classes with the
+    same names and fields) compare by value."""
     import dataclasses
+    import enum
 
+    if isinstance(x, enum.Enum):
+        return (type(x).__name__, x.name, x.value)
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return (type(x).__name__,) + tuple(
             (f.name, canon(getattr(x, f.name))) for f in dataclasses.fields(x)
@@ -336,3 +339,40 @@ def port_world(tu, n_pods, ports, seed=21):
         for j in range(3)
     }
     return pods, templates
+
+
+def tick_world(tu, obj, prov, cs, spread, **snap_kw):
+    """The scale-up half of a tick at a small size, built with either
+    package's test_utils, objects, test_provider and cluster_snapshot
+    modules: a 12-node cluster (mask_world's nodes, seed 7) with placed
+    pods and 40 pending pods of 300-3300 m cpu, more than it holds; one
+    pending pod in four selects a "tier" label that only the templates
+    carry, and with ``spread`` one in five has a zone DoNotSchedule spread
+    on its app. Six node groups of three shapes over three zones, min 0,
+    max 10, target 0. → (snapshot, pending, provider)."""
+    GiB, MiB = 1024**3, 1024**2
+    nodes, pods, _ = mask_world(tu, obj, 7, P=30, N=12)
+    pending = []
+    for i in range(40):
+        kw = {"node_selector": {"tier": f"t{i % 2}"}} if i % 4 == 1 else {}
+        p = tu.build_test_pod(f"pend{i}", cpu_m=300.0 + 100 * (i * 7 % 31),
+                              mem=(256 + 64 * (i % 9)) * MiB, labels={"app": f"a{i % 3}"},
+                              priority=i % 2, **kw)
+        if spread and i % 5 == 0:
+            p.topology_spread = (obj.TopologySpreadConstraint(
+                max_skew=1, topology_key="zone",
+                selector=obj.LabelSelector.from_dict({"app": f"a{i % 3}"}),
+            ),)
+        pending.append(p)
+    provider = prov.TestCloudProvider()
+    for g in range(6):
+        provider.add_node_group(f"ng-{g}", 0, 10, 0, tu.build_test_node(
+            f"ng-{g}-tmpl", cpu_m=[2000, 4000, 8000][g % 3], mem=[4, 8, 16][g % 3] * GiB,
+            labels={"zone": f"z{g % 3}", "tier": f"t{g % 2}"},
+        ))
+    snap = cs.ClusterSnapshot(**snap_kw)
+    for n in nodes:
+        snap.add_node(n)
+    for p in pods + pending:
+        snap.add_pod(p)
+    return snap, pending, provider
