@@ -17,10 +17,10 @@ import typing
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
-# the two defaults of the JAX package's fleet/buckets.py (DEFAULT_BUCKETS,
-# DEFAULT_ARENA_BUCKETS), kept here: the port has no fleet module yet
-_DEFAULT_FLEET_BUCKETS = "64x8x8,256x16x16"
-_DEFAULT_ARENA_BUCKETS = "64x16x8,1024x256x8"
+from autoscaler_tpu_torch.fleet.buckets import (
+    DEFAULT_ARENA_BUCKETS as _DEFAULT_ARENA_BUCKETS,
+    DEFAULT_BUCKETS as _DEFAULT_FLEET_BUCKETS,
+)
 
 
 class OptionsError(ValueError):

@@ -12,13 +12,14 @@ BinpackingNodeEstimator.estimate_many, and only the chosen option crosses
 back into the (host-side, cloud-API) actuation boundary.
 
 The estimate runs on ``device`` (None = the first CUDA card) through the
-port's ``BinpackingNodeEstimator``. Not here yet (ROADMAP queue 1, the
-estimator services item): the kernel ladder around the estimator (the
-port's estimator has, by design, no failure fallback: a launch that fails
-raises), metrics, the perf observatory, the operand arena, decision
-explain (``estimator_explain`` stays empty) and the preemption churn
-filter. Asking for any of them raises ``NotImplementedError``; none is
-silently ignored.
+port's ``BinpackingNodeEstimator``, which takes its operands from
+``operand_arena`` (a ``snapshot/arena.OperandArena``) when one is given.
+Not here yet (ROADMAP queue 1, the estimator services item): the kernel
+ladder around the estimator (the port's estimator has, by design, no
+failure fallback: a launch that fails raises), metrics, the perf
+observatory, decision explain (``estimator_explain`` stays empty) and the
+preemption churn filter. Asking for any of them raises
+``NotImplementedError``; none is silently ignored.
 """
 from __future__ import annotations
 
@@ -93,7 +94,6 @@ class ScaleUpOrchestrator:
             "metrics": metrics is not None,
             "priorities_fetch": priorities_fetch is not None,
             "observatory": observatory is not None,
-            "operand_arena": operand_arena is not None,
             "preemption_churn_weight > 0": options.preemption_churn_weight > 0,
         }
         asked = [name for name, on in unported.items() if on]
@@ -112,6 +112,7 @@ class ScaleUpOrchestrator:
                     max_duration_s=options.max_nodegroup_binpacking_duration_s,
                 ),
                 device=device,
+                operand_arena=operand_arena,
             )
         self.estimator = estimator
         self.expander = expander or build_strategy(

@@ -40,9 +40,14 @@ Both gates check the shapes before the call, as the JAX package's
 ``ffd_binpack_groups_affinity`` with one group in a dynamic world, as the
 JAX package runs its XLA scans there.
 
+With ``operand_arena=`` (``snapshot/arena.OperandArena``) every operand
+upload goes through its content-keyed cache (the JAX package's ``_dev``):
+an operand byte-identical to one uploaded before to the same device is
+served resident instead of copied again. Results are the same either way.
+
 Not here yet (ROADMAP queue 1): the kernel ladder and its native and
-Python rungs, metrics, spans, the perf observatory, decision explain, the
-operand arena and the fleet client.
+Python rungs, metrics, spans, the perf observatory, decision explain and
+the fleet client.
 """
 from __future__ import annotations
 
@@ -236,18 +241,26 @@ def _augment_virtual(
 class BinpackingNodeEstimator:
     """Node-count estimator with the reference's Estimate contract. Its
     scans run on ``device`` (None = the first CUDA card; raises without
-    one unless ``device="cpu"``)."""
+    one unless ``device="cpu"``). ``operand_arena``: an ``OperandArena``
+    that keeps the operands resident across calls (None = plain uploads)."""
 
     def __init__(
         self,
         limiter: Optional[ThresholdBasedEstimationLimiter] = None,
         device=None,
+        operand_arena=None,
     ):
         self.limiter = limiter or ThresholdBasedEstimationLimiter()
         self.device = resolve_device(device)
+        self.operand_arena = operand_arena
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.tensor(arr, device=self.device)  # a copy, never an alias
+        """One operand on the estimator's device: the operand arena's
+        resident copy when one is attached, else a plain copy (never an
+        alias of ``arr``)."""
+        if self.operand_arena is not None:
+            return self.operand_arena.resident(arr, self.device)
+        return torch.tensor(arr, device=self.device)
 
     def estimate(
         self,
@@ -375,7 +388,7 @@ class BinpackingNodeEstimator:
         planes, the shape gate picks K1/K2 or the torch loop, and only the
         route taken builds its operands, on the estimator's device."""
         req_t, masks_t, allocs_t, caps_t = operands_from_numpy(
-            req, masks, allocs, caps, self.device
+            req, masks, allocs, caps, self.device, upload=self._tensor
         )
         plan = ffd_scan.plan_scan(req_t, allocs_t)
         route = scan_route(self.device, plan.planes, scan_cap)
@@ -416,7 +429,7 @@ class BinpackingNodeEstimator:
             req, masks, allocs, terms.match, terms.aff_of, terms.anti_of,
             terms.node_level, terms.has_label, caps,
             spread=spread if has_spread or route == "affinity_loop" else None,
-            device=self.device,
+            device=self.device, upload=self._tensor,
         )
         if route == "ffd_scan_aff":
             return ffd_scan_affinity.ffd_binpack_groups_affinity_cuda(

@@ -52,19 +52,21 @@ LAUNCHES = {"ffd_scan_f32": 0, "ffd_scan_swar": 0}
 
 
 def operands_from_numpy(
-    pod_req, pod_masks, template_allocs, node_caps=None, device=None
+    pod_req, pod_masks, template_allocs, node_caps=None, device=None, upload=None
 ):
     """The estimator's numpy operands → torch tensors of the contract's
     dtypes on ``device`` (None = the first CUDA card). Always a COPY:
-    ``torch.from_numpy`` would alias host memory that callers mutate."""
+    ``torch.from_numpy`` would alias host memory that callers mutate.
+    ``upload`` (array → tensor on ``device``: an operand arena's resident
+    copy) replaces the plain copy."""
     dev = resolve_device(device)
-    req = torch.tensor(np.asarray(pod_req, np.float32), device=dev)
-    masks = torch.tensor(np.asarray(pod_masks, bool), device=dev)
-    allocs = torch.tensor(np.asarray(template_allocs, np.float32), device=dev)
-    caps = (
-        None if node_caps is None
-        else torch.tensor(np.asarray(node_caps, np.int32), device=dev)
-    )
+    if upload is None:
+        def upload(a):
+            return torch.tensor(a, device=dev)
+    req = upload(np.asarray(pod_req, np.float32))
+    masks = upload(np.asarray(pod_masks, bool))
+    allocs = upload(np.asarray(template_allocs, np.float32))
+    caps = None if node_caps is None else upload(np.asarray(node_caps, np.int32))
     return req, masks, allocs, caps
 
 

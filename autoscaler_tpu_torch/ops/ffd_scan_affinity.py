@@ -76,17 +76,19 @@ SPREAD_DTYPES = (
 
 def affinity_operands_from_numpy(
     pod_req, pod_masks, template_allocs, match, aff_of, anti_of, node_level,
-    has_label, node_caps=None, spread=None, device=None,
+    has_label, node_caps=None, spread=None, device=None, upload=None,
 ) -> dict:
     """The estimator's numpy operands → a dict of torch tensors of the
     contract's dtypes on ``device`` (None = the first CUDA card), keyed by
     the names of ``ffd_binpack_groups_affinity_cuda``'s arguments. Always a
     COPY: ``torch.from_numpy`` would alias host memory that callers
-    mutate."""
+    mutate. ``upload`` (array → tensor on ``device``: an operand arena's
+    resident copy) replaces the plain copy."""
     dev = resolve_device(device)
 
     def t(a, dtype):
-        return torch.tensor(np.asarray(a, dtype), device=dev)
+        a = np.asarray(a, dtype)
+        return torch.tensor(a, device=dev) if upload is None else upload(a)
 
     return {
         "pod_req": t(pod_req, np.float32),

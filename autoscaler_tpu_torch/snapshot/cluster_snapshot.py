@@ -11,10 +11,12 @@ Fork pushes an empty log; revert replays the top log backwards; commit
 splices the top log into the parent's. Every read is O(result).
 
 ``tensors()`` packs the effective state into ``SnapshotTensors`` on the
-snapshot's device (None = the first CUDA card), cached per version. Not
-here yet: the ``packer=`` hook that carries an incremental packer across
-loops (ROADMAP queue 1, the incremental packer and arena item); every
-materialization is a full ``pack``.
+snapshot's device (None = the first CUDA card), cached per version. With
+``packer=`` (an ``IncrementalPacker`` carried across loops, on the same
+device) every materialization is an O(delta) diff against the packer's
+previous state instead of a full ``pack``: the tensor-side analog of the
+reference's DeltaClusterSnapshot (delta.go:26-42). The packer diffs by
+object identity, so the snapshot hands it the very objects it was given.
 """
 from __future__ import annotations
 
@@ -40,10 +42,17 @@ _ASSIGN = 4     # (key, old_assign)      — undo of schedule_pod
 
 
 class ClusterSnapshot:
-    def __init__(self, device=None) -> None:
+    def __init__(self, device=None, packer=None) -> None:
         # resolved now, so a snapshot meant for the card fails at once
-        # without one rather than at its first tensors()
+        # without one rather than at its first tensors(); with a packer and
+        # no device, the packer's device
+        if device is None and packer is not None:
+            device = packer.device
         self.device = resolve_device(device)
+        if packer is not None and packer.device != self.device:
+            raise ValueError(
+                f"the packer serves {packer.device}, the snapshot {self.device}"
+            )
         self._nodes: Dict[str, Node] = {}
         self._pods: Dict[str, Pod] = {}
         self._assign: Dict[str, str] = {}          # pod key -> node name
@@ -53,6 +62,8 @@ class ClusterSnapshot:
         self._version = 0
         self._cache: Optional[Tuple[int, SnapshotTensors, SnapshotMeta]] = None
         self._cached_group_map: Optional[Dict[str, str]] = None
+        # an IncrementalPacker carried across loops (snapshot/incremental.py)
+        self._packer = packer
 
     # -- mutation -----------------------------------------------------------
     def _bump(self) -> None:
@@ -228,6 +239,16 @@ class ClusterSnapshot:
             and self._cached_group_map == (group_of_node or {})
         ):
             return self._cache[1], self._cache[2]
+        if self._packer is not None:
+            tensors, meta = self._packer.update(
+                list(self._nodes.values()),
+                self._pods.items(),
+                self._assign,
+                group_of_node,
+            )
+            self._cache = (self._version, tensors, meta)
+            self._cached_group_map = dict(group_of_node or {})
+            return tensors, meta
         pods = []
         for key, pod in self._pods.items():
             assigned = self._assign.get(key, "")

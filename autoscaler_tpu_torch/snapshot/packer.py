@@ -284,17 +284,22 @@ def _profile_factorization(
 
 
 def _class_verdict(
-    pod: Pod, node: Node, ports: Dict, attached: Dict, pod_csi
+    pod: Pod, node: Node, ports: Dict, attached: Dict, pod_csi=None
 ) -> bool:
     """One (pod-profile, node-profile) cell: the class-structured predicate
-    chain."""
+    chain, shared by the full packer's exemplar loop and the incremental
+    packer's per-cell refresh. pod_csi: precomputed _pod_csi_counts(pod)
+    (None = computed here)."""
     return (
         not node.unschedulable
         and k8s.pod_tolerates_taints(pod, node.taints)
         and k8s.node_matches_selector(pod, node)
         and k8s.pod_volumes_match_node(pod, node)
         and not any(ports.get(p, 0) > 0 for p in pod.host_ports)
-        and _csi_fits(pod_csi, attached, node.csi_attach_limits)
+        and _csi_fits(
+            _pod_csi_counts(pod) if pod_csi is None else pod_csi,
+            attached, node.csi_attach_limits,
+        )
     )
 
 
@@ -414,6 +419,37 @@ class _RowView:
         self.arr[i if self.row_of is None else self.row_of[i]] = v
 
 
+class _ProfileGroups:
+    """Rows grouped by their pod's ``profile_key()`` (namespace and labels),
+    the only inputs of ``_term_matches_pod``'s verdict on a pod: a term is
+    tested once a profile instead of once a pod, and the groups it matches
+    hold exactly the rows whose pods it matches. The rule loops below ask
+    "which pods does this term select" for every (anti-)affinity term
+    against every pod; grouped, that is terms × profiles tests, not
+    terms × pods."""
+
+    def __init__(self, pods: Sequence[Pod], rows: Sequence[int]):
+        groups: Dict[tuple, Tuple[Pod, List[int]]] = {}
+        for pod, row in zip(pods, rows):
+            key = pod.profile_key()
+            group = groups.get(key)
+            if group is None:
+                groups[key] = group = (pod, [])
+            group[1].append(row)
+        self._groups = [(pod, np.asarray(r, np.int64)) for pod, r in groups.values()]
+        self._memo: Dict[tuple, np.ndarray] = {}
+
+    def matched_rows(self, term: k8s.PodAffinityTerm, self_ns: str) -> np.ndarray:
+        """The rows of the groups ``term`` (declared in ``self_ns``)
+        selects."""
+        key = (term, self_ns)
+        hit = self._memo.get(key)
+        if hit is None:
+            parts = [rows for pod, rows in self._groups if _term_matches_pod(term, pod, self_ns)]
+            hit = self._memo[key] = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+        return hit
+
+
 def _exception_pods(
     pods: Sequence[Pod],
     node_of_pod: Sequence[int],
@@ -442,13 +478,9 @@ def _exception_pods(
             for term in pod.affinity.pod_anti_affinity:
                 placed_anti.append((i, pod, term))
     if placed_anti:
-        for i, pod in enumerate(pods):
-            if i in exc:
-                continue
-            for qi, q, term in placed_anti:
-                if i != qi and _term_matches_pod(term, pod, q.namespace):
-                    exc.add(i)
-                    break
+        groups = _ProfileGroups(pods, range(len(pods)))
+        for qi, q, term in placed_anti:
+            exc.update(i for i in groups.matched_rows(term, q.namespace).tolist() if i != qi)
     return sorted(exc)
 
 
@@ -495,49 +527,58 @@ def _apply_row_rules(
         return
 
     # Required inter-pod (anti-)affinity vs already-placed pods, including
-    # the symmetric anti-affinity rule.
+    # the symmetric anti-affinity rule. Every rule is an AND into a row, so
+    # the order of the writes does not matter; the placed pods a term
+    # selects come from their profile groups (k indexes ``placed``).
+    placed_qi = np.fromiter((qi for qi, _, _ in placed), np.int64, count=len(placed))
+    placed_j = np.fromiter((j for _, _, j in placed), np.int64, count=len(placed))
+    placed_groups = _ProfileGroups([q for _, q, _ in placed], range(len(placed)))
+
+    def placed_domains(term, ns, node_dom, skip=-1) -> np.ndarray:
+        """The domains (>= 0) of the placed pods ``term`` selects, but pod
+        ``skip``."""
+        k = placed_groups.matched_rows(term, ns)
+        k = k[placed_qi[k] != skip]
+        doms = node_dom[placed_j[k]]
+        return np.unique(doms[doms >= 0])
+
     for i, pod in enumerate(pods):
         aff = pod.affinity
         if aff is None or not view.has(i):
             continue
         for term in aff.pod_affinity:
             node_dom, _ = domains_for(term.topology_key)
-            ok_domains = {
-                node_dom[j]
-                for (_, q, j) in placed
-                if node_dom[j] >= 0 and _term_matches_pod(term, q, pod.namespace)
-            }
             if _term_matches_pod(term, pod, pod.namespace):
                 # Kubernetes self-match rule: a pod may satisfy its own
                 # required affinity term
                 allowed = node_dom >= 0
             else:
-                allowed = np.isin(node_dom, list(ok_domains)) & (node_dom >= 0)
+                ok_domains = placed_domains(term, pod.namespace, node_dom)
+                allowed = np.isin(node_dom, ok_domains) & (node_dom >= 0)
             view[i] = view[i] & allowed
         for term in aff.pod_anti_affinity:
             node_dom, _ = domains_for(term.topology_key)
-            bad_domains = {
-                node_dom[j]
-                for (qi, q, j) in placed
-                if qi != i and node_dom[j] >= 0
-                and _term_matches_pod(term, q, pod.namespace)
-            }
-            if bad_domains:
-                view[i] = view[i] & ~np.isin(node_dom, list(bad_domains))
+            bad_domains = placed_domains(term, pod.namespace, node_dom, skip=i)
+            if bad_domains.size:
+                view[i] = view[i] & ~np.isin(node_dom, bad_domains)
 
     # placed pods' anti-affinity keeps matching pods out of their domain,
     # except the declaring pod itself
-    for (qi, q, j) in placed:
-        if q.affinity is None:
-            continue
+    anti_placed = [(qi, q, j) for qi, q, j in placed
+                   if q.affinity is not None and q.affinity.pod_anti_affinity]
+    if not anti_placed:
+        return
+    in_view = [i for i in range(P) if view.has(i)]
+    view_groups = _ProfileGroups([pods[i] for i in in_view], in_view)
+    for (qi, q, j) in anti_placed:
         for term in q.affinity.pod_anti_affinity:
             node_dom, _ = domains_for(term.topology_key)
             if node_dom[j] < 0:
                 continue
-            in_domain = node_dom == node_dom[j]
-            for i, pod in enumerate(pods):
-                if i != qi and view.has(i) and _term_matches_pod(term, pod, q.namespace):
-                    view[i] = view[i] & ~in_domain
+            outside = node_dom != node_dom[j]
+            for i in view_groups.matched_rows(term, q.namespace).tolist():
+                if i != qi:
+                    view[i] = view[i] & outside
 
 
 def _apply_spread_rows(view, nodes, pods, node_of_pod, placed, domains_for) -> None:

@@ -1,8 +1,11 @@
 """The scale-up half of a reconcile tick on the card, alone: the two
 ticks of ``chip_smoke.py`` (3j, 3k), their split, the greedy loop's
-profile and the same ticks on the CPU, compared whole.
+profile and the same ticks on the CPU, compared whole; or the tick
+sequence over one incremental packer.
 
-    python3 -m autoscaler_tpu_torch.tools.tick_probe     # one card
+    python3 -m autoscaler_tpu_torch.tools.tick_probe                 # one card
+    python3 -m autoscaler_tpu_torch.tools.tick_probe --sequence      # one card
+    python3 -m autoscaler_tpu_torch.tools.tick_probe --sequence --device cpu
 
 The world is ``utils/workload.build_snapshot_world`` (15k nodes, 105k
 pods) plus chip_smoke's 30k-pod burst, regenerated here from the same
@@ -10,15 +13,28 @@ seed; ``spread_burst`` gives one burst pod in twenty (of those with no
 selector and no toleration) a zone DoNotSchedule spread on one of the
 world's first 24 apps. The provider's 100 groups are the burst's
 templates with the world's zone key beside "zone" (``zoned_templates``).
-chip_smoke.py runs its ticks through ``run_tick`` and reports them
-through ``split_line`` and ``tick_differences``, so both print the same
-figures. Exits non-zero when the card and the CPU disagree.
+
+``--sequence`` runs three ticks over one cluster whose listing changes
+between them as a watch cache delivers it (``CHURNS``, ``churn``), every
+tick packed through one ``IncrementalPacker``: tick 1 on the 3j listing
+(a full build), ticks 2 and 3 on the churned listings (deltas only). It
+prints each tick's pack seconds, the packer's counters and, on a card,
+its split; holds tick 2's tensors against a full pack of the same
+objects, and on a card replays the sequence on the CPU through a packer
+of its own, each tick compared whole.
+
+chip_smoke.py runs its ticks through ``run_tick`` and ``run_sequence``
+and reports them through ``split_line``, ``sequence_line`` and
+``tick_differences``, so both print the same figures. Exits non-zero
+when the card and the CPU (or the full pack) disagree.
 """
 from __future__ import annotations
 
+import argparse
 import copy
 import dataclasses
 import enum
+import subprocess
 import sys
 import time
 
@@ -41,6 +57,7 @@ from autoscaler_tpu_torch.ops import ffd_scan, ffd_scan_affinity, schedule
 from autoscaler_tpu_torch.simulator import hinting
 from autoscaler_tpu_torch.snapshot.affinity import _intern_spread_terms
 from autoscaler_tpu_torch.snapshot.cluster_snapshot import ClusterSnapshot
+from autoscaler_tpu_torch.snapshot.incremental import IncrementalPacker
 from autoscaler_tpu_torch.utils.test_utils import GB, MB, build_test_node, build_test_pod
 from autoscaler_tpu_torch.utils.workload import SPREAD_APPS, ZONE, build_snapshot_world
 
@@ -51,12 +68,32 @@ PROFILE_STEPS = 100      # greedy steps under torch.profiler (eager: under one c
 OUT_KEYS = ("filtered", "assigned", "still", "sizes", "calls", "reverted")
 
 
+ZONES = ["zone-a", "zone-b", "zone-c"]
+BATCH = [Toleration(key="dedicated", value="batch", effect="NoSchedule")]
+
+
+def burst_pods(rng, n: int, prefix: str = "burst"):
+    """``n`` pending pods of the burst's distribution, drawn from ``rng``:
+    50-2000 m cpu, 64-8192 MiB, a zone selector on one in ten, the batch
+    toleration on one in twenty."""
+    return [
+        build_test_pod(
+            f"{prefix}-{i}",
+            cpu_m=float(rng.integers(50, 2000)),
+            mem=float(rng.integers(64, 8192)) * MB,
+            node_selector={"zone": ZONES[i % 3]} if i % 10 == 0 else None,
+            tolerations=BATCH if i % 20 == 0 else None,
+        )
+        for i in range(n)
+    ]
+
+
 def burst_operands(seed: int = 0):
     """chip_smoke's 3b operands: 100 node-group templates and the 30k-pod
     pending burst, drawn in the same order from the same seed."""
 
     rng = np.random.default_rng(seed)
-    zones = ["zone-a", "zone-b", "zone-c"]
+    zones = ZONES
     templates = {}
     for j in range(100):
         templates[f"ng-{j:03d}"] = build_test_node(
@@ -66,18 +103,7 @@ def burst_operands(seed: int = 0):
             labels={"zone": zones[j % 3]},
             taints=[Taint(key="dedicated", value="batch")] if j % 10 == 9 else None,
         )
-    batch = [Toleration(key="dedicated", value="batch", effect="NoSchedule")]
-    burst = [
-        build_test_pod(
-            f"burst-{i}",
-            cpu_m=float(rng.integers(50, 2000)),
-            mem=float(rng.integers(64, 8192)) * MB,
-            node_selector={"zone": zones[i % 3]} if i % 10 == 0 else None,
-            tolerations=batch if i % 20 == 0 else None,
-        )
-        for i in range(30_000)
-    ]
-    return templates, burst
+    return templates, burst_pods(rng, 30_000)
 
 
 def zoned_templates(templates):
@@ -168,20 +194,32 @@ def tick_state(snap):
     return snap.fork_depth, [(p.key(), snap.assignment(p.key())) for p in snap.pods()]
 
 
-def run_tick(world_nodes, world_pods, extra, templates, device, timed=False):
+def listing_snapshot(nodes, pods, device, packer=None) -> ClusterSnapshot:
+    """A ClusterSnapshot of a listing, holding the listed objects
+    themselves (the packer diffs them by identity), packed through
+    ``packer`` when one is given."""
+    snap = ClusterSnapshot(device=device, packer=packer)
+    for node in nodes:
+        snap.add_node(node)
+    for pod in pods:
+        snap.add_pod(pod)
+    return snap
+
+
+def run_tick(world_nodes, world_pods, extra, templates, device, timed=False,
+             packer=None, operand_arena=None):
     """One scale-up tick (static_autoscaler.py:629-631, :712: fork,
     filter-out-schedulable, revert, scale_up on a TestCloudProvider whose
     groups are ``templates``, min 0, max TICK_MAX_SIZE, target 0,
     least-waste with seeded ties) over the world plus ``extra`` pending
-    pods, on ``device``: → a record of what came out (``out``) and, when
-    ``timed``, the host clock of its parts, the greedy loop's operands,
-    span on the card and output devices, and the operands the estimate
-    handed its kernel."""
-    snap = ClusterSnapshot(device=device)
-    for node in world_nodes:
-        snap.add_node(node)
-    for pod in list(world_pods) + list(extra):
-        snap.add_pod(pod)
+    pods, on ``device``, packed through ``packer`` (an IncrementalPacker
+    carried across ticks; None = a full pack) and estimated from
+    ``operand_arena`` when given: → a record of what came out (``out``),
+    the tick's tensors and meta, the packer's counters after its update
+    and, when ``timed``, the host clock of its parts, the greedy loop's
+    operands, span on the card and output devices, and the operands the
+    estimate handed its kernel."""
+    snap = listing_snapshot(world_nodes, list(world_pods) + list(extra), device, packer)
     pending = snap.pending_pods()
     before = tick_state(snap)
     provider = TestCloudProvider()
@@ -189,7 +227,7 @@ def run_tick(world_nodes, world_pods, extra, templates, device, timed=False):
         provider.add_node_group(g, 0, TICK_MAX_SIZE, 0, templates[g])
     opts = AutoscalingOptions(expander="least-waste", expander_random_seed=0)
     orch = ScaleUpOrchestrator(provider, opts, ClusterStateRegistry(provider, opts),
-                               device=device)
+                               device=device, operand_arena=operand_arena)
     rec = {"pending": len(pending)}
     real_greedy, real_ctx = schedule.greedy_schedule, hinting.build_spread_context_from_meta
     real_estimate, real_best = orch.estimator.estimate_many, orch.expander.best_option
@@ -240,10 +278,13 @@ def run_tick(world_nodes, world_pods, extra, templates, device, timed=False):
     try:
         t0 = time.perf_counter()
         snap.fork()
-        snap.tensors()           # the pack, timed alone; filter-out reuses it
+        # the pack, timed alone; filter-out reuses it
+        rec["tensors"], rec["meta"] = snap.tensors()
         if dev_is_card:
             torch.cuda.synchronize()
         rec["pack_s"] = time.perf_counter() - t0
+        if packer is not None:
+            rec["packer"] = packer_counts(packer)
         t1 = time.perf_counter()
         still, filtered = FilterOutSchedulablePodListProcessor().process(snap, pending)
         rec["filter_s"] = time.perf_counter() - t1
@@ -269,6 +310,155 @@ def run_tick(world_nodes, world_pods, extra, templates, device, timed=False):
         "calls": list(provider.scale_up_calls), "reverted": rec["reverted"],
     }
     return rec
+
+
+def packer_counts(packer) -> dict:
+    """An IncrementalPacker's counters after its last update: full and
+    incremental updates so far, and the last update's dirty rows."""
+    return {"full_packs": packer.full_packs,
+            "incremental_updates": packer.incremental_updates, **packer.last_dirty}
+
+
+# The tick sequence over one cluster: the 3j listing (tick 1), then two
+# churns as a watch cache delivers them. Churn 1 is the world one scan
+# interval after a burst was absorbed: the pods tick 1 filtered bound to
+# their nodes, the nodes its IncreaseSize asked for come up, 1% of the
+# running pods finish, 1000 new pending pods arrive. Churn 2 is the steady
+# state: the pods tick 2 filtered bound, 200 running pods gone, 200 new.
+CHURNS = (
+    {"seed": 1, "remove_share": 0.01, "arrive": 1000, "grow": True},
+    {"seed": 2, "remove": 200, "arrive": 200, "grow": False},
+)
+
+
+def node_from_template(template, name: str):
+    """A node of a group as it comes up: its template under its own name
+    (and hostname label)."""
+    node = copy.deepcopy(template)
+    node.name = name
+    node.labels = {**node.labels, "kubernetes.io/hostname": name}
+    return node
+
+
+def churn(nodes, pods, out, templates, seed, arrive, remove=None,
+          remove_share=None, grow=True):
+    """The listing one scan interval after a tick whose ``out`` record is
+    given: → (nodes, pods, counts). Every pod that the tick filtered is
+    bound to the node filter-out chose (a new object with ``node_name``
+    set); with ``grow``, the nodes the tick's IncreaseSize calls asked for
+    come up from their group's template; ``remove`` running pods (or
+    ``remove_share`` of them) chosen with ``seed`` finish and are gone;
+    ``arrive`` new pending pods of the burst's distribution, drawn from
+    ``seed``, are listed last. Objects that did not change stay the same
+    Python objects, as a watch cache keeps them."""
+    rng = np.random.default_rng(seed)
+    running = [i for i, p in enumerate(pods) if p.node_name]
+    n_remove = remove if remove is not None else int(round(remove_share * len(running)))
+    gone = {running[k] for k in rng.choice(len(running), n_remove, replace=False)}
+    bind = dict(out["assigned"])
+    next_pods = []
+    for i, pod in enumerate(pods):
+        if i in gone:
+            continue
+        node_name = bind.get(pod.key())
+        if node_name is not None:
+            pod = copy.copy(pod)
+            pod.node_name = node_name
+        next_pods.append(pod)
+    next_nodes = list(nodes)
+    if grow:
+        for group, delta in out["calls"]:
+            next_nodes += [node_from_template(templates[group], f"{group}-s{seed}-{k}")
+                           for k in range(delta)]
+    next_pods += burst_pods(rng, arrive, prefix=f"arrive-s{seed}")
+    counts = {"bound": len(bind), "removed": n_remove, "arrived": arrive,
+              "new_nodes": len(next_nodes) - len(nodes)}
+    return next_nodes, next_pods, counts
+
+
+def run_sequence(nodes, pods, templates, device, packer, timed=False, report=None,
+                 churns=CHURNS):
+    """The tick sequence on ``device``, every tick packed through
+    ``packer``: a tick on the listing (``nodes``, ``pods``), then for each
+    of ``churns`` the next listing and its tick. → one (nodes, pods, churn
+    counts, record) entry a tick (the first tick's counts are None);
+    ``report`` is called with each entry as its tick ends."""
+    seq, counts = [], None
+    for i in range(len(churns) + 1):
+        rec = run_tick(nodes, pods, (), templates, device, timed=timed, packer=packer)
+        seq.append((nodes, pods, counts, rec))
+        if report is not None:
+            report(seq[-1])
+        if i < len(churns):
+            nodes, pods, counts = churn(nodes, pods, rec["out"], templates, **churns[i])
+    return seq
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def tensors_differences(a, meta_a, b, meta_b, chunk: int = 8192) -> list:
+    """The fields in which two packs of the same objects disagree, compared
+    by pod key and node name (row orders may differ): the mask verdicts
+    (in either form, ``chunk`` pod rows at a time), requests, validity,
+    allocatables, used, groups by name and assignments by node name. Bit
+    for bit; "keys" when the two hold different pods or nodes."""
+    if set(meta_a.pod_index) != set(meta_b.pod_index) or \
+            set(meta_a.node_index) != set(meta_b.node_index):
+        return ["keys"]
+    dev = a.device
+    keys, names = list(meta_b.pod_index), list(meta_b.node_index)
+
+    def rows(index, order):
+        return torch.tensor([index[k] for k in order], dtype=torch.int64, device=dev)
+
+    pa, pb = rows(meta_a.pod_index, keys), rows(meta_b.pod_index, keys)
+    na, nb = rows(meta_a.node_index, names), rows(meta_b.node_index, names)
+    diff = []
+    for field, ra, rb in (("node_alloc", na, nb), ("node_used", na, nb), ("node_valid", na, nb),
+                          ("pod_req", pa, pb), ("pod_valid", pa, pb),
+                          ("pod_priority", pa, pb), ("pod_preempt", pa, pb)):
+        if not torch.equal(_bits(getattr(a, field)[ra]), _bits(getattr(b, field)[rb])):
+            diff.append(field)
+    if int(a.node_valid.sum()) != len(names) or int(a.pod_valid.sum()) != len(keys):
+        diff.append("padding")
+
+    def assignment(t, pods, nodes):
+        """Each pod's node as a position in ``names`` (-1 pending)."""
+        pos = torch.full((t.num_nodes,), -1, dtype=torch.int64, device=dev)
+        pos[nodes] = torch.arange(len(names), device=dev)
+        pn = t.pod_node[pods].long()
+        return torch.where(pn >= 0, pos[pn.clamp(min=0)], -1)
+
+    if not torch.equal(assignment(a, pa, na), assignment(b, pb, nb)):
+        diff.append("pod_node")
+
+    def groups(t, meta, nodes):
+        return [meta.group_names[g] if g >= 0 else None for g in t.node_group[nodes].tolist()]
+
+    if groups(a, meta_a, na) != groups(b, meta_b, nb):
+        diff.append("node_group")
+    for c in range(0, len(keys), chunk):
+        if not torch.equal(a.sched_rows(pa[c:c + chunk])[:, na],
+                           b.sched_rows(pb[c:c + chunk])[:, nb]):
+            diff.append("mask")
+            break
+    return diff
+
+
+def fields_differing(a, b) -> list:
+    """The fields of two SnapshotTensors that are not equal bit for bit
+    (shape, dtype and values; None only where the other is None too)."""
+    out = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x is None or y is None:
+            if x is not y:
+                out.append(f.name)
+        elif x.dtype != y.dtype or x.shape != y.shape or not torch.equal(_bits(x), _bits(y)):
+            out.append(f.name)
+    return out
 
 
 def tick_differences(on_card: dict, on_cpu: dict) -> list:
@@ -331,20 +521,48 @@ def kernel_ms(rec: dict, reps: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def main() -> int:
+def sequence_line(label: str, entry) -> str:
+    """One tick of the sequence: the churn that led to it, its pack's host
+    seconds and the packer's counters after it, and what the tick did."""
+    nodes, pods, counts, rec = entry
+    out, res = rec["out"], rec["out"]["result"]
+    return (f"# sequence tick {label}: {len(pods)} pods on {len(nodes)} nodes after churn "
+            f"{counts}; pack {rec['pack_s']:.3f} s host clock, packer {rec['packer']}; "
+            f"{rec['pending']} pending in, {len(out['filtered'])} filtered, "
+            f"{len(out['still'])} still pending; chosen {res.chosen_group} +{res.new_nodes}")
 
-    dev = resolve_device(None)
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sequence", action="store_true",
+                    help="the three-tick sequence over one incremental packer "
+                         "instead of the two ticks")
+    ap.add_argument("--device", default=None,
+                    help="'cpu' to run on the host alone (default: the first card)")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        )
+        print(smi.stdout.strip().splitlines()[0], flush=True)
     templates, burst = burst_operands()
     groups = zoned_templates(templates)
     world_nodes, world_pods = build_snapshot_world()
+    if args.sequence:
+        return sequence_main(world_nodes, list(world_pods) + burst, groups, dev)
     bad = 0
     for label, extra in (("3j", burst), ("3k", spread_burst(burst))):
-        rec = run_tick(world_nodes, world_pods, extra, groups, dev, timed=True)
+        rec = run_tick(world_nodes, world_pods, extra, groups, dev, timed=on_card)
         res = rec["out"]["result"]
-        rec["route"] = rec["kernel"][0]
         print(f"# tick {label}: {rec['pending']} pending in, {len(rec['out']['filtered'])} "
               f"filtered, {len(rec['out']['still'])} still pending; {rec['spread_terms']} "
               f"spread terms interned; chosen {res.chosen_group} +{res.new_nodes}", flush=True)
+        if not on_card:
+            continue
+        rec["route"] = rec["kernel"][0]
         print(split_line(label, rec, profile_tick(rec), kernel_ms(rec)), flush=True)
         t0 = time.perf_counter()
         cpu = run_tick(world_nodes, world_pods, extra, groups, "cpu")
@@ -352,6 +570,45 @@ def main() -> int:
         bad += len(diff)
         print(f"# tick {label} on the CPU: {time.perf_counter() - t0:.3f} s host clock; "
               f"differs from the card in {diff or 'nothing'}", flush=True)
+    return 1 if bad else 0
+
+
+def sequence_main(nodes, pods, groups, dev) -> int:
+    """The tick sequence on ``dev`` through one IncrementalPacker; tick 2's
+    tensors against a full pack of its listing; on a card, the sequence
+    replayed on the CPU through a packer of its own, each tick compared
+    whole. → 1 when anything differs, else 0."""
+    on_card = dev.type == "cuda"
+
+    def report(entry):
+        print(sequence_line(str(len(seq_done) + 1), entry), flush=True)
+        rec = entry[3]
+        if on_card and "kernel" in rec:
+            rec["route"] = rec["kernel"][0]
+            print(split_line(str(len(seq_done) + 1), rec, profile_tick(rec), kernel_ms(rec)),
+                  flush=True)
+        seq_done.append(entry)
+
+    seq_done = []
+    seq = run_sequence(nodes, pods, groups, dev, IncrementalPacker(device=dev),
+                       timed=on_card, report=report)
+    nodes2, pods2, _counts, rec2 = seq[1]
+    full, full_meta = listing_snapshot(nodes2, pods2, dev).tensors()
+    bad = tensors_differences(rec2["tensors"], rec2["meta"], full, full_meta)
+    print(f"# sequence tick 2: tensors differ from a full pack in {bad or 'nothing'}", flush=True)
+    if on_card:
+        cpu_packer = IncrementalPacker(device="cpu")
+        for i, (nodes_i, pods_i, _c, rec) in enumerate(seq):
+            t0 = time.perf_counter()
+            if i == 0:
+                listing_snapshot(nodes_i, pods_i, "cpu", cpu_packer).tensors()
+                continue
+            cpu = run_tick(nodes_i, pods_i, (), groups, "cpu", packer=cpu_packer)
+            diff = tick_differences(rec["out"], cpu["out"])
+            bad += diff
+            print(f"# sequence tick {i + 1} on the CPU: {time.perf_counter() - t0:.3f} s host "
+                  f"clock, packer {cpu['packer']}; differs from the card in "
+                  f"{diff or 'nothing'}", flush=True)
     return 1 if bad else 0
 
 

@@ -61,7 +61,17 @@ Phases (any failure raises and exits non-zero):
       and no toleration given a zone DoNotSchedule spread (maxSkew 1) on
       one of the world's first 24 apps: the spread context over the placed
       pods, the gate and commit in the greedy loop, and the orchestrator's
-      cluster context into K3 with at most 32 spread terms.
+      cluster context into K3 with at most 32 spread terms;
+   l. the tick sequence over one ``IncrementalPacker`` carried across
+      ticks (``tools/tick_probe.run_sequence``): tick 1 on (j)'s listing
+      through ``ClusterSnapshot(packer=...)`` (the packer's first update, a
+      full build; its result must equal (j)'s), then the world one scan
+      interval after the burst (the pods tick 1 filtered bound to their
+      nodes, the nodes its IncreaseSize asked for up, 1% of the running
+      pods gone, 1000 new pending pods) and tick 2, then the steady state
+      (tick 2's filtered pods bound, 200 gone, 200 new) and tick 3; ticks
+      2 and 3 must be incremental (no full pack) and dirty no more pod rows
+      than twice the pods their churn changed.
    Every kernel of the paths must have launched;
 4. each kernel at its headline shape against its plain version on the same
    card tensors, exactly: K1/K2 on all 500 groups, K3 on its three
@@ -80,14 +90,21 @@ Phases (any failure raises and exits non-zero):
    patch timed in parts (4f); both ticks again on a ``ClusterSnapshot``
    on the CPU of the same objects: every filtered key and assignment, the
    snapshot after the revert, the whole ScaleUpResult and the provider's
-   target sizes equal (4g);
+   target sizes equal (4g); the tick sequence: tick 2's tensors against a
+   full pack of its listing on the card by pod key and node name, and the
+   sequence replayed on the CPU through a packer of its own, ticks 2 and 3
+   whole and equal (4h); the resident arena: a second packer with a
+   ``DeviceArena`` on the card replays the three listings, serves tensors
+   equal bit for bit to the first packer's, seeds on tick 1 alone and
+   never rolls back, each apply's span on the card by CUDA events (4i);
 5. timings with CUDA events, each run queued behind ~10 ms of a spinning
    card so that they time the card and not the host's launches: each
    kernel alone, its whole entry call, and the plain version; K3 on the
    zone and hostname spread worlds; K4 on the probe's operands, the whole
    ``fit_reduce_exact`` there and its exact patch in parts; each tick's
    split by the host clock (pack, spread context, greedy loop, commit
-   loop, scale_up with its estimate, kernel and expander), the greedy
+   loop, scale_up with its estimate, kernel and expander; the three ticks
+   of the sequence too), the greedy
    loop's span on the card (CUDA events around it), its launches, kernels
    and device time a step (torch.profiler on 100 steps, which run
    eagerly, less a run of one step), and the card-busy time and idle
@@ -263,7 +280,9 @@ def main() -> int:
     from autoscaler_tpu_torch.kube.objects import MEMORY, OwnerRef, Taint, Toleration
     from autoscaler_tpu_torch.debugging import DebuggingSnapshotter
     from autoscaler_tpu_torch.ops import _build, ffd_scan, ffd_scan_affinity, fit, fit_reduce
+    from autoscaler_tpu_torch.snapshot.arena import DeviceArena
     from autoscaler_tpu_torch.snapshot.cluster_snapshot import ClusterSnapshot
+    from autoscaler_tpu_torch.snapshot.incremental import IncrementalPacker
     from autoscaler_tpu_torch.snapshot.tensors import bucket_size
     from autoscaler_tpu_torch.tools import tick_probe
     from autoscaler_tpu_torch.utils.test_utils import (
@@ -658,6 +677,34 @@ def main() -> int:
         )
     check(tick_card["3k"]["spread_terms"] <= 32 and tick_card["3k"]["k3_spread"] <= 32,
           "tick 3k: more spread terms than K3's bitset holds")
+    # the tick sequence over one incremental packer: tick 1 on 3j's listing
+    # (the packer's first update, a full build), then two churns as a watch
+    # cache delivers them (tick_probe.CHURNS), each followed by a tick whose
+    # pack is the delta alone
+    seq_packer = IncrementalPacker(device=dev)
+    seq, counts, _ = run_path("tick sequence (3 ticks)", lambda: tick_probe.run_sequence(
+        world_nodes, list(world_pods) + burst, tick_templates, dev, seq_packer, timed=True))
+    check([rec["packer"]["full_packs"] for *_, rec in seq] == [1, 1, 1]
+          and [rec["packer"]["incremental_updates"] for *_, rec in seq] == [0, 1, 2],
+          "tick sequence: ticks 2 and 3 were not incremental")
+    check(counts["route:ffd_scan"] == len(seq)
+          and counts["ffd_scan_swar"] + counts["ffd_scan_f32"] == len(seq),
+          f"tick sequence: each tick's estimate did not launch K1/K2 once: {counts}")
+    diff = tick_probe.tick_differences(seq[0][3]["out"], tick_card["3j"]["out"])
+    check(not diff, f"tick sequence: tick 1 differs from tick 3j in {diff}")
+    for k, entry in enumerate(seq):
+        nodes_k, pods_k, churned, rec = entry
+        rec["route"] = rec["kernel"][0]
+        print(tick_probe.sequence_line(str(k + 1), entry), flush=True)
+        check(rec["greedy_devices"] == ("cuda", "cuda") and rec["reverted"]
+              and rec["out"]["filtered"], f"tick sequence: tick {k + 1} did not filter on the card")
+        check(len(pods_k) < rec["tensors"].num_pods and len(nodes_k) < rec["tensors"].num_nodes,
+              f"tick sequence: tick {k + 1} outgrew its buckets")
+        if churned is not None:
+            changed = churned["bound"] + churned["removed"] + churned["arrived"]
+            check(rec["packer"]["pod_rows"] <= 2 * changed,
+                  f"tick sequence: tick {k + 1} dirtied {rec['packer']['pod_rows']} pod rows "
+                  f"for {changed} changed pods")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main paths")
     check(
@@ -1165,6 +1212,87 @@ def main() -> int:
         )
         phase(f"4g tick {label} on the CPU", t0)
 
+    # the tick sequence: tick 2's tensors against a full pack of the same
+    # objects on the card, by pod key and node name; then the sequence
+    # replayed on the CPU through a packer of its own (tick 1 its update
+    # alone: 4g ran the whole tick on this listing), ticks 2 and 3 whole
+    t4h = t0 = time.perf_counter()
+    nodes_2, pods_2, _, rec_2 = seq[1]
+    full_2, full_meta_2 = tick_probe.listing_snapshot(nodes_2, pods_2, dev).tensors()
+    diff = tick_probe.tensors_differences(rec_2["tensors"], rec_2["meta"], full_2, full_meta_2)
+    check(not diff, f"tick sequence: tick 2's tensors differ from a full pack in {diff}")
+    print(f"# sequence tick 2: tensors equal a full pack of its listing by pod key and node "
+          f"name (mask verdicts of all {full_meta_2.num_pods} pods, requests, allocatables, "
+          f"used, groups, assignments); the full pack {time.perf_counter() - t0:.3f} s "
+          f"with the comparison", flush=True)
+    del full_2, full_meta_2
+    cpu_packer = IncrementalPacker(device="cpu")
+    for k, (nodes_k, pods_k, _, rec) in enumerate(seq):
+        t0 = time.perf_counter()
+        if k == 0:
+            tick_probe.listing_snapshot(nodes_k, pods_k, "cpu", cpu_packer).tensors()
+            print(f"# sequence tick 1 on the CPU: the packer's update {time.perf_counter() - t0:.3f}"
+                  f" s host clock", flush=True)
+            continue
+        cpu_rec = tick_probe.run_tick(nodes_k, pods_k, (), tick_templates, "cpu",
+                                      packer=cpu_packer)
+        diff = tick_probe.tick_differences(rec["out"], cpu_rec["out"])
+        check(not diff, f"tick sequence: tick {k + 1} differs from the CPU in {diff}")
+        check(cpu_rec["packer"] == rec["packer"],
+              f"tick sequence: tick {k + 1}'s packer counts differ from the CPU's")
+        print(f"# sequence tick {k + 1}: card equals CPU ({len(cpu_rec['out']['filtered'])} "
+              f"filtered, {len(cpu_rec['out']['still'])} still pending, the whole "
+              f"ScaleUpResult); on the CPU: {time.perf_counter() - t0:.3f} s host clock, pack "
+              f"{cpu_rec['pack_s']:.3f} s", flush=True)
+        del cpu_rec
+    del cpu_packer
+    phase("4h the tick sequence against a full pack and on the CPU", t4h)
+
+    # the resident arena: a second packer with a DeviceArena on the card
+    # replays the three listings (packer updates only); what it serves must
+    # equal the first packer's tensors bit for bit (they stay valid: that
+    # packer uploads anew what changed), tick 1 seeds, ticks 2 and 3 apply
+    # deltas with no full upload, and nothing rolls back
+    t0 = time.perf_counter()
+    arena = DeviceArena(device=dev)
+    arena_packer = IncrementalPacker(arena=arena, device=dev)
+    real_apply = arena.apply
+    apply_ms = []
+
+    def timed_apply(program):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_apply(program)
+        stop.record()
+        apply_ms.append((start, stop))
+        return out
+
+    arena.apply = timed_apply
+    for k, (nodes_k, pods_k, _, rec) in enumerate(seq):
+        t1 = time.perf_counter()
+        served, served_meta = tick_probe.listing_snapshot(
+            nodes_k, pods_k, dev, arena_packer).tensors()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t1
+        start, stop = apply_ms[-1]
+        stats = arena.take_stats()
+        diff = tick_probe.fields_differing(served, rec["tensors"])
+        check(not diff and served_meta.pod_index == rec["meta"].pod_index
+              and served_meta.node_index == rec["meta"].node_index,
+              f"arena: tick {k + 1}'s served tensors differ from the packer's in {diff}")
+        check(served.pod_req.device == dev, f"arena: tick {k + 1} served off the card")
+        check(stats["rollbacks"] == 0, f"arena: tick {k + 1} rolled back: {stats}")
+        check((stats["full_uploads"] > 0) == (k == 0) and stats["promotions"] == int(k == 0),
+              f"arena: tick {k + 1} {'did not seed' if k == 0 else 'uploaded in full'}: {stats}")
+        print(f"# arena tick {k + 1}: update {host_s:.3f} s host clock, apply span on the card "
+              f"{start.elapsed_time(stop):.3f} ms (CUDA events), stats {stats}, clones "
+              f"{arena.clones}, served tensors equal the packer's bit for bit", flush=True)
+        del served, served_meta
+    arena.apply = real_apply
+    del arena_packer, arena
+    phase("4i the arena replay", t0)
+
     # where the burst estimate's time goes: the host operand build (mask
     # engine, packing) and the scan call on the card
     names = sorted(templates)
@@ -1186,11 +1314,13 @@ def main() -> int:
     # clock of each part; the greedy loop's span on the card, its launches
     # and device time a step (torch.profiler), the card-busy time and the
     # idle share derived from them; the estimate's kernel on its operands
-    for label, rec in tick_card.items():
+    seq_ticks = {f"sequence {k + 1}": rec for k, (*_, rec) in enumerate(seq)}
+    for label, rec in {**tick_card, **seq_ticks}.items():
         _, kernel_fn, kernel_args = rec["kernel"]
         print(tick_probe.split_line(label, rec, tick_probe.profile_tick(rec),
                                     event_ms(lambda: kernel_fn(*kernel_args))), flush=True)
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(smi_line, flush=True)       # again: the head of a long log may be cut
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

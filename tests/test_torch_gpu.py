@@ -662,3 +662,156 @@ def test_greedy_schedule_waits_on_no_host_value(cuda, monkeypatch):
     assert torch.equal(out["cuda"][0], out["cpu"][0])
     assert torch.equal(out["cuda"][1], out["cpu"][1])
     assert out["cpu"][0].any()
+
+
+def _packer_world(seed=4):
+    import autoscaler_tpu_torch.kube.objects as tobj
+    import autoscaler_tpu_torch.utils.test_utils as ttu
+    from torch_parity import mask_world
+
+    return mask_world(ttu, tobj, seed, P=200, N=30)
+
+
+def _listing(nodes, pods, device, packer):
+    from autoscaler_tpu_torch.tools.tick_probe import listing_snapshot
+
+    return listing_snapshot(nodes, pods, device, packer).tensors()
+
+
+@pytest.mark.parametrize("factored", [False, True], ids=["dense", "factored"])
+def test_arena_on_card_serves_the_cpu_packers_tensors(cuda, factored):
+    """A packer with a DeviceArena on the card over three listings (a seed,
+    then deltas: pods rebound, removed and added, a node gone) serves
+    tensors equal bit for bit to a CPU packer's over the same listings; no
+    full upload after the seed, no rollback, nothing left on the host."""
+    import copy
+
+    from autoscaler_tpu_torch.snapshot.arena import DeviceArena
+    from autoscaler_tpu_torch.snapshot.incremental import IncrementalPacker
+    from autoscaler_tpu_torch.tools.tick_probe import fields_differing
+
+    nodes, pods, _ = _packer_world()
+    dense = not factored
+    arena = DeviceArena(device=cuda)
+    card = IncrementalPacker(dense_mask=dense, arena=arena, device=cuda)
+    cpu = IncrementalPacker(dense_mask=dense, device="cpu")
+    listings = [(nodes, pods)]
+    moved = [copy.copy(p) for p in pods[:20]]
+    for p in moved:
+        p.node_name = nodes[3].name
+    listings.append((nodes, moved + pods[20:-10]))
+    listings.append((nodes[:-1], moved[5:] + pods[20:-10] + pods[-4:]))
+    for k, (n, p) in enumerate(listings):
+        on_card, meta_card = _listing(n, p, cuda, card)
+        torch.cuda.synchronize()
+        on_cpu, meta_cpu = _listing(n, p, "cpu", cpu)
+        assert on_card.pod_req.device.type == "cuda"
+        assert meta_card.pod_index == meta_cpu.pod_index
+        assert fields_differing(
+            type(on_card)(**{f: (None if v is None else v.cpu())
+                             for f, v in vars(on_card).items()}), on_cpu) == []
+        stats = arena.take_stats()
+        assert stats["rollbacks"] == 0
+        assert (stats["full_uploads"] > 0) == (k == 0)
+
+
+@pytest.mark.parametrize("hold", ["nothing", "view"])
+def test_arena_writes_in_place_unless_a_view_is_held_on_card(cuda, hold):
+    import numpy as np
+
+    from autoscaler_tpu_torch.snapshot import arena as tarena
+
+    arena = tarena.DeviceArena(device=cuda)
+    host = {"pod_req": np.zeros((64, 6), np.float32)}
+    arena.apply(tarena.DeltaProgram(host=host, reseed=True))
+
+    def step(row, value):
+        host["pod_req"][row] = value
+        op = tarena.DeltaOp("pod_req", 0, np.array([row], np.int32), host["pod_req"][[row]])
+        return arena.apply(tarena.DeltaProgram(host=host, ops=[op]))["pod_req"]
+
+    step(1, 1.0)
+    step(2, 2.0)
+    served = step(3, 3.0)
+    ptr = served.data_ptr()
+    view = served[2:5] if hold == "view" else None
+    del served
+    step(4, 4.0)
+    again = step(5, 5.0)
+    torch.cuda.synchronize()
+    assert again[:6, 0].tolist() == [0, 1, 2, 3, 4, 5]
+    if view is None:
+        assert arena.clones == 0 and again.data_ptr() == ptr
+    else:
+        assert arena.clones == 1 and view[:, 0].tolist() == [2.0, 3.0, 0.0]
+
+
+def test_arena_scatter_drops_padding_of_device_indices(cuda):
+    """A padded batch whose indices already live on the card: the padding
+    (index == axis length) is selected away there, never handed to the
+    scatter, and the result equals the same batch on the CPU."""
+    import numpy as np
+
+    from autoscaler_tpu_torch.ops.arena_apply import arena_scatter_cols, arena_scatter_rows
+
+    rng = np.random.default_rng(3)
+    buf = rng.standard_normal((50, 6)).astype(np.float32)
+    idx = np.array([3, 7, 20, 49, 50, 50, 50, 50], np.int32)
+    rows = rng.standard_normal((8, 6)).astype(np.float32)
+    want = arena_scatter_rows(torch.tensor(buf), idx, rows)
+    got = arena_scatter_rows(torch.tensor(buf, device=cuda), torch.tensor(idx, device=cuda),
+                             torch.tensor(rows, device=cuda))
+    assert torch.equal(got.cpu(), want)
+    mask = rng.random((9, 50)) < 0.5
+    cols = rng.random((9, 8)) < 0.5
+    want = arena_scatter_cols(torch.tensor(mask), idx, cols)
+    got = arena_scatter_cols(torch.tensor(mask, device=cuda), torch.tensor(idx, device=cuda),
+                             torch.tensor(cols, device=cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_operand_arena_keys_by_device_on_card(cuda):
+    import numpy as np
+
+    import autoscaler_tpu_torch.utils.test_utils as ttu
+    from autoscaler_tpu_torch.estimator.binpacking import BinpackingNodeEstimator
+    from autoscaler_tpu_torch.snapshot.arena import OperandArena
+    from torch_parity import canon, port_world
+
+    oa = OperandArena(device=cuda)
+    a = np.arange(12, dtype=np.float32)
+    on_card = oa.resident(a)
+    on_cpu = oa.resident(a, device="cpu")
+    assert on_card.device.type == "cuda" and on_cpu.device.type == "cpu"
+    assert oa.resident(a) is on_card and oa.stats()["misses"] == 2
+    pods, templates = port_world(ttu, 150, ports=2)
+    est = BinpackingNodeEstimator(device=cuda, operand_arena=OperandArena(device=cuda))
+    first, second = est.estimate_many(pods, templates), est.estimate_many(pods, templates)
+    plain = BinpackingNodeEstimator(device="cpu").estimate_many(pods, templates)
+    assert canon(first) == canon(second) == canon(plain)
+    assert est.operand_arena.stats()["hits"] > 0
+
+
+def test_tick_sequence_on_card_equals_cpu(cuda):
+    """tests/torch_parity.tick_world's cluster over three ticks through a
+    packer carried across them, on the card and on the CPU: every tick's
+    result equal, ticks 2 and 3 incremental on both."""
+    import autoscaler_tpu_torch.cloudprovider.test_provider as tprov
+    import autoscaler_tpu_torch.kube.objects as tobj
+    import autoscaler_tpu_torch.snapshot.cluster_snapshot as tcs
+    import autoscaler_tpu_torch.utils.test_utils as ttu
+    from autoscaler_tpu_torch.snapshot.incremental import IncrementalPacker
+    from autoscaler_tpu_torch.tools import tick_probe
+    from torch_parity import tick_world
+
+    snap, _pending, provider = tick_world(ttu, tobj, tprov, tcs, False, device="cpu")
+    templates = {g.id(): g.template_node_info() for g in provider.node_groups()}
+    nodes = snap.nodes() + [ttu.build_test_node(f"spare-{k}", cpu_m=500) for k in range(5)]
+    churns = ({"seed": 1, "remove_share": 0.2, "arrive": 6, "grow": True},
+              {"seed": 2, "remove": 2, "arrive": 3, "grow": False})
+    card = tick_probe.run_sequence(nodes, snap.pods(), templates, cuda,
+                                   IncrementalPacker(device=cuda), churns=churns)
+    for nodes_k, pods_k, _c, rec in card:
+        cpu = tick_probe.run_tick(nodes_k, pods_k, (), templates, "cpu")
+        assert tick_probe.tick_differences(rec["out"], cpu["out"]) == []
+    assert [rec["packer"]["incremental_updates"] for *_, rec in card] == [0, 1, 2]

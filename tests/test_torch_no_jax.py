@@ -81,6 +81,21 @@ for n in nodes:
 for p in placed + small:
     snap.add_pod(p)
 first = first_fit_node(snap.tensors()[0])
+from autoscaler_tpu_torch.snapshot.arena import DeviceArena
+from autoscaler_tpu_torch.snapshot.incremental import IncrementalPacker
+pk = IncrementalPacker(device="cpu", arena=DeviceArena(device="cpu"))
+for listing in (placed + small, placed + small[1:]):
+    snap2 = ClusterSnapshot(packer=pk)
+    for n in nodes:
+        snap2.add_node(n)
+    for p in listing:
+        snap2.add_pod(p)
+    t2, m2 = snap2.tensors()
+# both updates fit the packer's first 8 x 8 buckets: no full pack at all
+assert (pk.full_packs, pk.incremental_updates) == (0, 2), pk.full_packs
+assert m2.num_pods == 5 and t2.pod_req.device.type == "cpu"
+stats = pk.arena.take_stats()
+assert stats["applies"] == 2 and stats["full_uploads"] > 0 and stats["rollbacks"] == 0, stats
 loaded = [m for m in sys.modules if m == "autoscaler_tpu" or m.startswith("autoscaler_tpu.")]
 assert not loaded, loaded
 print("OK", res["g"][0], sum(fits[0].tolist()), first[:6].tolist())
@@ -140,8 +155,16 @@ print("OK", len(filtered), len(still), res.chosen_group, res.new_nodes)
 """
 
 
+# the modules of the incremental packer and the resident arena, and the
+# jax-free ones they run on, each at its JAX counterpart's path
+PACKER_MODULES = (
+    "snapshot/incremental.py", "snapshot/arena.py", "ops/arena_apply.py",
+    "fleet/buckets.py", "perf/residency.py", "trace/tracer.py", "trace/recorder.py",
+)
+
+
 def test_tick_modules_are_ported():
-    for rel in TICK_MODULES:
+    for rel in TICK_MODULES + PACKER_MODULES:
         assert (PORT / rel).is_file(), rel
         assert (REPO / "autoscaler_tpu" / rel).is_file(), rel
         assert f"autoscaler_tpu_torch/{rel}" in PORT_FILES

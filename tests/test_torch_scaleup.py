@@ -376,7 +376,7 @@ def test_orchestrator_estimates_on_its_device():
 
 
 @pytest.mark.parametrize("unported", [
-    {"metrics": object()}, {"observatory": object()}, {"operand_arena": object()},
+    {"metrics": object()}, {"observatory": object()},
     {"priorities_fetch": lambda: {}}, {"preemption_churn_weight": 0.5},
 ])
 def test_unported_options_raise(unported):
