@@ -1,11 +1,10 @@
 """Lightweight Kubernetes-shaped object model: the port's own copy of the
-subset of ``autoscaler_tpu/kube/objects.py`` that the scale-up half of a
-reconcile tick reads (resource vectors, pods, nodes, taints, selectors,
-volumes).
+subset of ``autoscaler_tpu/kube/objects.py`` that a reconcile tick reads
+(resource vectors, pods, nodes, taints, selectors, volumes, and for
+scale-down the drain annotations, DaemonSets and PodDisruptionBudgets).
 
 The control plane works on these plain dataclasses; the estimator flattens
-them into dense tensors. Only the fields the scale-up path reads are
-modeled.
+them into dense tensors. Only the fields the tick reads are modeled.
 The reference's process-global pod-profile id registry is not copied: the
 mask engine and the term tensors intern ``Pod.profile_key()`` locally,
 per pass.
@@ -37,6 +36,14 @@ NO_EXECUTE = "NoExecute"
 # taints.go ToBeDeletedTaint / DeletionCandidateTaint); templates drop them.
 TO_BE_DELETED_TAINT = "ToBeDeletedByClusterAutoscaler"
 DELETION_CANDIDATE_TAINT = "DeletionCandidateOfClusterAutoscaler"
+
+# Annotations the scale-down half reads (cluster-autoscaler/utils/drain/
+# drain.go:33-43 and core/scaledown/eligibility/eligibility.go:66).
+SAFE_TO_EVICT_ANNOTATION = "cluster-autoscaler.kubernetes.io/safe-to-evict"
+SCALE_DOWN_DISABLED_ANNOTATION = "cluster-autoscaler.kubernetes.io/scale-down-disabled"
+SAFE_TO_EVICT_LOCAL_VOLUMES_ANNOTATION = (
+    "cluster-autoscaler.kubernetes.io/safe-to-evict-local-volumes"
+)
 
 # Pseudo-resource namespace for the minimal DRA ResourceClaim model: a claim
 # of device class <c> becomes the counted extended resource
@@ -337,6 +344,51 @@ class Node:
             ),
         )
 
+
+@dataclass
+class DaemonSet:
+    """The slice of an apps/v1 DaemonSet the autoscaler needs: identity for
+    is-it-running-here checks, scheduling constraints for is-it-suitable
+    checks, and per-pod requests for capacity charging (--force-ds,
+    reference simulator/nodes.go:56 GetDaemonSetPodsForNode)."""
+
+    name: str
+    namespace: str = "default"
+    node_selector: Dict[str, str] = field(default_factory=dict)
+    tolerations: List[Toleration] = field(default_factory=list)
+    requests: Resources = field(default_factory=Resources)
+    # required node affinity from the DS pod template (ORed terms), the
+    # scheduling-style DS targeting (reference simulator/nodes.go:38-56)
+    node_selector_terms: Tuple[LabelSelector, ...] = ()
+
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+    def suitable_for(self, node: "Node") -> bool:
+        """nodeSelector subset-match + required node affinity + taint
+        toleration, through a pod proxy so the selector, affinity and taint
+        semantics are the filter plugins' own."""
+        proxy = Pod(
+            name=self.name,
+            namespace=self.namespace,
+            node_selector=dict(self.node_selector),
+            tolerations=list(self.tolerations),
+            affinity=(
+                Affinity(node_selector_terms=self.node_selector_terms)
+                if self.node_selector_terms else None
+            ),
+        )
+        return node_matches_selector(proxy, node) and pod_tolerates_taints(
+            proxy, node.taints
+        )
+
+
+@dataclass
+class PodDisruptionBudget:
+    name: str
+    namespace: str = "default"
+    selector: LabelSelector = field(default_factory=LabelSelector)
+    disruptions_allowed: int = 0
 
 def pod_tolerates_taints(pod: Pod, taints: List[Taint]) -> bool:
     """NoSchedule/NoExecute taints block scheduling unless tolerated

@@ -121,6 +121,34 @@ def spread_commit(sp8, counts, m, place, target):
     return flat[: S * D].view(S, D)
 
 
+def spread_gate_lanes(st: _SpreadStatic, counts, o, m) -> torch.Tensor:
+    """The gate of ``_gate_violations`` for L independent lanes at once,
+    one pod a lane: ``counts`` [L, S, D] i32 (a lane's own carry), ``o``
+    [L, S] bool and ``m`` [L, S] i32 its pod's declared and matched terms
+    → [L, N] bool, True where a term the lane's pod declares would exceed
+    its skew. The same integer arithmetic, term by domain, gathered to the
+    nodes through ``st.node_slot``."""
+    L, S, D = counts.shape
+    minv = torch.where(st.dom_valid, counts, BIG_I32).amin(dim=2)      # [L, S]
+    min_eff = torch.where(st.md_gt, 0, minv)
+    cnt = torch.where(st.dom_valid, counts, 0)                         # [L, S, D]
+    bad = (cnt + (m - min_eff)[:, :, None]) > st.skew[None]
+    bad = torch.cat([bad & o[:, :, None], o[:, :, None]], dim=2)       # [L, S, D + 1]
+    flat = bad.view(torch.uint8).reshape(L, S * (D + 1))
+    N = st.node_slot.shape[1]
+    hit = torch.gather(flat, 1, st.node_slot.reshape(1, S * N).expand(L, S * N))
+    return hit.view(L, S, N).amax(dim=1).view(torch.bool)
+
+
+def spread_commit_lanes(st: _SpreadStatic, counts_flat, m, place, target) -> None:
+    """``_commit`` for L lanes: lane l's placed pod raises, for every term
+    it matches, its target's domain count when the target is eligible.
+    ``counts_flat`` [L, S·D + 1] (the last column takes what is dropped),
+    ``m`` [L, S] i32, ``place`` [L] bool, ``target`` [L] int64."""
+    slot = st.commit_slot.index_select(1, target).T                   # [L, S]
+    counts_flat.scatter_add_(1, slot, torch.where(place[:, None], m, 0))
+
+
 class _Loop:
     """The scan's carry and the fixed buffers of one chunk's read-only
     operands; ``step(j)`` is step j of the loaded chunk."""

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port's main paths, the scale-up estimate with and
 without dynamic inter-pod affinity and hard topology spread, the cluster
-snapshot's predicate fit and the scale-up half of a reconcile tick, on
-one CUDA card through its hand-written kernels, and holds every kernel
-against its plain PyTorch version.
+snapshot's predicate fit, and the scale-up and scale-down halves of a
+reconcile tick, on one CUDA card through its hand-written kernels, and
+holds every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -71,7 +71,22 @@ Phases (any failure raises and exits non-zero):
       pods gone, 1000 new pending pods) and tick 2, then the steady state
       (tick 2's filtered pods bound, 200 gone, 200 new) and tick 3; ticks
       2 and 3 must be incremental (no full pack) and dirty no more pod rows
-      than twice the pods their churn changed.
+      than twice the pods their churn changed;
+   m. the scale-down half of two reconcile loops
+      (``tools/scaledown_probe.run_scale_down``, static_autoscaler.py:
+      788-880) on (h)'s world after a scale-in (every placed pod of apps
+      0-99 gone), on a ``TestCloudProvider`` with one group a node shape and
+      a ``FakeClusterAPI`` of the listing, at ``AutoscalingOptions()``: at
+      t = 0 ``update_cluster_state`` over every node (utilization on the
+      card, empty detection, the drain rules, one removal dispatch of 30
+      candidates) and ``nodes_to_delete`` (nothing yet: no node unneeded
+      long enough); at t = 601 the same, then
+      ``ScaleDownActuator.start_deletion`` (taints, deletions);
+   n. the same on the listing whose placed pods of apps 100-123 carry a
+      zone DoNotSchedule spread, every eligible non-empty node simulated in
+      one ``removal_feasibility_spread`` dispatch (thousands of lanes) and
+      ten drains validated by ``joint_removal_feasibility_spread``, then
+      evicted and deleted. The scale-down half runs no hand kernel.
    Every kernel of the paths must have launched;
 4. each kernel at its headline shape against its plain version on the same
    card tensors, exactly: K1/K2 on all 500 groups, K3 on its three
@@ -97,6 +112,12 @@ Phases (any failure raises and exits non-zero):
    ``DeviceArena`` on the card replays the three listings, serves tensors
    equal bit for bit to the first packer's, seeds on tick 1 alone and
    never rolls back, each apply's span on the card by CUDA events (4i);
+   3m repeated whole on the CPU, both loops and the actuation field for
+   field (the eligible names, every utilization bit for bit, the empty,
+   simulated and unneeded names, every ``NodeToRemove`` with its
+   destinations, the unremovable reasons, the ``ActuationResult`` and the
+   target sizes) (4j); 256 seeded lanes of 3n's removal dispatch repeated
+   on the CPU from the same operands, and its joint pass whole (4k);
 5. timings with CUDA events, each run queued behind ~10 ms of a spinning
    card so that they time the card and not the host's launches: each
    kernel alone, its whole entry call, and the plain version; K3 on the
@@ -108,7 +129,12 @@ Phases (any failure raises and exits non-zero):
    loop's span on the card (CUDA events around it), its launches, kernels
    and device time a step (torch.profiler on 100 steps, which run
    eagerly, less a run of one step), and the card-busy time and idle
-   share derived from them.
+   share derived from them; each scale-down loop's split by the host
+   clock (pack, eligibility with the utilization's span on the card,
+   empty detection, the drain rules, the removal dispatch's span, the
+   joint validation, actuation) and the dispatch's lanes, slots stepped,
+   lane chunk, launches and device time a step (torch.profiler) and idle
+   share.
 
 The last two lines of standard output are the kernels line (one JSON
 object) and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -284,7 +310,7 @@ def main() -> int:
     from autoscaler_tpu_torch.snapshot.cluster_snapshot import ClusterSnapshot
     from autoscaler_tpu_torch.snapshot.incremental import IncrementalPacker
     from autoscaler_tpu_torch.snapshot.tensors import bucket_size
-    from autoscaler_tpu_torch.tools import tick_probe
+    from autoscaler_tpu_torch.tools import scaledown_probe, tick_probe
     from autoscaler_tpu_torch.utils.test_utils import (
         GB,
         MB,
@@ -431,6 +457,14 @@ def main() -> int:
     # first 24 apps (the placed pods of that app count)
     tick_templates = tick_probe.zoned_templates(templates)
     spread_burst = tick_probe.spread_burst(burst)
+    # the scale-down runs: the world after a scale-in, and the same with the
+    # next 24 apps' placed pods spread by zone
+    down_listings = {
+        "3m": (scaledown_probe.scale_in_listing(world_nodes, world_pods), {}),
+        "3n": (scaledown_probe.scale_in_listing(
+            world_nodes, world_pods, spread_apps=scaledown_probe.SPREAD_IN_APPS),
+            scaledown_probe.WIDE_REFIT),
+    }
     phase("operand set-up", t0)
 
     class Group:
@@ -705,6 +739,33 @@ def main() -> int:
             check(rec["packer"]["pod_rows"] <= 2 * changed,
                   f"tick sequence: tick {k + 1} dirtied {rec['packer']['pod_rows']} pod rows "
                   f"for {changed} changed pods")
+    # the scale-down half of two reconcile loops, with the defaults (3m) and
+    # with every eligible non-empty node simulated under spread (3n)
+    down_card = {}
+    for label, (listing, options_kw) in down_listings.items():
+        rec, counts, _ = run_path(f"scale-down {label}", lambda listing=listing, kw=options_kw: (
+            scaledown_probe.run_scale_down(*listing, dev, kw, timed=True)))
+        down_card[label] = rec
+        check(not any(counts.values()), f"scale-down {label} launched a kernel: {counts}")
+        (loop1, loop2), act = rec["out"]["loops"], rec["out"]["actuation"]
+        check(not loop1["plan"]["empty"] and not loop1["plan"]["drain"],
+              f"scale-down {label}: the first loop planned deletions")
+        check(loop2["plan"]["empty"] and act["deleted_empty"] and not act["failed"],
+              f"scale-down {label}: the second loop deleted no empty node")
+        fn, ops = rec["loops"][-1]["dispatch_ops"]
+        check(ops[0].pod_req.device == dev and ops[1].device == dev,
+              f"scale-down {label}: the removal dispatch did not run on the card")
+        if label == "3m":
+            check(len(loop2["simulated"]) == 30 and fn is not None,
+                  "scale-down 3m: not 30 candidates simulated")
+        else:
+            check(fn.__name__ == "removal_feasibility_spread"
+                  and len(loop2["simulated"]) == loop2["pool"] > 1000,
+                  "scale-down 3n: the wide spread refit did not run")
+            check(rec["loops"][-1]["joint_ops"][0].__name__ == "joint_removal_feasibility_spread"
+                  and act["deleted_drain"] and act["evicted_pods"],
+                  "scale-down 3n: no drain was validated jointly and deleted")
+        print(scaledown_probe.summary_line(label, rec), flush=True)
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main paths")
     check(
@@ -1293,6 +1354,35 @@ def main() -> int:
     del arena_packer, arena
     phase("4i the arena replay", t0)
 
+    # 3m again on the CPU through a planner and actuator of its own, field
+    # for field; 3n's removal dispatch on 256 seeded lanes (lanes are
+    # independent) and its joint pass whole, on the CPU from the same operands
+    t0 = time.perf_counter()
+    listing, options_kw = down_listings["3m"]
+    cpu_rec = scaledown_probe.run_scale_down(*listing, "cpu", options_kw)
+    on_card, on_cpu = down_card["3m"]["out"], cpu_rec["out"]
+    diff = scaledown_probe.scaledown_differences(on_card, on_cpu)
+    fields = sum(len(lp) for lp in on_cpu["loops"]) + len(on_cpu["actuation"])
+    utils = sum(len(lp["utilization"]) for lp in on_cpu["loops"])
+    print(f"# scale-down 3m: card against CPU: {len(on_cpu['loops'])} loops and the "
+          f"actuation, {fields} fields ({utils} utilizations bit for bit, "
+          f"{sum(len(lp['plan']['unremovable']) for lp in on_cpu['loops'])} unremovable "
+          f"reasons); first difference {diff[0] if diff else None}; on the CPU "
+          f"{time.perf_counter() - t0:.3f} s host clock", flush=True)
+    check(not diff, f"scale-down 3m: the card differs from the CPU in {diff}")
+    del cpu_rec
+    phase("4j scale-down 3m on the CPU", t0)
+    t0 = time.perf_counter()
+    lanes, fields, first = scaledown_probe.cpu_lanes_check(down_card["3n"]["loops"][-1]["dispatch_ops"])
+    print(f"# scale-down 3n: removal dispatch, {lanes} lanes x {fields} fields on the CPU "
+          f"against the card; first difference {first}", flush=True)
+    check(first is None, f"scale-down 3n: lanes differ from the CPU at {first}")
+    drains, fields, first = scaledown_probe.cpu_joint_check(down_card["3n"]["loops"][-1]["joint_ops"])
+    print(f"# scale-down 3n: joint pass, {drains} drains x {fields} fields on the CPU "
+          f"against the card; first difference {first}", flush=True)
+    check(first is None, f"scale-down 3n: the joint pass differs from the CPU at {first}")
+    phase("4k scale-down 3n lanes and joint pass on the CPU", t0)
+
     # where the burst estimate's time goes: the host operand build (mask
     # engine, packing) and the scan call on the card
     names = sorted(templates)
@@ -1319,6 +1409,10 @@ def main() -> int:
         _, kernel_fn, kernel_args = rec["kernel"]
         print(tick_probe.split_line(label, rec, tick_probe.profile_tick(rec),
                                     event_ms(lambda: kernel_fn(*kernel_args))), flush=True)
+    # where the scale-down loops' time goes (tools/scaledown_probe.split_line)
+    for label, rec in down_card.items():
+        prof = scaledown_probe.dispatch_profile(rec["loops"][-1]["dispatch_ops"])
+        print(scaledown_probe.split_line(label, rec, prof), flush=True)
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi_line, flush=True)       # again: the head of a long log may be cut
 

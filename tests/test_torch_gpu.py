@@ -815,3 +815,107 @@ def test_tick_sequence_on_card_equals_cpu(cuda):
         cpu = tick_probe.run_tick(nodes_k, pods_k, (), templates, "cpu")
         assert tick_probe.tick_differences(rec["out"], cpu["out"]) == []
     assert [rec["packer"]["incremental_updates"] for *_, rec in card] == [0, 1, 2]
+
+
+def _removal_operands(dev, seed, factored, spread, C=10):
+    """The world of tests/torch_parity.removal_arrays on ``dev``: the
+    operands of a per-candidate and a joint removal pass (with a random
+    spread context when ``spread``)."""
+    from autoscaler_tpu_torch.snapshot.affinity import spread_context_from_numpy
+    from autoscaler_tpu_torch.snapshot.tensors import tensors_from_numpy
+    from torch_parity import lanes_of, removal_arrays, removal_spread_context
+
+    arrays = removal_arrays(seed, factored=factored)
+    arrays["node_alloc"][0, CPU] = 9000
+    cand, slots, blocked, excluded = lanes_of(arrays, C=C, seed=seed)
+    t = tensors_from_numpy(arrays, device=dev)
+    lanes = [torch.tensor(a, device=dev) for a in (cand, slots, blocked, excluded)]
+    extra = ()
+    if spread:
+        ctx, sub = removal_spread_context(arrays, C, seed)
+        t9 = spread_context_from_numpy(ctx, device=dev)
+        extra = (t9[:5] + t9[6:], t9[5], torch.tensor(sub, device=dev))
+    return t, lanes, extra
+
+
+def _removal_passes(dev, seed, factored, spread):
+    from autoscaler_tpu_torch.ops import scaledown as sd
+
+    t, (cand, slots, blocked, excluded), extra = _removal_operands(dev, seed, factored, spread)
+    if spread:
+        per = sd.removal_feasibility_spread(t, cand, slots, blocked, *extra)
+        joint = sd.joint_removal_feasibility_spread(t, cand, slots, excluded, *extra)
+    else:
+        per = sd.removal_feasibility(t, cand, slots, blocked)
+        joint = sd.joint_removal_feasibility(t, cand, slots, excluded)
+    return [x.cpu() for x in per + joint]
+
+
+@pytest.mark.parametrize("spread", [False, True], ids=["plain", "spread"])
+@pytest.mark.parametrize("factored", [False, True], ids=["dense", "factored"])
+def test_removal_passes_on_card_equal_cpu(cuda, factored, spread, monkeypatch):
+    """The per-candidate and the joint removal passes on the card against
+    the same calls on the CPU, with C = 10 lanes in chunks of 3 (a ragged
+    last chunk) on the card and one chunk on the CPU."""
+    from autoscaler_tpu_torch.ops import scaledown as sd
+
+    cpu = _removal_passes("cpu", 3, factored, spread)
+    t, _, extra = _removal_operands(cuda, 3, factored, spread)
+    terms = 0 if not spread else int(extra[1].shape[0])
+    monkeypatch.setattr(sd, "LANE_BYTES", 3 * sd.lane_bytes(t, terms))
+    assert sd.lane_chunk(t, terms) == 3
+    card = _removal_passes(cuda, 3, factored, spread)
+    for a, b in zip(cpu, card):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert cpu[0].any() and not cpu[0].all()
+
+
+def test_removal_slot_loop_waits_on_no_host_value(cuda):
+    """The slot loop of a chunk of lanes, spread counts and the factored
+    mask in play, runs under the sync debug mode "error": no step makes the
+    host wait; it equals the loop on the CPU."""
+    from autoscaler_tpu_torch.ops import scaledown as sd
+    from autoscaler_tpu_torch.ops.schedule import _spread_static
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        t, (cand, slots, _blocked, excluded), (sp8, counts, sub) = _removal_operands(
+            dev, 4, True, True)
+        steps = sd.filled_slots(slots)
+        nodes = cand.long()
+        free = t.free().T.contiguous().expand(nodes.shape[0], -1, -1).contiguous()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            flat = sd._start_counts(sp8, counts, nodes, sub)
+            lanes = sd._Lanes(t, free, exclude_node=nodes, spread=(sp8, _spread_static(sp8)),
+                              counts_flat=flat)
+            res = lanes.run(slots[:, :steps].long())
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        out[dev.type] = [x.cpu() for x in res]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("label", ["3m", "3n"])
+def test_scale_down_on_card_equals_cpu(cuda, label):
+    """chip_smoke's 3m and 3n at a small size (tests/test_torch_scaledown's
+    scale-in world): both loops and the actuation on the card, field for
+    field equal to the CPU; the dispatches ran on the card."""
+    from autoscaler_tpu_torch.tools import scaledown_probe
+    from autoscaler_tpu_torch.utils.workload import build_snapshot_world
+
+    nodes, pods = build_snapshot_world(N=160, P=1200, port_nodes=50, apps=30)
+    spread, kw = (0, {}) if label == "3m" else (8, scaledown_probe.WIDE_REFIT)
+    nodes, pods = scaledown_probe.scale_in_listing(nodes, pods, removed_apps=10,
+                                                   spread_apps=spread)
+    card = scaledown_probe.run_scale_down(nodes, pods, cuda, kw, timed=True)
+    cpu = scaledown_probe.run_scale_down(nodes, pods, "cpu", kw)
+    assert scaledown_probe.scaledown_differences(card["out"], cpu["out"]) == []
+    ops = card["loops"][-1]["dispatch_ops"]
+    assert ops[1][0].device.type == "cuda"
+    assert card["loops"][-1]["dispatch_span_ms"] > 0
+    assert card["out"]["actuation"]["deleted_empty"]

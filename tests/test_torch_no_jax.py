@@ -163,8 +163,19 @@ PACKER_MODULES = (
 )
 
 
+# the modules of the scale-down half of a tick (utilization, empty nodes, the
+# removal refit, the simulator, eligibility, planner, actuator and the
+# jax-free ones they run on), each at its JAX counterpart's path
+SCALEDOWN_MODULES = (
+    "ops/utilization.py", "ops/scaledown.py", "simulator/removal.py", "simulator/drain.py",
+    "simulator/tracker.py", "core/scaledown/tracking.py", "core/scaledown/limits.py",
+    "core/scaledown/eligibility.py", "core/scaledown/planner.py",
+    "core/scaledown/actuator.py", "kube/api.py", "utils/klogx.py",
+)
+
+
 def test_tick_modules_are_ported():
-    for rel in TICK_MODULES + PACKER_MODULES:
+    for rel in TICK_MODULES + PACKER_MODULES + SCALEDOWN_MODULES:
         assert (PORT / rel).is_file(), rel
         assert (REPO / "autoscaler_tpu" / rel).is_file(), rel
         assert f"autoscaler_tpu_torch/{rel}" in PORT_FILES
@@ -263,3 +274,44 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     proc = _run_smoke(tmp_path)
     assert proc.returncode != 0
     assert proc.stdout == ""
+
+
+_SCALEDOWN_BLOCKED = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+from autoscaler_tpu_torch.tools import scaledown_probe as sp
+from autoscaler_tpu_torch.utils.workload import build_snapshot_world
+nodes, pods = build_snapshot_world(N=60, P=400, port_nodes=20, apps=12)
+nodes, pods = sp.scale_in_listing(nodes, pods, removed_apps=4, spread_apps=4)
+rec = sp.run_scale_down(nodes, pods, "cpu", sp.WIDE_REFIT)
+loaded = [m for m in sys.modules if m == "autoscaler_tpu" or m.startswith("autoscaler_tpu.")]
+assert not loaded, loaded
+act = rec["out"]["actuation"]
+print("OK", len(act["deleted_empty"]), len(act["deleted_drain"]))
+"""
+
+
+def test_scale_down_runs_with_jax_blocked():
+    """Both loops of a scale-down (3n's options: the spread refit, the
+    joint pass, the actuator) on the CPU with jax blocked import nothing
+    of the JAX package."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCALEDOWN_BLOCKED], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ok, n_empty, n_drain = proc.stdout.split()
+    assert ok == "OK" and int(n_empty) > 0 and int(n_drain) > 0
+
+
+def test_scale_down_entry_points_raise_without_a_card(monkeypatch):
+    from autoscaler_tpu_torch.tools import scaledown_probe
+    from autoscaler_tpu_torch.utils.test_utils import build_test_node
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scaledown_probe.run_scale_down([build_test_node("n0")], [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scaledown_probe.main([])

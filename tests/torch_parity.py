@@ -376,3 +376,115 @@ def tick_world(tu, obj, prov, cs, spread, **snap_kw):
     for p in pods + pending:
         snap.add_pod(p)
     return snap, pending, provider
+
+
+def twin(x, obj):
+    """A copy of the port's object ``x`` (a kube object, or a list, tuple
+    or dict of them) built from the other package's ``obj`` (kube.objects):
+    the same class names and field values, so both packages can run on
+    identical listings."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        cls = getattr(obj, type(x).__name__)
+        return cls(**{f.name: twin(getattr(x, f.name), obj) for f in dataclasses.fields(x)})
+    if isinstance(x, list):
+        return [twin(v, obj) for v in x]
+    if isinstance(x, tuple):
+        return tuple(twin(v, obj) for v in x)
+    if isinstance(x, dict):
+        return {k: twin(v, obj) for k, v in x.items()}
+    return x
+
+
+def removal_arrays(seed, N=20, P=60, pad_n=4, pad_p=4, factored=False):
+    """A packed world in the shape of sharded_worlds.scaledown_world with
+    fractional requests (so the order of the carry's subtractions shows in
+    the bits), padding rows, and node 0 large enough to take many pods (so
+    one lane places repeatedly on one node); the last node holds no pod."""
+    rng = np.random.default_rng(seed)
+    M, Q = N + pad_n, P + pad_p
+    alloc = np.zeros((M, 6), np.float32)
+    alloc[:N, CPU] = 4000
+    alloc[:N, MEMORY] = 8192
+    alloc[:N, PODS] = 110
+    alloc[0, CPU] = 40000
+    alloc[0, MEMORY] = 81920
+    req = np.zeros((Q, 6), np.float32)
+    req[:P, CPU] = rng.integers(200, 1500, P)
+    req[:P, MEMORY] = (rng.integers(64, 3000, P) * np.float32(1e6 / 2**20)).astype(np.float32)
+    req[:P, PODS] = 1
+    pod_node = np.full(Q, -1, np.int32)
+    pod_node[:P] = rng.integers(1, N - 1, P)              # node N - 1 holds none
+    pod_node[:P:9] = -1                                   # a few pending pods
+    used = np.zeros((M, 6), np.float32)
+    for i in range(P):
+        if pod_node[i] >= 0:
+            used[pod_node[i]] += req[i]
+    out = {
+        "node_alloc": alloc, "node_used": used, "node_valid": np.arange(M) < N,
+        "node_group": np.zeros(M, np.int32), "pod_req": req,
+        "pod_valid": np.arange(Q) < P, "pod_node": pod_node,
+    }
+    if not factored:
+        out["sched_mask"] = rng.random((Q, M)) > 0.1
+        return out
+    CP, CN, E, K = 5, 4, 3, 6
+    pod_class = rng.integers(0, CP, Q).astype(np.int32)
+    pod_class[P:] = -1
+    node_class = rng.integers(0, CN, M).astype(np.int32)
+    node_class[N:] = -1
+    pod_exc = np.full(Q, -1, np.int32)
+    pod_exc[rng.choice(P, E, replace=False)] = np.arange(E)
+    cell_pod = np.full(K + 2, -1, np.int32)
+    cell_pod[:K] = rng.choice(P, K, replace=False)
+    out.update(
+        pod_class=pod_class, node_class=node_class,
+        class_mask=rng.random((CP, CN)) > 0.15,
+        exc_rows=rng.random((E, M)) > 0.2, pod_exc=pod_exc,
+        cell_pod=cell_pod, cell_node=rng.integers(0, N, K + 2).astype(np.int32),
+        cell_val=rng.random(K + 2) > 0.5,
+    )
+    return out
+
+
+def lanes_of(arrays, C=10, S=6, seed=0):
+    """C candidate nodes (never node 0) with their pods in left-filled
+    slots; lane 2 blocked, lane 3 a node with no pods, and a -1 hole in the
+    middle of the first row that holds two pods."""
+    rng = np.random.default_rng(seed)
+    N = int(arrays["node_valid"].sum())
+    pod_node = arrays["pod_node"]
+    cand = rng.choice(np.arange(1, N - 1), C, replace=False).astype(np.int32)
+    cand[3] = N - 1                                        # holds no pod
+    slots = np.full((C, S), -1, np.int32)
+    for ci, j in enumerate(cand):
+        on = np.flatnonzero(pod_node == j)[:S]
+        slots[ci, : len(on)] = on
+    holed = next(ci for ci in range(C) if (slots[ci] >= 0).sum() >= 2 and ci != 2)
+    n_on = int((slots[holed] >= 0).sum())
+    if n_on < S:
+        slots[holed, 1:n_on + 1] = slots[holed, :n_on].copy()
+        slots[holed, 0] = -1
+    blocked = np.zeros(C, bool)
+    blocked[2] = True
+    excluded = np.zeros(arrays["node_valid"].shape[0], bool)
+    excluded[cand] = True
+    return cand, slots, blocked, excluded
+
+
+def removal_spread_context(arrays, C, seed, S=3, D=4):
+    """A random spread context of S terms over D domains for the world of
+    ``removal_arrays`` (its nine arrays in the context's order, as numpy),
+    and a random [C, S] count of each candidate's movable matching pods."""
+    rng = np.random.default_rng(seed)
+    Q, M = arrays["pod_valid"].shape[0], arrays["node_valid"].shape[0]
+    ctx = [
+        rng.random((Q, S)) < 0.5, rng.random((Q, S)) < 0.6,
+        rng.integers(-1, D, (S, M)).astype(np.int32),
+        rng.random((S, M)) < 0.9, rng.random((S, D)) < 0.9,
+        rng.integers(0, 4, (S, D)).astype(np.int32),
+        rng.integers(1, 3, S).astype(np.int32), rng.integers(1, 6, S).astype(np.int32),
+        np.full(S, D - 1, np.int32),
+    ]
+    return ctx, rng.integers(0, 2, (C, S)).astype(np.int32)
