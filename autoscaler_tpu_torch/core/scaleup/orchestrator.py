@@ -14,12 +14,14 @@ back into the (host-side, cloud-API) actuation boundary.
 The estimate runs on ``device`` (None = the first CUDA card) through the
 port's ``BinpackingNodeEstimator``, which takes its operands from
 ``operand_arena`` (a ``snapshot/arena.OperandArena``) when one is given.
-Not here yet (ROADMAP queue 1, the estimator services item): the kernel
-ladder around the estimator (the port's estimator has, by design, no
-failure fallback: a launch that fails raises), metrics, the perf
-observatory, decision explain (``estimator_explain`` stays empty) and the
-preemption churn filter. Asking for any of them raises
-``NotImplementedError``; none is silently ignored.
+``metrics=`` feeds ``created_node_groups_total``; ``estimator_explain``
+carries the estimator's constraint attribution (``last_explain``). Not here
+yet (ROADMAP queue 1, the estimator services item): the kernel ladder
+around the estimator (the port's estimator has, by design, no failure
+fallback: a launch that fails raises), the estimator's metrics, the perf
+observatory, the live priority ConfigMap and the preemption churn filter.
+Asking for any of them raises ``NotImplementedError``; none is silently
+ignored.
 """
 from __future__ import annotations
 
@@ -91,7 +93,6 @@ class ScaleUpOrchestrator:
         device=None,
     ):
         unported = {
-            "metrics": metrics is not None,
             "priorities_fetch": priorities_fetch is not None,
             "observatory": observatory is not None,
             "preemption_churn_weight > 0": options.preemption_churn_weight > 0,
@@ -129,6 +130,9 @@ class ScaleUpOrchestrator:
         self.node_group_list_processor = node_group_list_processor
         self.node_info_processor = node_info_processor
         self.binpacking_limiter = binpacking_limiter
+        # feeds created_node_groups_total only: the estimator's metric
+        # families wait for the kernel ladder
+        self.metrics = metrics
 
     # -- main entry (reference orchestrator.go:81) ---------------------------
     def scale_up(
@@ -262,8 +266,6 @@ class ScaleUpOrchestrator:
         # _finish_explain): per-group rejection-reason histograms + each
         # pod's dominant reason, carried on the result so run_once can
         # assemble the tick's DecisionRecord without re-reaching in
-        # (the port's estimator keeps no last_explain: empty until decision
-        # explain is ported)
         explain = dict(getattr(self.estimator, "last_explain", None) or {})
 
         options: List[Option] = []
@@ -333,6 +335,8 @@ class ScaleUpOrchestrator:
                     # a NAP candidate won: create the group for real
                     # (orchestrator.go:217 CreateNodeGroup)
                     group = group.create()
+                    if self.metrics is not None:
+                        self.metrics.created_node_groups_total.inc()
                 group.increase_size(delta)
                 self.csr.register_or_update_scale_up(group.id(), delta, now_ts)
                 executed.append((group.id(), delta))

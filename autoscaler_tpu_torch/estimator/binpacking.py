@@ -45,9 +45,17 @@ upload goes through its content-keyed cache (the JAX package's ``_dev``):
 an operand byte-identical to one uploaded before to the same device is
 served resident instead of copied again. Results are the same either way.
 
+Every estimate leaves its constraint attribution in ``last_explain``
+(per-group fit counts with rejection-reason histograms, and each pod's
+dominant reason), as the JAX package's estimator does: one batched pass of
+``ops/binpack.attribute_unschedulable`` and ``attribution_summary`` on the
+estimate's device over the route's own operands and verdict, then two
+small host fetches. The JAX package falls back to a serial oracle when its
+attribution fails; the port has no such fallback: a failure raises, as
+every other failure of the port's estimator does.
+
 Not here yet (ROADMAP queue 1): the kernel ladder and its native and
-Python rungs, metrics, spans, the perf observatory, decision explain and
-the fleet client.
+Python rungs, metrics, spans, the perf observatory and the fleet client.
 """
 from __future__ import annotations
 
@@ -60,9 +68,12 @@ import torch
 from autoscaler_tpu_torch.core.scaleup.equivalence import build_pod_groups
 from autoscaler_tpu_torch.device import resolve_device
 from autoscaler_tpu_torch.estimator.limiter import ThresholdBasedEstimationLimiter
+from autoscaler_tpu_torch.explain.reasons import reason_histogram, reason_name
 from autoscaler_tpu_torch.kube.objects import NUM_RESOURCES, Node, Pod
 from autoscaler_tpu_torch.ops import ffd_scan, ffd_scan_affinity
 from autoscaler_tpu_torch.ops.binpack import (
+    attribute_unschedulable,
+    attribution_summary,
     ffd_binpack,
     ffd_binpack_groups,
     ffd_binpack_groups_affinity,
@@ -253,6 +264,12 @@ class BinpackingNodeEstimator:
         self.limiter = limiter or ThresholdBasedEstimationLimiter()
         self.device = resolve_device(device)
         self.operand_arena = operand_arena
+        # decision provenance: the last estimate's constraint attribution,
+        # read by the orchestrator into ScaleUpResult.estimator_explain. The
+        # routes park their device operands and verdict in _explain_scratch;
+        # _finish_explain turns them into reason codes.
+        self.last_explain: Dict = {"groups": {}, "pod_reasons": {}}
+        self._explain_scratch: Optional[Dict] = None
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         """One operand on the estimator's device: the operand arena's
@@ -284,6 +301,10 @@ class BinpackingNodeEstimator:
         req, alloc2d = _augment_virtual(req, pods, alloc[None, :], [template])
         cap = self.limiter.node_cap(max_size_headroom)
         max_nodes = bucket_size(cap, minimum=8)
+        req_t = self._tensor(req)
+        masks_t = self._tensor(mask[None, :])
+        allocs_t = self._tensor(alloc2d)
+        involved = np.zeros((P,), bool)
         if dynamic:
             terms = build_affinity_terms(
                 pods, [template], pad_pods=P, bucket_terms=True,
@@ -292,10 +313,11 @@ class BinpackingNodeEstimator:
             sp = build_spread_terms(
                 pods, [template], pad_pods=P, bucket_terms=True, cluster=cluster
             )
+            involved = _involved(terms, sp)
             res = ffd_binpack_groups_affinity(
-                self._tensor(req),
-                self._tensor(mask[None, :]),
-                self._tensor(alloc2d),
+                req_t,
+                masks_t,
+                allocs_t,
                 max_nodes=max_nodes,
                 match=self._tensor(terms.match),
                 aff_of=self._tensor(terms.aff_of),
@@ -305,19 +327,22 @@ class BinpackingNodeEstimator:
                 node_caps=self._tensor(np.array([cap], np.int32)),
                 spread=_spread_tuple(sp, conv=self._tensor),
             )
-            count = int(res.node_count[0])
-            scheduled = res.scheduled[0].cpu().numpy()
+            sched_t = res.scheduled
         else:
             res = ffd_binpack(
-                self._tensor(req),
-                self._tensor(mask),
-                self._tensor(alloc2d[0]),
-                max_nodes=max_nodes,
-                node_cap=cap,
+                req_t, masks_t[0], allocs_t[0], max_nodes=max_nodes, node_cap=cap,
             )
-            count = int(res.node_count)
-            scheduled = res.scheduled.cpu().numpy()
-        return count, [p for i, p in enumerate(pods) if scheduled[i]]
+            sched_t = res.scheduled[None, :]
+        count = int(res.node_count.reshape(-1)[0])
+        scheduled = sched_t[0].cpu().numpy()
+        out = count, [p for i, p in enumerate(pods) if scheduled[i]]
+        self._explain_scratch = {
+            "kind": "pods", "names": ["template"], "req": req_t, "masks": masks_t,
+            "allocs": allocs_t, "involved": self._tensor(involved),
+            "scheduled": sched_t,
+        }
+        self._finish_explain(pods, {"template": out})
+        return out
 
     def estimate_many(
         self,
@@ -331,7 +356,16 @@ class BinpackingNodeEstimator:
         remaining size budget (max-size − target); each group's cap is
         min(limiter threshold, headroom)."""
         if not pods or not templates:
+            self._explain_scratch = None
+            self.last_explain = {"groups": {}, "pod_reasons": {}}
             return {g: (0, []) for g in templates}
+        result = self._estimate_many_inner(
+            pods, templates, headrooms, pod_groups, cluster
+        )
+        self._finish_explain(pods, result)
+        return result
+
+    def _estimate_many_inner(self, pods, templates, headrooms, pod_groups, cluster):
         names = sorted(templates)
         # computed once and threaded through: the component build is
         # O(pods × volumes)
@@ -367,12 +401,15 @@ class BinpackingNodeEstimator:
         )
         scan_cap = bucket_size(int(caps.max()), minimum=8)
         if dynamic:
-            res = self._estimate_many_dynamic(
+            res, ops = self._estimate_many_dynamic(
                 pods, names, templates, req, masks, allocs, caps, scan_cap,
                 vol_comps, cluster,
             )
         else:
-            res = self._estimate_many_plain(req, masks, allocs, caps, scan_cap)
+            res, ops = self._estimate_many_plain(req, masks, allocs, caps, scan_cap)
+        self._explain_scratch = {
+            "kind": "pods", "names": names, **ops, "scheduled": res.scheduled,
+        }
         counts = res.node_count.cpu().numpy()
         scheds = res.scheduled.cpu().numpy()
         return {
@@ -386,27 +423,33 @@ class BinpackingNodeEstimator:
     def _estimate_many_plain(self, req, masks, allocs, caps, scan_cap):
         """The plain per-pod route: the glue's host probe fixes the kernel
         planes, the shape gate picks K1/K2 or the torch loop, and only the
-        route taken builds its operands, on the estimator's device."""
+        route taken builds its operands, on the estimator's device.
+        → (result, the attribution's operands)."""
         req_t, masks_t, allocs_t, caps_t = operands_from_numpy(
             req, masks, allocs, caps, self.device, upload=self._tensor
         )
+        ops = {
+            "req": req_t, "masks": masks_t, "allocs": allocs_t,
+            "involved": torch.zeros(req.shape[0], dtype=torch.bool, device=self.device),
+        }
         plan = ffd_scan.plan_scan(req_t, allocs_t)
         route = scan_route(self.device, plan.planes, scan_cap)
         ROUTES[route] += 1
         if route == "ffd_scan":
             return ffd_scan.ffd_binpack_groups_cuda(
                 req_t, masks_t, allocs_t, max_nodes=scan_cap, node_caps=caps_t, scan_plan=plan
-            )
+            ), ops
         return ffd_binpack_groups(
             req_t, masks_t, allocs_t, max_nodes=scan_cap, node_caps=caps_t
-        )
+        ), ops
 
     def _estimate_many_dynamic(
         self, pods, names, templates, req, masks, allocs, caps, scan_cap,
         vol_comps, cluster,
     ):
         """The per-pod dynamic route: term and spread tensors, the shape
-        gate, then K3 or the torch loop on the estimator's device."""
+        gate, then K3 or the torch loop on the estimator's device.
+        → (result, the attribution's operands)."""
         P = req.shape[0]
         tmpl_list = [templates[g] for g in names]
         terms = build_affinity_terms(
@@ -431,11 +474,16 @@ class BinpackingNodeEstimator:
             spread=spread if has_spread or route == "affinity_loop" else None,
             device=self.device, upload=self._tensor,
         )
+        explain_ops = {
+            "req": ops["pod_req"], "masks": ops["pod_masks"],
+            "allocs": ops["template_allocs"],
+            "involved": self._tensor(_involved(terms, sp)),
+        }
         if route == "ffd_scan_aff":
             return ffd_scan_affinity.ffd_binpack_groups_affinity_cuda(
                 **ops, max_nodes=scan_cap
-            )
-        return ffd_binpack_groups_affinity(**ops, max_nodes=scan_cap)
+            ), explain_ops
+        return ffd_binpack_groups_affinity(**ops, max_nodes=scan_cap), explain_ops
 
     def _estimate_many_runs(
         self,
@@ -460,15 +508,24 @@ class BinpackingNodeEstimator:
         run_req, allocs = _augment_virtual(
             run_req, exemplars, allocs, [templates[g] for g in names]
         )
+        run_req_t, counts_t = self._tensor(run_req), self._tensor(run_counts)
+        masks_t, allocs_t = self._tensor(masks), self._tensor(allocs)
         res = ffd_binpack_groups_runs(
-            self._tensor(run_req),
-            self._tensor(run_counts),
-            self._tensor(masks),
-            self._tensor(allocs),
+            run_req_t,
+            counts_t,
+            masks_t,
+            allocs_t,
             max_nodes=bucket_size(int(caps.max()), minimum=8),
             node_caps=self._tensor(caps),
         )
-        return _expand_run_result(res, [g.pods for g in groups], names)
+        members = [g.pods for g in groups]
+        self._explain_scratch = {
+            "kind": "runs", "names": names, "req": run_req_t, "masks": masks_t,
+            "allocs": allocs_t, "counts": counts_t, "members": members,
+            "involved": torch.zeros(U, dtype=torch.bool, device=self.device),
+            "placed": res.placed_counts,
+        }
+        return _expand_run_result(res, members, names)
 
     @staticmethod
     def _expand_affinity_runs(
@@ -556,13 +613,16 @@ class BinpackingNodeEstimator:
             sp_of=to_runs(group_spread.sp_of),
             sp_match=to_runs(group_spread.sp_match),
         )
+        run_req_t, counts_t = self._tensor(run_req), self._tensor(run_counts)
+        masks_t, allocs_t = self._tensor(masks), self._tensor(allocs)
+        involved_t = self._tensor(involved)  # feeds the scan and the attribution
         res = ffd_binpack_groups_runs_affinity(
-            self._tensor(run_req),
-            self._tensor(run_counts),
-            self._tensor(masks),
-            self._tensor(allocs),
+            run_req_t,
+            counts_t,
+            masks_t,
+            allocs_t,
             max_nodes=bucket_size(int(caps.max()), minimum=8),
-            involved=self._tensor(involved),
+            involved=involved_t,
             match=self._tensor(to_runs(group_terms.match)),
             aff_of=self._tensor(to_runs(group_terms.aff_of)),
             anti_of=self._tensor(to_runs(group_terms.anti_of)),
@@ -571,7 +631,87 @@ class BinpackingNodeEstimator:
             node_caps=self._tensor(caps),
             spread=_spread_tuple(run_sp, conv=self._tensor),
         )
-        return _expand_run_result(res, [members for _, members in runs], names)
+        members = [m for _, m in runs]
+        self._explain_scratch = {
+            "kind": "runs", "names": names, "req": run_req_t, "masks": masks_t,
+            "allocs": allocs_t, "counts": counts_t, "members": members,
+            "involved": involved_t, "placed": res.placed_counts,
+        }
+        return _expand_run_result(res, members, names)
+
+    # -- decision provenance (explain/) ---------------------------------------
+    def _finish_explain(self, pods, result) -> None:
+        """Turn the serving route's parked operands and verdict into
+        ``last_explain``: per-group fit counts with rejection-reason
+        histograms, and each pod's dominant reason (the closest it came to
+        scheduling anywhere). A pure function of the packed operands, so
+        the DecisionRecord built from it is the JAX package's."""
+        scratch, self._explain_scratch = self._explain_scratch, None
+        if scratch is None or not pods:
+            self.last_explain = {"groups": {}, "pod_reasons": {}}
+            return
+        if scratch["kind"] == "runs":
+            hist, pod_reasons = self._explain_runs(scratch)
+        else:
+            hist, pod_reasons = self._explain_pods(scratch, pods)
+        groups: Dict[str, Dict] = {}
+        for gi, g in enumerate(scratch["names"]):
+            count, sched = result.get(g, (0, []))
+            groups[g] = {
+                "fit_nodes": int(count),
+                "scheduled": len(sched),
+                "reasons": reason_histogram(hist[gi]),
+            }
+        self.last_explain = {"groups": groups, "pod_reasons": pod_reasons}
+
+    @staticmethod
+    def _attribution(scratch, scheduled, weights):
+        """(hist [G, NUM_REASONS], dominant [P]) as numpy: one batched pass
+        on the operands' device, then two small fetches."""
+        reasons = attribute_unschedulable(
+            scratch["req"], scratch["masks"], scratch["allocs"], scheduled,
+            scratch["involved"],
+        )
+        hist, dom = attribution_summary(reasons, weights)
+        return hist.cpu().numpy(), dom.cpu().tolist()
+
+    def _explain_pods(self, scratch, pods):
+        """Per-pod attribution over the route's [G, P_pad] verdict; padding
+        rows count as unplaced with zero weight, so they never reach a
+        histogram."""
+        sched = scratch["scheduled"]
+        G, P_pad = sched.shape
+        valid = torch.arange(P_pad, device=sched.device) < len(pods)
+        weights = valid.to(torch.int32).expand(G, P_pad)
+        hist, dom = self._attribution(scratch, sched & valid, weights)
+        pod_reasons = {p.key(): reason_name(dom[i]) for i, p in enumerate(pods)}
+        return hist, pod_reasons
+
+    def _explain_runs(self, scratch):
+        """Run-compressed attribution: a run counts as scheduled when every
+        member placed; histogram weights are the unplaced member counts, so
+        'memory=40' means forty pods, not one run of forty. Every member
+        inherits the run's dominant reason (members are interchangeable by
+        the equivalence-group construction)."""
+        counts = scratch["counts"][None, :]
+        placed = torch.minimum(scratch["placed"], counts)
+        weights = (counts - placed).clamp(min=0).to(torch.int32)
+        hist, dom = self._attribution(scratch, placed >= counts, weights)
+        pod_reasons: Dict[str, str] = {}
+        for u, members in enumerate(scratch["members"]):
+            rname = reason_name(dom[u])
+            for p in members:
+                pod_reasons[p.key()] = rname
+        return hist, pod_reasons
+
+
+def _involved(terms, sp) -> np.ndarray:
+    """[P] bool — the pod matches a term's selector, holds a required
+    (anti-)affinity term or a hard spread constraint, or is counted by one."""
+    return (
+        (terms.match | terms.aff_of | terms.anti_of).any(axis=0)
+        | (sp.sp_of | sp.sp_match).any(axis=0)
+    )
 
 
 def _expand_run_result(res, members: List[List[Pod]], names: List[str]):

@@ -2,7 +2,9 @@
 scans in ``autoscaler_tpu/ops/binpack.py`` (``ffd_scores``,
 ``ffd_binpack``, ``ffd_binpack_groups``, ``ffd_binpack_groups_runs``, and
 the dynamic inter-pod affinity and hard topology-spread scans
-``ffd_binpack_groups_affinity`` and ``ffd_binpack_groups_runs_affinity``).
+``ffd_binpack_groups_affinity`` and ``ffd_binpack_groups_runs_affinity``),
+and of its constraint attribution (``attribute_unschedulable``,
+``attribution_summary``).
 
 Reference: cluster-autoscaler/estimator/binpacking_estimator.go:65. Pods
 are sorted by score descending (ties keep pod order), then each pod takes
@@ -24,7 +26,18 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from autoscaler_tpu_torch.kube.objects import CPU, MEMORY
+from autoscaler_tpu_torch.explain.reasons import (
+    NUM_REASONS,
+    REASON_AFFINITY_SPREAD,
+    REASON_CPU,
+    REASON_MEMORY,
+    REASON_NODE_CAP,
+    REASON_NONE,
+    REASON_POD_SLOT,
+    REASON_RESOURCE,
+    REASON_TOPOLOGY,
+)
+from autoscaler_tpu_torch.kube.objects import CPU, MEMORY, PODS
 
 BIG_I32 = 2**30  # "no domain yet" sentinel in the spread minimums
 
@@ -523,3 +536,78 @@ def ffd_binpack_groups_affinity(
         scheduled=scheduled,
         node_used=used_t.transpose(1, 2).contiguous(),
     )
+
+
+# -- constraint attribution (decision provenance, explain/) -------------------
+#
+# Reason codes and their order come from explain/reasons.py, the one closed
+# vocabulary the estimator and the decision ledger share. The JAX package
+# vmaps one group's reduction over the group axis; here every step is one
+# [G, P] elementwise op, so the whole attribution is a fixed handful of
+# launches on the estimate's device, whatever G is.
+
+
+def _over(pod_req: torch.Tensor, template_allocs: torch.Tensor, r: int) -> torch.Tensor:
+    """[G, P] bool — pod p requests more of resource ``r`` than group g's
+    empty template holds."""
+    return pod_req[None, :, r] > template_allocs[:, r, None]
+
+
+def attribute_unschedulable(
+    pod_req: torch.Tensor,          # [P, R] f32 shared pending-pod matrix
+    pod_masks: torch.Tensor,        # [G, P] bool per-group schedulability
+    template_allocs: torch.Tensor,  # [G, R] f32
+    scheduled: torch.Tensor,        # [G, P] bool — the binpack verdict
+    involved: torch.Tensor,         # [P] bool — pod touches a dynamic term
+) -> torch.Tensor:
+    """[G, P] i32 — the reason each (node group, pod) pair was left
+    unschedulable (``autoscaler_tpu/ops/binpack.py`` ``attribute_unschedulable``
+    and ``_reason_codes_one``). The priority chain follows the reference's
+    filter order (mask predicates → NodeResourcesFit per axis → dynamic
+    affinity/spread → capacity): the first violated constraint in that
+    order wins, built bottom-up with ``where``. A placed pod is
+    REASON_NONE; an unplaced pod that passes the mask and fits an empty
+    template was blocked by the dynamic gates (when it holds a term) or by
+    the group's node headroom. Resources are compared one axis at a time,
+    so nothing larger than [G, P] is built."""
+    R = pod_req.shape[1]
+    G, P = pod_masks.shape
+    # codes enter as Python scalars: int32 stays int32, and no scalar is
+    # copied to the device (nothing here waits on the host)
+    base = torch.full((P,), REASON_NODE_CAP, dtype=torch.int32, device=pod_req.device)
+    base = torch.where(involved, REASON_AFFINITY_SPREAD, base).expand(G, P)
+    other = None
+    for r in range(R):
+        if r not in (CPU, MEMORY, PODS):
+            o = _over(pod_req, template_allocs, r)
+            other = o if other is None else other | o
+    if other is not None:
+        base = torch.where(other, REASON_RESOURCE, base)
+    if R > PODS:
+        base = torch.where(_over(pod_req, template_allocs, PODS), REASON_POD_SLOT, base)
+    base = torch.where(_over(pod_req, template_allocs, MEMORY), REASON_MEMORY, base)
+    base = torch.where(_over(pod_req, template_allocs, CPU), REASON_CPU, base)
+    base = torch.where(~pod_masks, REASON_TOPOLOGY, base)
+    return torch.where(scheduled, REASON_NONE, base)
+
+
+def attribution_summary(
+    reasons: torch.Tensor,  # [G, P] i32 from attribute_unschedulable
+    weights: torch.Tensor,  # [G, P] i32 — pods behind each slot (1, or the
+                            # run's unplaced member count on the runs routes)
+) -> tuple:
+    """(hist [G, NUM_REASONS] i32, dominant [P] i32), on the reasons'
+    device, so the host fetches two small arrays, never the [G, P] matrix:
+    per-group reason histograms (weighted) and each pod's dominant reason —
+    the least code across groups, the closest the pod came to scheduling
+    anywhere (reasons.py orders codes by severity for this reduction).
+    NUM_REASONS masked sums, never a [G, P, NUM_REASONS] one-hot."""
+    hist = torch.stack(
+        [
+            torch.where(reasons == c, weights, 0).sum(dim=1, dtype=torch.int32)
+            for c in range(NUM_REASONS)
+        ],
+        dim=1,
+    )
+    dominant = reasons.amin(dim=0).to(torch.int32)
+    return hist, dominant

@@ -51,8 +51,9 @@ snapshot version is unchanged.
 Threading: every mutation of arena state happens under the instance
 lock; walls come from ``trace.timeline_now()``.
 
-Not ported: the perf observatory and the metrics registry (``observatory=``
-and ``metrics=`` raise ``NotImplementedError``; ROADMAP queue 1 item 3).
+``metrics=`` (an ``AutoscalerMetrics``) counts full uploads and delta rows
+as the JAX package's arena does. Not ported: the perf observatory
+(``observatory=`` raises ``NotImplementedError``; ROADMAP queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -175,13 +176,11 @@ def _zero_stats() -> Dict[str, int]:
     }
 
 
-def _refuse_unported(observatory: Any, metrics: Any) -> None:
-    asked = [name for name, on in (("observatory", observatory is not None),
-                                   ("metrics", metrics is not None)) if on]
-    if asked:
+def _refuse_unported(observatory: Any) -> None:
+    if observatory is not None:
         raise NotImplementedError(
-            f"{', '.join(asked)}: not ported yet (ROADMAP queue 1, the "
-            "estimator services item)"
+            "observatory: not ported yet (ROADMAP queue 1, the estimator "
+            "services item)"
         )
 
 
@@ -200,8 +199,9 @@ class DeviceArena:
         metrics: Any = None,
         device=None,
     ):
-        _refuse_unported(observatory, metrics)
+        _refuse_unported(observatory)
         self.device = resolve_device(device)
+        self.metrics = metrics
         self._lock = threading.Lock()
         self.buckets = parse_arena_buckets(buckets)
         # the fault seam: returns a truthy fault kind to fail this apply
@@ -289,7 +289,9 @@ class DeviceArena:
         # a seed leaves BOTH generations current — nothing pends; a scatter
         # leaves the new lagging side one tick behind, owing these ops
         self._pending = [] if seeded else list(program.ops)
-        self._stats["delta_rows"] += 0 if seeded else program.delta_rows()
+        rows = 0 if seeded else program.delta_rows()
+        self._stats["delta_rows"] += rows
+        self._feed_metrics_locked(rows)
         return self._live_view_locked()
 
     def _seed_locked(self, target: int, program: DeltaProgram) -> None:
@@ -298,10 +300,13 @@ class DeviceArena:
         steady tick scatters instead of re-seeding (a clone is not a
         full upload: no host transfer happens)."""
         bufs = {}
+        m = self.metrics
         for name, arr in program.host.items():
             bufs[name] = self._upload(arr)
             self._stats["full_uploads"] += 1
             self._stats["delta_bytes"] += int(arr.nbytes)
+            if m is not None:
+                m.arena_full_uploads_total.inc()
         self._bufs[target] = bufs
         other = 1 - target
         self._bufs[other] = {name: buf.clone() for name, buf in bufs.items()}
@@ -387,6 +392,13 @@ class DeviceArena:
                 [list(self._bufs[0].values()), list(self._bufs[1].values()),
                  list(self._aux.values())]
             )
+
+    def _feed_metrics_locked(self, rows: int) -> None:
+        m = self.metrics
+        if m is None:
+            return
+        if rows:
+            m.arena_delta_rows_total.inc(rows)
 
     def take_stats(self) -> Dict[str, int]:
         """This tick's counters, reset on read."""

@@ -87,6 +87,25 @@ Phases (any failure raises and exits non-zero):
       one ``removal_feasibility_spread`` dispatch (thousands of lanes) and
       ten drains validated by ``joint_removal_feasibility_spread``, then
       evicted and deleted. The scale-down half runs no hand kernel.
+   o. the reconcile loop (``tools/loop_probe.run_loop_ticks``): one
+      ``StaticAutoscaler`` on the card (``device=None``) over (m)'s listing
+      with (b)'s burst pending and (j)'s groups beside (m)'s, on a
+      ``FakeClusterAPI`` and a ``TestCloudProvider``, at
+      ``AutoscalingOptions()`` with a journal probe every tick and a seeded
+      expander: three ``run_once`` ticks at t = 0, 601 and 1202 s, a churn
+      between them (filtered pods bound, the requested nodes up with the
+      leftover pods on them, 1000 new pods before tick 3, one in twenty
+      zone-spread). Tick 1 scales up through K1/K2, tick 2 deletes empty
+      nodes, tick 3's estimate takes K3, and every tick's journal probe
+      runs ``fits_any_node`` through K4 and finds no drift; each tick's
+      summary, host split by the tracer's spans, pack, journal capture,
+      encode and probe times are printed;
+   p. an ``ObservabilityServer`` (profiling on) on (o)'s autoscaler:
+      every endpoint answers 200 with a body of (o)'s ticks, ``/perfz``
+      answers 501;
+   q. ``python -m autoscaler_tpu_torch.main --provider=test
+      --max-iterations=2 --scan-interval=0 --address=:0`` in a subprocess on
+      the card exits 0.
    Every kernel of the paths must have launched;
 4. each kernel at its headline shape against its plain version on the same
    card tensors, exactly: K1/K2 on all 500 groups, K3 on its three
@@ -117,7 +136,15 @@ Phases (any failure raises and exits non-zero):
    simulated and unneeded names, every ``NodeToRemove`` with its
    destinations, the unremovable reasons, the ``ActuationResult`` and the
    target sizes) (4j); 256 seeded lanes of 3n's removal dispatch repeated
-   on the CPU from the same operands, and its joint pass whole (4k);
+   on the CPU from the same operands, and its joint pass whole (4k); (o)'s
+   sequence at a tenth of its size (1 500 nodes, a 3 000-pod burst, 100
+   arrivals) on the card and again on the CPU, every tick's RunOnceResult,
+   target sizes and calls, nodes, pods, taints, evictions, ConfigMaps and
+   decision, journal and SLO lines equal (4l); every kernel launch of
+   (o) (K2 and K3 in its estimates, K4 and its rows entry in its journal
+   probes and the debugger's capture), captured with copies of its
+   operands and outputs, against its plain version on those operands,
+   every field exact (4m);
 5. timings with CUDA events, each run queued behind ~10 ms of a spinning
    card so that they time the card and not the host's launches: each
    kernel alone, its whole entry call, and the plain version; K3 on the
@@ -310,7 +337,8 @@ def main() -> int:
     from autoscaler_tpu_torch.snapshot.cluster_snapshot import ClusterSnapshot
     from autoscaler_tpu_torch.snapshot.incremental import IncrementalPacker
     from autoscaler_tpu_torch.snapshot.tensors import bucket_size
-    from autoscaler_tpu_torch.tools import scaledown_probe, tick_probe
+    from autoscaler_tpu_torch.main import ObservabilityServer
+    from autoscaler_tpu_torch.tools import loop_probe, scaledown_probe, tick_probe
     from autoscaler_tpu_torch.utils.test_utils import (
         GB,
         MB,
@@ -766,6 +794,87 @@ def main() -> int:
                   and act["deleted_drain"] and act["evicted_pods"],
                   "scale-down 3n: no drain was validated jointly and deleted")
         print(scaledown_probe.summary_line(label, rec), flush=True)
+    # the reconcile loop: three run_once ticks of one StaticAutoscaler on
+    # the card over 3m's listing with 3j's burst and groups (3o); every
+    # kernel launch is captured with copies of its operands and outputs, to
+    # hold against its plain version in 4m
+    loop_nodes, loop_pods = down_listings["3m"][0]
+    with loop_probe.KernelCapture() as loop_capture:
+        loop_card, counts, t_loop = run_path("reconcile loop 3o (3 ticks)", lambda: (
+            loop_probe.run_loop_ticks(loop_nodes, loop_pods, burst, tick_templates, None,
+                                      timed=True, debugger=DebuggingSnapshotter())))
+    check(all(loop_capture.counts()[name] == counts[name] for name in launches),
+          f"reconcile loop: launches {counts} but captured {loop_capture.counts()}")
+    loop_sa = loop_card["autoscaler"]
+    check(loop_sa.device == dev and loop_sa._packer.device == dev,
+          "reconcile loop: the autoscaler does not run on the card")
+    check(counts["route:ffd_scan"] >= 1 and counts["ffd_scan_swar"] + counts["ffd_scan_f32"] >= 1,
+          f"reconcile loop: no estimate launched K1/K2: {counts}")
+    check(counts["route:ffd_scan_aff"] == 1 and counts["ffd_scan_aff"] == 1,
+          f"reconcile loop: tick 3's estimate did not launch K3: {counts}")
+    check(counts["fit_reduce"] >= 2 * len(loop_probe.LOOP_TICKS),
+          f"reconcile loop: the journal probes did not run K4: {counts}")
+    for k, entry in enumerate(loop_card["ticks"]):
+        print(loop_probe.tick_line(str(k + 1), entry), flush=True)
+        r = entry["result"]
+        check(r.cluster_healthy and not r.errors, f"reconcile loop tick {k + 1}: {r.errors}")
+        check(entry["probe"]["checked"] and not entry["probe"]["drift"],
+              f"reconcile loop tick {k + 1}: the journal probe found drift {entry['probe']}")
+    first, second, third = (e["result"] for e in loop_card["ticks"])
+    check(first.scale_up is not None and first.scale_up.scaled_up and first.filtered_schedulable
+          and first.scale_down_in_cooldown, "reconcile loop: tick 1 did not filter and scale up")
+    check(second.scale_down is not None and second.scale_down.deleted_empty,
+          "reconcile loop: tick 2 deleted no empty node")
+    check(third.scale_up is not None and third.scale_up.estimator_explain["pod_reasons"],
+          "reconcile loop: tick 3 did not estimate its arrivals")
+    check(len(loop_sa.journal.records()) == 3 and len(loop_sa.explainer.records()) == 3
+          and len(loop_sa.slo.records()) == 3, "reconcile loop: a ledger missed a tick")
+    # the observability server on 3o's autoscaler (3p)
+    t0 = time.perf_counter()
+    import urllib.error
+    import urllib.request
+
+    server = ObservabilityServer(loop_sa, "127.0.0.1:0", profiling=True)
+    port = server.start()
+
+    def http_get(path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=120) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    try:
+        answers = {path: http_get(path) for path in (
+            "/metrics", "/health-check", "/snapshotz", "/tracez", "/tracez?id=2",
+            "/explainz", "/explainz?tick=2", "/sloz", "/journalz", "/journalz?diff=0,2",
+            "/status", "/debug/pprof/", "/debug/pprof/threadz", "/perfz")}
+    finally:
+        server.stop()
+    for path, (code, body) in answers.items():
+        want = 501 if path == "/perfz" else 200
+        check(code == want and body, f"server: {path} answered {code}")
+    check(len(json.loads(answers["/explainz"][1])["ticks"]) == 3
+          and len(json.loads(answers["/journalz"][1])["ticks"]) == 3
+          and json.loads(answers["/snapshotz"][1])["pending_pods"] is not None
+          and "cluster_autoscaler_scaled_up_nodes_total" in answers["/metrics"][1],
+          "server: the bodies do not hold 3o's ticks")
+    print(f"# server 3p: {len(answers)} endpoints, "
+          f"{ {p: c for p, (c, _) in answers.items()} }, bytes "
+          f"{ {p: len(b) for p, (_, b) in answers.items()} }; "
+          f"{time.perf_counter() - t0:.3f} s host clock", flush=True)
+    # the port's process entry on the card (3q)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "autoscaler_tpu_torch.main", "--provider=test",
+         "--max-iterations=2", "--scan-interval=0", "--address=:0"],
+        cwd=root, env={**os.environ, "PYTHONPATH": root}, capture_output=True, text=True,
+        timeout=300,
+    )
+    print(f"# main 3q: exit {proc.returncode}, {time.perf_counter() - t0:.3f} s host clock; "
+          f"{proc.stdout.strip()[-200:]!r}", flush=True)
+    check(proc.returncode == 0 and "device cuda:0" in proc.stdout,
+          f"main: exit {proc.returncode}: {proc.stderr[-2000:]}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main paths")
     check(
@@ -1382,6 +1491,49 @@ def main() -> int:
           f"against the card; first difference {first}", flush=True)
     check(first is None, f"scale-down 3n: the joint pass differs from the CPU at {first}")
     phase("4k scale-down 3n lanes and joint pass on the CPU", t0)
+
+    # 3o's sequence at a tenth of its size on the card and again on the CPU,
+    # tick for tick and field for field (4l)
+    t0 = time.perf_counter()
+    tenth = loop_probe.loop_world(tenth=True)
+    arrive = loop_probe.ARRIVALS // 10
+    on_card = loop_probe.run_loop_ticks(*tenth, dev, arrive=arrive, replayable=True)
+    t_card = time.perf_counter() - t0
+    on_cpu = loop_probe.run_loop_ticks(*tenth, "cpu", arrive=arrive, replayable=True)
+    diffs = [loop_probe.state_differences(a["state"], b["state"])
+             for a, b in zip(on_card["ticks"], on_cpu["ticks"])]
+    fields = sum(len(e["state"]) for e in on_cpu["ticks"])
+    print(f"# reconcile loop 4l: {len(tenth[0])} nodes, {len(tenth[1])} pods, "
+          f"{len(tenth[2])} burst; card against CPU: {len(diffs)} ticks, {fields} fields; "
+          f"differences {diffs}; card {t_card:.3f} s, CPU "
+          f"{time.perf_counter() - t0 - t_card:.3f} s host clock", flush=True)
+    check(len(diffs) == 3 and not any(diffs), f"reconcile loop 4l: the card differs: {diffs}")
+    check(all(not e["probe"]["drift"] for e in on_card["ticks"] + on_cpu["ticks"]),
+          "reconcile loop 4l: a journal probe found drift")
+    del on_card, on_cpu, tenth
+    phase("4l the reconcile loop at a tenth on the card and the CPU", t0)
+
+    # every kernel launch of 3o, at the loop's own shapes, against its plain
+    # version on the operands it was handed (4m)
+    t0 = time.perf_counter()
+    held = loop_probe.hold_launches(loop_capture.launches)
+    torch.cuda.synchronize()
+    loop_err, loop_shapes = {}, {}
+    for k, (name, shape, err, differ) in enumerate(held):
+        check(not differ, f"reconcile loop launch {k} ({name} on {shape}): {differ} differ "
+              f"from the plain version")
+        loop_err[name] = max(loop_err.get(name, 0.0), err)
+        loop_shapes.setdefault(name, []).append(shape)
+    check(len(held) == sum(loop_capture.counts().values()) > 0,
+          "reconcile loop: not every captured launch was held")
+    for entry in kernels:
+        entry["max_abs_err"] = max(entry["max_abs_err"], loop_err.get(entry["name"], 0.0))
+    print(f"# reconcile loop 4m: all {len(held)} kernel launches of 3o equal their plain "
+          f"versions on the operands they were handed, every field exact; launches and "
+          f"operand shapes {loop_shapes}; {time.perf_counter() - t0:.3f} s host clock",
+          flush=True)
+    del held, loop_capture
+    phase("4m the reconcile loop's launches against their plain versions", t0)
 
     # where the burst estimate's time goes: the host operand build (mask
     # engine, packing) and the scan call on the card

@@ -211,9 +211,13 @@ def test_held_served_tensor_keeps_its_values(hold):
 
 
 def test_unported_arena_options_raise():
-    for kw in ({"observatory": object()}, {"metrics": object()}):
+    from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
+
+    metrics = AutoscalerMetrics()
+    for kw in ({"observatory": object()}, {"observatory": object(), "metrics": metrics}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tarena.DeviceArena(device="cpu", **kw)
+    assert tarena.DeviceArena(device="cpu", metrics=metrics).metrics is metrics
 
 
 def test_operand_arena_hits_by_content_and_device():

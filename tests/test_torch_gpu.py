@@ -919,3 +919,65 @@ def test_scale_down_on_card_equals_cpu(cuda, label):
     assert ops[1][0].device.type == "cuda"
     assert card["loops"][-1]["dispatch_span_ms"] > 0
     assert card["out"]["actuation"]["deleted_empty"]
+
+
+@pytest.mark.parametrize("R", [6, 9])
+def test_attribution_on_card_waits_on_no_host_value(cuda, R):
+    """The estimator's constraint attribution on card tensors: no step
+    waits on the host (the host fetches its two small outputs after it),
+    and the reasons, histograms and dominant reasons equal the CPU's."""
+    from autoscaler_tpu_torch.ops import binpack
+
+    rng = np.random.default_rng(R)
+    P, G = 300, 7
+    req = rng.integers(0, 8, (P, R)).astype(np.float32)
+    req[:, CPU] = rng.integers(100, 4000, P)
+    req[:, MEMORY] = rng.integers(64, 8192, P)
+    req[:, PODS] = 1.0
+    allocs = rng.integers(0, 8, (G, R)).astype(np.float32)
+    allocs[:, CPU] = rng.integers(1000, 4000, G)
+    allocs[:, MEMORY] = rng.integers(2048, 8192, G)
+    allocs[:, PODS] = rng.integers(0, 2, G)
+    on_cpu = [torch.tensor(a) for a in (req, rng.random((G, P)) > 0.2, allocs,
+                                        rng.random((G, P)) > 0.7, rng.random(P) > 0.6)]
+    weights = torch.tensor(rng.integers(0, 4, (G, P)).astype(np.int32))
+    on_card = [t.to(cuda) for t in on_cpu]
+    w_card = weights.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        reasons = binpack.attribute_unschedulable(*on_card)
+        hist, dom = binpack.attribution_summary(reasons, w_card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = binpack.attribute_unschedulable(*on_cpu)
+    ref_hist, ref_dom = binpack.attribution_summary(ref, weights)
+    assert reasons.device.type == "cuda" and torch.equal(reasons.cpu(), ref)
+    assert torch.equal(hist.cpu(), ref_hist) and torch.equal(dom.cpu(), ref_dom)
+
+
+def test_loop_on_card_equals_cpu(cuda):
+    """tools/loop_probe's three ticks of StaticAutoscaler.run_once on a
+    small scale-in world, on the card and again on the CPU: every tick's
+    RunOnceResult, provider, API, decision, journal and SLO lines equal,
+    the journal's probe (K4 on factored snapshots) finding no drift, the
+    third tick's estimate on the dynamic route."""
+    from autoscaler_tpu_torch.estimator import binpacking
+    from autoscaler_tpu_torch.tools import loop_probe
+    from autoscaler_tpu_torch.utils.workload import build_snapshot_world
+
+    nodes, pods = loop_probe.scale_in_listing(*build_snapshot_world(N=300, P=2000, port_nodes=100))
+    templates, burst = loop_probe.burst_operands()
+    groups = loop_probe.zoned_templates(templates)
+    for key in binpacking.ROUTES:
+        binpacking.ROUTES[key] = 0
+    card = loop_probe.run_loop_ticks(nodes, pods, burst[:600], groups, cuda, arrive=100,
+                                     replayable=True)
+    routes = dict(binpacking.ROUTES)
+    cpu = loop_probe.run_loop_ticks(nodes, pods, burst[:600], groups, "cpu", arrive=100,
+                                    replayable=True)
+    for a, b in zip(card["ticks"], cpu["ticks"]):
+        assert loop_probe.state_differences(a["state"], b["state"]) == []
+        assert a["probe"]["checked"] and not a["probe"]["drift"]
+    assert card["autoscaler"]._packer.device.type == "cuda"
+    assert routes["ffd_scan"] >= 1 and routes["ffd_scan_aff"] == 1

@@ -1,0 +1,198 @@
+"""The port's process entry point (autoscaler_tpu_torch/main.py) against
+the JAX package's: the same flags (dest, default, type) plus ``--device``
+alone, equal options from the same command lines, the crash-only loop of
+tests/test_resilience.py::TestCrashOnlyRunLoop and
+tests/test_observability.py::TestCLI, every endpoint of the
+observability server against the JAX server on twin autoscalers, and
+``main()`` itself: a bounded run on the CPU, and exit code 2 for each
+binding the port does not have yet."""
+import dataclasses
+import json
+import urllib.error
+import urllib.request
+
+import pytest
+
+import autoscaler_tpu.debugging as jdebugging
+import autoscaler_tpu.main as jmain
+import autoscaler_tpu_torch.debugging as tdebugging
+import autoscaler_tpu_torch.main as tmain
+from autoscaler_tpu_torch.metrics.healthcheck import HealthCheck
+from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics, MetricsRegistry
+from test_torch_static_autoscaler import JAX, TORCH, build_world, exposition, tick
+
+GB = 1024**3
+
+
+def actions(parser):
+    return {a.dest: a for a in parser._actions if a.dest != "help"}
+
+
+def test_parser_matches_jax_but_for_device():
+    ref, port = actions(jmain.build_arg_parser()), actions(tmain.build_arg_parser())
+    assert set(port) - set(ref) == {"device"} and set(ref) <= set(port)
+    for dest, a in ref.items():
+        b = port[dest]
+        # each package parses booleans with its own _bool_flag: by name
+        assert (b.option_strings, b.default, getattr(b.type, "__name__", None), b.nargs,
+                b.const, type(b).__name__) == (
+            a.option_strings, a.default, getattr(a.type, "__name__", None), a.nargs,
+            a.const, type(a).__name__), dest
+    assert port["device"].default is None
+    for text in ("true", "1", "yes", "on", "false", "0", "No", "off"):
+        assert tmain._bool_flag(text) == jmain._bool_flag(text)
+
+
+ARGVS = {
+    "defaults": [],
+    "test_cli": ["--scan-interval", "5", "--expander", "priority,least-waste",
+                 "--max-nodes-total", "50", "--cores-total", "4:100"],
+    "knobs": ["--initial-node-group-backoff-duration", "60",
+              "--scale-down-unready-enabled", "false", "--node-delete-delay-after-taint", "2.5",
+              "--cordon-node-before-terminating", "--ignore-daemonsets-utilization",
+              "--ignore-taint", "node.startup/init", "--ignore-taint", "vendor/agent-not-ready",
+              "--balancing-ignore-label", "custom/pool-id", "--cluster-name", "prod-west",
+              "--namespace", "autoscaler", "--status-config-map-name", "my-status",
+              "--arena-enabled=true", "--journal-probe-interval=3", "--memory-total=1:64"],
+    # the reference's own flags (main.go:119-134), as the wide refit runs them
+    "reference": ["--scale-down-candidates-pool-ratio=1.0",
+                  "--scale-down-non-empty-candidates-count=0",
+                  "--max-drain-parallelism=10", "--max-scale-down-parallelism=20",
+                  "--scale-down-utilization-threshold=0.6",
+                  "--scale-down-unneeded-time=300", "--max-empty-bulk-delete=20"],
+}
+
+
+@pytest.mark.parametrize("argv", sorted(ARGVS))
+def test_options_from_args_match_jax(argv):
+    ref = jmain.options_from_args(jmain.build_arg_parser().parse_args(ARGVS[argv]))
+    out = tmain.options_from_args(tmain.build_arg_parser().parse_args(ARGVS[argv] + ["--device=cpu"]))
+    assert dataclasses.asdict(out) == dataclasses.asdict(ref)
+
+
+class Flaky:
+    """tests/test_resilience.py's flaky autoscaler on the port's metrics."""
+
+    def __init__(self, fail_first_n=0, fail_forever=False, fail_odd=False):
+        self.calls = 0
+        self.fail_first_n, self.fail_forever, self.fail_odd = fail_first_n, fail_forever, fail_odd
+        self.health_check = HealthCheck()
+        self.metrics = AutoscalerMetrics(MetricsRegistry())
+
+    def run_once(self, now_ts):
+        self.calls += 1
+        if (self.fail_forever or self.calls <= self.fail_first_n
+                or (self.fail_odd and self.calls % 2 == 1)):
+            raise RuntimeError(f"injected crash #{self.calls}")
+        self.health_check.update_last_success()
+
+
+def test_run_loop_survives_crashes():
+    a = Flaky(fail_first_n=3)
+    assert tmain.run_loop(a, scan_interval_s=0.0, max_iterations=6) is True
+    assert a.calls == 6 and a.metrics.errors_total.get(type="internalError") == 3
+
+
+def test_run_loop_max_consecutive_failures_hard_exits(capsys):
+    a = Flaky(fail_forever=True)
+    assert tmain.run_loop(a, scan_interval_s=0.0, max_consecutive_failures=3) is False
+    assert a.calls == 3 and "supervisor restart" in capsys.readouterr().err
+
+
+def test_run_loop_success_resets_consecutive_count():
+    a = Flaky(fail_odd=True)
+    assert tmain.run_loop(a, 0.0, max_iterations=8, max_consecutive_failures=2) is True
+    assert a.calls == 8
+
+
+def test_run_loop_bounded_on_the_port():
+    w = build_world(TORCH, [("g", 0, 10, 1000, 2 * GB)], {"g": 1})
+    tmain.run_loop(w.sa, scan_interval_s=0.0, max_iterations=3)
+    assert w.sa.metrics.function_duration.count(function="main") == 3
+
+
+def twin_servers():
+    """Both packages' servers (profiling on) on twin autoscalers, each
+    after two ticks of a world with pending pods, a debugger attached."""
+    servers = []
+    for k, main, debugging in ((JAX, jmain, jdebugging), (TORCH, tmain, tdebugging)):
+        pods = [k.tu.build_test_pod(f"p{i}", cpu_m=900, mem=1 * GB) for i in range(3)]
+        w = build_world(k, [("g", 0, 10, 1000, 2 * GB)], {"g": 1}, pods)
+        w.sa.debugger = debugging.DebuggingSnapshotter()
+        tick(w, 0.0)
+        tick(w, 10.0)
+        server = main.ObservabilityServer(w.sa, "127.0.0.1:0", profiling=True)
+        servers.append((w, server, server.start()))
+    return servers
+
+
+def get(port, path):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}") as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+SAME = ("/health-check", "/explainz", "/explainz?tick=1", "/explainz?pod=default/p0",
+        "/explainz?group=g", "/explainz?tick=x", "/sloz", "/sloz?slo=tick_duration",
+        "/sloz?slo=nope", "/journalz", "/journalz?tick=0", "/journalz?diff=0,1",
+        "/journalz?tick=9", "/tracez?id=x", "/tracez?format=bad", "/debug/pprof/",
+        "/debug/pprof/nope", "/nope")
+
+
+def test_server_endpoints_match_jax():
+    (jw, jserver, jport), (tw, tserver, tport) = twin_servers()
+    try:
+        for path in SAME:
+            assert get(tport, path) == get(jport, path), path
+        code, body = get(tport, "/metrics")
+        assert code == 200 and "cluster_autoscaler_nodes_count" in body
+        assert exposition(tw) == exposition(jw)
+        for path in ("/tracez", "/tracez?id=1", "/tracez?format=chrome"):
+            (jc, jb), (tc, tb) = get(jport, path), get(tport, path)
+            assert tc == jc == 200 and json.loads(tb), path
+        (jc, jb), (tc, tb) = get(jport, "/status"), get(tport, "/status")
+        # the header line carries the wall clock of the request
+        assert tc == jc == 200 and tb.splitlines()[1:] == jb.splitlines()[1:]
+        assert get(tport, "/snapshotz")[0] == 200          # armed for the next loop
+        code, body = get(tport, "/perfz")
+        assert code == 501 and "ROADMAP" in body
+        assert get(jport, "/perfz")[0] == 200
+        for path in ("/debug/pprof/heap", "/debug/pprof/threadz"):
+            assert get(tport, path)[0] == 200, path
+    finally:
+        jserver.stop()
+        tserver.stop()
+
+
+def test_main_runs_the_loop_on_the_cpu(capsys):
+    assert tmain.main(["--provider=test", "--max-iterations=2", "--scan-interval=0",
+                       "--address=127.0.0.1:0", "--device=cpu"]) == 0
+    assert "device cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag", ["--compile-cache-dir=/nonexistent",
+                                  "--compile-cache-dir=/tmp/autoscaler_tpu_xla_cache"])
+def test_main_notes_that_the_compile_cache_has_no_effect(capsys, flag):
+    assert tmain.main(["--max-iterations=1", "--scan-interval=0", "--address=127.0.0.1:0",
+                       "--device=cpu", flag]) == 0
+    assert "has no effect" in capsys.readouterr().err
+    assert tmain.main(["--max-iterations=1", "--scan-interval=0", "--address=127.0.0.1:0",
+                       "--device=cpu"]) == 0
+    assert "has no effect" not in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--provider=gce"], ["--provider=externalgrpc"], ["--provider=externalgrpc-ref"],
+    ["--provider=clusterapi"], ["--kube-api=in-cluster"], ["--kubeconfig=/nonexistent"],
+    ["--leader-elect=true"],
+])
+def test_unported_bindings_exit_2(argv, capsys):
+    assert tmain.main(argv + ["--device=cpu"]) == 2
+    assert "not ported yet (ROADMAP" in capsys.readouterr().err
+
+
+def test_unknown_provider_exits_2(capsys):
+    assert tmain.main(["--provider=nope", "--device=cpu"]) == 2
+    assert "unknown cloud provider" in capsys.readouterr().err

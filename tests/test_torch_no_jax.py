@@ -315,3 +315,84 @@ def test_scale_down_entry_points_raise_without_a_card(monkeypatch):
         scaledown_probe.run_scale_down([build_test_node("n0")], [])
     with pytest.raises(RuntimeError, match="CUDA"):
         scaledown_probe.main([])
+
+
+# the modules of the reconcile loop and the process around it (the loop,
+# main.py, and the jax-free ones they run on), each at its JAX
+# counterpart's path
+LOOP_MODULES = (
+    "core/static_autoscaler.py", "main.py", "metrics/metrics.py", "metrics/healthcheck.py",
+    "explain/record.py", "explain/ledger.py", "explain/__init__.py", "slo/spec.py",
+    "slo/ledger.py", "slo/engine.py", "slo/__init__.py", "perf/ledger.py",
+    "clusterstate/status.py", "journal/ledger.py", "journal/codec.py",
+    "journal/recorder.py", "journal/reader.py", "journal/diff.py", "journal/__init__.py",
+    "preempt/policy.py", "utils/pprof.py", "utils/tpu.py",
+)
+
+
+def test_loop_modules_are_ported():
+    for rel in LOOP_MODULES:
+        assert (PORT / rel).is_file(), rel
+        assert (REPO / "autoscaler_tpu" / rel).is_file(), rel
+        assert f"autoscaler_tpu_torch/{rel}" in PORT_FILES
+
+
+_LOOP_BLOCKED = r"""
+import contextlib, io, runpy, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.argv = ["autoscaler_tpu_torch.main", "--help"]
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    try:
+        runpy.run_module("autoscaler_tpu_torch.main", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+assert "--device" in out.getvalue() and "--scan-interval" in out.getvalue()
+from autoscaler_tpu_torch import main
+with contextlib.redirect_stdout(io.StringIO()):
+    assert main.main(["--max-iterations=2", "--scan-interval=0", "--address=127.0.0.1:0",
+                      "--device=cpu"]) == 0
+from autoscaler_tpu_torch.tools import loop_probe as lp
+from autoscaler_tpu_torch.utils.workload import build_snapshot_world
+nodes, pods = lp.scale_in_listing(*build_snapshot_world(N=120, P=800, port_nodes=40))
+templates, burst = lp.burst_operands()
+out = lp.run_loop_ticks(nodes, pods, burst[:200], lp.zoned_templates(templates), "cpu",
+                        arrive=40)
+loaded = [m for m in sys.modules if m == "autoscaler_tpu" or m.startswith("autoscaler_tpu.")]
+assert not loaded, loaded
+results = [t["result"] for t in out["ticks"]]
+probes = [t["probe"]["drift"] for t in out["ticks"]]
+print("OK", sum(r.scale_up is not None for r in results), any(probes),
+      len(out["autoscaler"].journal.records()))
+"""
+
+
+def test_loop_runs_with_jax_blocked():
+    """``python -m autoscaler_tpu_torch.main --help``, a bounded main() on
+    the CPU and the three ticks of tools/loop_probe on a small world, with
+    jax blocked: nothing of the JAX package is imported."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", _LOOP_BLOCKED], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ok, scale_ups, drift, records = proc.stdout.split()
+    assert ok == "OK" and int(scale_ups) >= 1 and drift == "False" and records == "3"
+
+
+def test_loop_entry_points_raise_without_a_card(monkeypatch):
+    from autoscaler_tpu_torch import main
+    from autoscaler_tpu_torch.cloudprovider.test_provider import TestCloudProvider
+    from autoscaler_tpu_torch.core.static_autoscaler import StaticAutoscaler
+    from autoscaler_tpu_torch.journal.reader import tensors_from_fields
+    from autoscaler_tpu_torch.kube.api import FakeClusterAPI
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StaticAutoscaler(TestCloudProvider(), FakeClusterAPI())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main.main(["--max-iterations=1", "--address=127.0.0.1:0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tensors_from_fields({"pod_valid": [True]})
