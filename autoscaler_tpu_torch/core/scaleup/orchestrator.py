@@ -12,16 +12,17 @@ BinpackingNodeEstimator.estimate_many, and only the chosen option crosses
 back into the (host-side, cloud-API) actuation boundary.
 
 The estimate runs on ``device`` (None = the first CUDA card) through the
-port's ``BinpackingNodeEstimator``, which takes its operands from
-``operand_arena`` (a ``snapshot/arena.OperandArena``) when one is given.
-``metrics=`` feeds ``created_node_groups_total``; ``estimator_explain``
-carries the estimator's constraint attribution (``last_explain``). Not here
-yet (ROADMAP queue 1, the estimator services item): the kernel ladder
-around the estimator (the port's estimator has, by design, no failure
-fallback: a launch that fails raises), the estimator's metrics, the perf
-observatory, the live priority ConfigMap and the preemption churn filter.
-Asking for any of them raises ``NotImplementedError``; none is silently
-ignored.
+port's ``BinpackingNodeEstimator`` and its kernel ladder
+(``--kernel-breaker-failure-threshold``, ``--kernel-breaker-cooldown``),
+which takes its operands from ``operand_arena`` (a
+``snapshot/arena.OperandArena``) when one is given and hands its
+dispatches to ``observatory`` (a ``perf.PerfObservatory``). ``metrics=``
+feeds ``created_node_groups_total`` and the estimator's route, rung and
+breaker series; ``estimator_explain`` carries the estimator's constraint
+attribution (``last_explain``). Not here yet, and refused with
+``NotImplementedError`` naming the ROADMAP item, never silently ignored:
+the live priority ConfigMap (queue 1 item 2, the cluster bindings) and the
+preemption churn filter (item 3, preemption).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from autoscaler_tpu_torch.explain.reasons import SkipReason
 from autoscaler_tpu_torch.snapshot.affinity import has_hard_spread
 from autoscaler_tpu_torch.core.scaleup.resource_manager import ScaleUpResourceManager
 from autoscaler_tpu_torch.estimator.binpacking import BinpackingNodeEstimator
+from autoscaler_tpu_torch.estimator.ladder import KernelLadder
 from autoscaler_tpu_torch.estimator.limiter import ThresholdBasedEstimationLimiter
 from autoscaler_tpu_torch.expander.core import Option, Strategy, build_strategy
 from autoscaler_tpu_torch.kube.objects import Node, Pod
@@ -93,16 +95,16 @@ class ScaleUpOrchestrator:
         device=None,
     ):
         unported = {
-            "priorities_fetch": priorities_fetch is not None,
-            "observatory": observatory is not None,
-            "preemption_churn_weight > 0": options.preemption_churn_weight > 0,
+            "priorities_fetch": (priorities_fetch is not None, "item 2, the cluster bindings"),
+            "preemption_churn_weight > 0": (
+                options.preemption_churn_weight > 0, "item 3, preemption"
+            ),
         }
-        asked = [name for name, on in unported.items() if on]
-        if asked:
-            raise NotImplementedError(
-                f"{', '.join(asked)}: not ported yet (ROADMAP queue 1, the "
-                "estimator services item)"
-            )
+        for name, (asked, item) in unported.items():
+            if asked:
+                raise NotImplementedError(
+                    f"{name}: not ported yet (ROADMAP queue 1 {item})"
+                )
         self.provider = provider
         self.options = options
         self.csr = csr
@@ -112,8 +114,15 @@ class ScaleUpOrchestrator:
                     max_nodes=options.max_nodes_per_scaleup,
                     max_duration_s=options.max_nodegroup_binpacking_duration_s,
                 ),
-                device=device,
+                metrics=metrics,
+                # circuit-broken degradation ladder around the kernel rungs
+                ladder=KernelLadder(
+                    failure_threshold=options.kernel_breaker_failure_threshold,
+                    cooldown_s=options.kernel_breaker_cooldown_s,
+                ),
+                observatory=observatory,
                 operand_arena=operand_arena,
+                device=device,
             )
         self.estimator = estimator
         self.expander = expander or build_strategy(

@@ -19,13 +19,17 @@ snapshot, filter-out-schedulable, the planner's removal refit and the
 actuator's snapshot reads follow it, and the orchestrator's estimator, its
 operand arena and the journal's probe are built there.
 
+Each tick advances the estimator's kernel ladder (``kernel_ladder()``) on
+loop time, reports tripped rungs (``degraded_rungs()``) in the decision
+record and the status ConfigMap, and closes one perf record in the
+observatory (``self.observatory``, served by ``/perfz``): the residency of
+the packer, the arena and the operand arena, the arena's per-tick stats,
+and every dispatch of the tick, under a ``perfRecord`` span.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
 item, never skipped silently: ``preemption_enabled`` (queue 1, the
-preemption kernel item), ``jax_profiler_dir`` (the profiling item:
-``trace/device.py``), and an ``observatory=`` or ``perf_cost_model`` (the
-estimator services item). Without an observatory, ``run_once`` closes no
-perf record. The port's estimator has no kernel ladder, so
-``kernel_ladder()`` is None and ``degraded_rungs()`` is empty.
+preemption kernel item) and ``jax_profiler_dir`` (the profiling item:
+``trace/device.py``).
 """
 from __future__ import annotations
 
@@ -52,6 +56,12 @@ from autoscaler_tpu_torch.kube.api import ClusterAPI
 from autoscaler_tpu_torch.kube.objects import Node, Pod, Resources
 from autoscaler_tpu_torch.metrics import metrics as metrics_mod
 from autoscaler_tpu_torch.metrics.healthcheck import HealthCheck
+from autoscaler_tpu_torch.perf import (
+    POOL_ARENA,
+    POOL_SNAPSHOT,
+    PerfObservatory,
+    default_peak_flops,
+)
 from autoscaler_tpu_torch.simulator.removal import UnremovableReason
 from autoscaler_tpu_torch.snapshot.cluster_snapshot import ClusterSnapshot
 from autoscaler_tpu_torch import trace
@@ -100,13 +110,22 @@ class StaticAutoscaler:
         from autoscaler_tpu_torch.processors.pipeline import default_processors
 
         self.options = options or AutoscalingOptions()
-        _refuse_unported(self.options, observatory)
+        _refuse_unported(self.options)
         self.device = resolve_device(device)
         self.provider = provider
         self.api = api
         self.processors = processors or default_processors(self.options)
         self.csr = csr or ClusterStateRegistry(provider, self.options)
         self.metrics = metrics or metrics_mod.AutoscalerMetrics()
+        # perf observatory (autoscaler_tpu_torch/perf): per-route compile
+        # telemetry, the cost model (--perf-cost-model) and device-residency
+        # accounting. One per autoscaler; served by /perfz.
+        self.observatory = observatory or PerfObservatory(
+            metrics=self.metrics,
+            cost_model=self.options.perf_cost_model,
+            ring_capacity=self.options.perf_ring_size,
+            peak_flops=default_peak_flops(self.device),
+        )
         # decision explainer (autoscaler_tpu/explain): per-tick
         # DecisionRecords — constraint attribution, expander scoring table,
         # skip/backoff/breaker state, plan + scale-down reasons. One per
@@ -135,7 +154,7 @@ class StaticAutoscaler:
             metrics=self.metrics,
             ring_capacity=self.options.explain_ring_size,
         )
-        # floor for tick ids: normally the trace id, but a re-entrant
+        # floor for perf tick ids: normally the trace id, but a re-entrant
         # tick (tracer degrades to a child span — no trace_id attr) must
         # still get a strictly increasing id or the ledger's monotonicity
         # gate trips on a pile of tick-0 records
@@ -153,6 +172,7 @@ class StaticAutoscaler:
             provider,
             self.options,
             self.csr,
+            observatory=self.observatory,
             operand_arena=self._operand_arena,
             device=self.device,
             balancing_processor=self.processors.node_group_set,
@@ -215,8 +235,13 @@ class StaticAutoscaler:
 
             self._arena = DeviceArena(
                 buckets=self.options.arena_buckets,
+                observatory=self.observatory,
                 metrics=self.metrics,
                 device=self.device,
+                # the tracer's timeline clock, so prewarm walls — recorded
+                # before any tick trace exists — replay like every other
+                # perf figure
+                clock=self.tracer.clock,
             )
             self._arena.prewarm(R=NUM_RESOURCES)
         self._packer = IncrementalPacker(arena=self._arena, device=self.device)
@@ -245,24 +270,27 @@ class StaticAutoscaler:
         """Instrumented wrapper: the tick's span tree (whose span durations
         feed the per-phase duration metrics through one choke point),
         counters, liveness, and the on-demand debugging capture (reference
-        metrics.go:399 + static_autoscaler.go:334,380,540,626,661). The
-        port has no perf observatory, so no perf record closes here."""
-        # advance a custom estimator's kernel-ladder breaker clock on loop
-        # time (the port's own estimator has no ladder yet)
+        metrics.go:399 + static_autoscaler.go:334,380,540,626,661)."""
+        # advance the kernel ladder's breaker clock on loop time (a
+        # synthetic clock in replays — what makes breaker cooldowns
+        # replayable)
         ladder = self.kernel_ladder()
         if ladder is not None:
             ladder.tick(now_ts)
         with self.tracer.tick(metrics_mod.MAIN, now_ts=now_ts) as root:
-            # the tick id: the trace id when the tracer issued one
-            # (/explainz, /journalz and /tracez line up by construction),
-            # else the monotonic floor (re-entrant ticks have no trace_id
-            # and must not all collapse to 0)
+            # open this tick's perf record: dispatches recorded between
+            # begin_tick and end_tick are stamped with this tick id — the
+            # trace id when the tracer issued one (/perfz, /explainz,
+            # /journalz and /tracez line up by construction), else the
+            # monotonic floor (re-entrant ticks have no trace_id and must
+            # not all collapse to 0)
             raw_id = root.attrs.get("trace_id")
             tick_id = max(
                 int(raw_id) if raw_id is not None else 0,
                 self._next_perf_tick,
             )
             self._next_perf_tick = tick_id + 1
+            self.observatory.begin_tick(tick_id, now_ts)
             self.explainer.begin_tick(tick_id, now_ts)
             # the journal line shares it too: /journalz drills down into
             # the same tick the other rings describe
@@ -275,8 +303,10 @@ class StaticAutoscaler:
                 result = self._run_once_traced(now_ts)
             finally:
                 # finalize even when the tick crashed (the crash-only loop
-                # catches outside): the ledgers stay gap-free.
-                # A crashed tick leaves a PARTIAL decision record — the
+                # catches outside): the ledgers stay gap-free, and the
+                # residency snapshot reflects whatever the tick left live
+                self._close_perf_record()
+                # a crashed tick leaves a PARTIAL decision record — the
                 # sections noted before the crash are exactly the
                 # decisions that were made
                 with trace.span(metrics_mod.EXPLAIN_RECORD):
@@ -800,10 +830,32 @@ class StaticAutoscaler:
             pods_doc[p.key()] = reason
         ex.note("pods", pods_doc)
 
+    def _close_perf_record(self) -> None:
+        """The tick's perf record: the packer's, the arena's and the
+        operand arena's device bytes, the arena's per-tick stats (delta
+        rows, full uploads, promotions, rollbacks), then ``end_tick``."""
+        obs = self.observatory
+        with trace.span(metrics_mod.PERF_RECORD) as sp_perf:
+            obs.residency.set(POOL_SNAPSHOT, "packer", self._packer.device_bytes())
+            if self._arena is not None:
+                obs.residency.set(POOL_ARENA, "snapshot", self._arena.device_bytes())
+                if self._operand_arena is not None:
+                    obs.residency.set(
+                        POOL_ARENA, "operands", self._operand_arena.device_bytes()
+                    )
+                stats = self._arena.take_stats()
+                obs.note_arena(stats)
+                sp_perf.set_attrs(
+                    arena_delta_rows=stats.get("delta_rows", 0),
+                    arena_full_uploads=stats.get("full_uploads", 0),
+                    arena_promotions=stats.get("promotions", 0),
+                    arena_rollbacks=stats.get("rollbacks", 0),
+                )
+            obs.end_tick()
+
     def kernel_ladder(self):
-        """The estimator's circuit-broken kernel ladder, when wired. The
-        port's estimator has none yet (ROADMAP queue 1, the estimator
-        services item); a custom one may."""
+        """The estimator's circuit-broken kernel ladder, when wired (the
+        default orchestrator always wires one; a custom estimator may not)."""
         est = getattr(self.scale_up_orchestrator, "estimator", None)
         return getattr(est, "ladder", None)
 
@@ -969,7 +1021,7 @@ class StaticAutoscaler:
                     )
 
 
-def _refuse_unported(options: AutoscalingOptions, observatory) -> None:
+def _refuse_unported(options: AutoscalingOptions) -> None:
     """Raise for every option the port cannot honour yet, naming its
     ROADMAP item: nothing is skipped silently."""
     asked = [
@@ -979,10 +1031,6 @@ def _refuse_unported(options: AutoscalingOptions, observatory) -> None:
              "queue 1, the preemption kernel item"),
             ("jax_profiler_dir", bool(options.jax_profiler_dir),
              "queue 1, the profiling item: trace/device.py"),
-            ("observatory", observatory is not None,
-             "queue 1, the estimator services item"),
-            ("perf_cost_model", options.perf_cost_model,
-             "queue 1, the estimator services item"),
         )
         if on
     ]

@@ -1,6 +1,6 @@
 """Object-level binpacking estimator — the Estimate() contract of the
-reference, backed by the port's scans (the port of
-``autoscaler_tpu/estimator/binpacking.py``).
+reference, backed by the port's scans and served through a kernel ladder
+(the port of ``autoscaler_tpu/estimator/binpacking.py``).
 
 Reference: cluster-autoscaler/estimator/estimator.go:44 and
 binpacking_estimator.go:65. The per-group non-resource predicate check of
@@ -9,67 +9,106 @@ mask built by the host mask engine; the resource arithmetic runs on the
 estimator's device.
 
 ``estimate_many`` covers every node group in one scan, with the JAX
-package's routing. Worlds without inter-pod affinity, hard topology spread
-or pending legacy-volume conflicts take:
+package's routing, and walks each dispatch down the kernel ladder
+(``estimator/ladder.py``): the hand-written CUDA kernels (rung ``cuda``),
+the torch loops of ``ops/binpack.py`` on the estimator's device (``torch``),
+the native serial FFD (``native``, ``native_bridge``) and the Python oracle
+(``python``, ``reference_impl``). Every rung computes the same answer;
+each sits behind a circuit breaker. Worlds without inter-pod affinity,
+hard topology spread or pending legacy-volume conflicts take:
 
-- the run-compressed route (``ops/binpack.ffd_binpack_groups_runs``) when
-  equivalence dedup at least halves the pod count;
-- otherwise the plain route: ``ops/ffd_scan``'s glue and the hand-written
-  kernels K1/K2 for CUDA tensors (their plain versions for CPU tensors),
-  when the carry of the kernel planes fits one block's shared memory; else
-  the torch loop ``ops/binpack.ffd_binpack_groups``, on the same device.
-  ``ROUTES`` counts which of the two served (``scan_route``, the gate).
+- the run-compressed route (torch rung, route ``torch_runs``:
+  ``ops/binpack.ffd_binpack_groups_runs``) when equivalence dedup at least
+  halves the pod count; the cuda rung is skipped with reason ``dedup``;
+- otherwise the plain per-pod route: K1/K2 (route ``cuda``, through
+  ``ops/ffd_scan``'s glue) when the device is CUDA and the carry of the
+  kernel planes fits one block's shared memory, else the torch loop
+  ``ffd_binpack_groups`` (route ``torch_scan``, reason ``not_cuda`` or
+  ``smem``).
 
 Worlds that need the dynamic (term-gated) scan take:
 
-- the runs-affinity route (``ops/binpack.ffd_binpack_groups_runs_affinity``,
-  a torch loop) when no legacy volume conflicts, dedup halves the pods and
-  the runs, with the term-involved groups expanded into singletons, still
-  halve them;
-- otherwise the per-pod dynamic route: ``ops/ffd_scan_affinity.
-  ffd_binpack_groups_affinity_cuda``, the hand-written kernel K3 for CUDA
-  tensors (its plain version for CPU tensors), when the spread terms fit
-  its bitset (S <= 32) and its carry fits one block's shared memory; else
-  the torch loop ``ops/binpack.ffd_binpack_groups_affinity``, on the same
-  device. ``ROUTES`` counts which of the two served (``kernel_route``).
+- the runs-affinity route (``torch_runs``:
+  ``ops/binpack.ffd_binpack_groups_runs_affinity``) when no legacy volume
+  conflicts, dedup halves the pods and the runs, with the term-involved
+  groups expanded into singletons, still halve them;
+- otherwise the per-pod dynamic route: K3 (``cuda_affinity``, through
+  ``ops/ffd_scan_affinity``'s glue) when the device is CUDA, the spread
+  terms fit its bitset (S <= 32) and its carry fits one block's shared
+  memory, else the torch loop ``ffd_binpack_groups_affinity``
+  (``torch_scan``, reason ``not_cuda``, ``spread_width`` or ``smem``).
 
-Both gates check the shapes before the call, as the JAX package's
-``pallas_gate`` does; a launch that fails still raises.
+Below the device rungs, the native and Python rungs serve every route but
+the spread worlds (no host twin counts topology spread). A rung that
+raises, or a fault injected through ``ladder.fault_hook``, is a fault: it
+is logged at WARNING on the ``estimator`` logger and counted. Off a CUDA
+device the dispatch then descends, as in the JAX package. On a CUDA device
+the hand kernels have no fallback: a fault of the cuda rung (a failed
+build of its source, a launch error, an asynchronous error at the fetch,
+an injected fault) is recorded on its breaker and raised, an open cuda
+breaker raises instead of skipping the rung, and no dispatch is forced;
+only the shape gates (``smem``, ``spread_width``) and dedup routing send a
+card dispatch below the cuda rung. Device results are fetched to the host
+inside the serving rung's ``try``, so an asynchronous CUDA error lands on
+the ladder; the host rungs read only the numpy operands, never a device
+tensor.
 
-``estimate`` (one template) runs ``ffd_binpack``, or the torch loop
-``ffd_binpack_groups_affinity`` with one group in a dynamic world, as the
-JAX package runs its XLA scans there.
+``estimate`` (one template) walks the torch, native and Python rungs:
+``ffd_binpack`` (``torch_single``), or ``ffd_binpack_groups_affinity``
+with one group (``torch_scan``) in a dynamic world, as the JAX package
+walks its XLA scans there.
+
+Each rung engagement is one ``deviceDispatch`` span under the ``estimate``
+span, the serving route lands on ``estimator_kernel_route_total`` with the
+last skip or fault reason, and each served dispatch is handed to the perf
+observatory (compile-vs-execute split, cost model, operand bytes) under a
+``torch.profiler.record_function`` named ``autoscaler/estimator/<route>``.
 
 With ``operand_arena=`` (``snapshot/arena.OperandArena``) every operand
-upload goes through its content-keyed cache (the JAX package's ``_dev``):
-an operand byte-identical to one uploaded before to the same device is
-served resident instead of copied again. Results are the same either way.
+upload goes through its content-keyed cache: an operand byte-identical to
+one uploaded before to the same device is served resident instead of
+copied again. Results are the same either way.
 
 Every estimate leaves its constraint attribution in ``last_explain``
 (per-group fit counts with rejection-reason histograms, and each pod's
-dominant reason), as the JAX package's estimator does: one batched pass of
-``ops/binpack.attribute_unschedulable`` and ``attribution_summary`` on the
-estimate's device over the route's own operands and verdict, then two
-small host fetches. The JAX package falls back to a serial oracle when its
-attribution fails; the port has no such fallback: a failure raises, as
-every other failure of the port's estimator does.
+dominant reason): one batched pass of ``ops/binpack.attribute_unschedulable``
+and ``attribution_summary`` on the estimator's device over the serving
+route's operands and verdict, then two small host fetches; when that pass
+fails, the serial oracle twin (``reference_impl.
+attribute_unschedulable_reference``) answers from the numpy operands.
 
-Not here yet (ROADMAP queue 1): the kernel ladder and its native and
-Python rungs, metrics, spans, the perf observatory and the fleet client.
+Not here yet: the fleet client (``fleet_client=`` raises; ROADMAP queue 1
+item 4) and the preemption estimate (item 3).
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from autoscaler_tpu_torch import native_bridge, trace
 from autoscaler_tpu_torch.core.scaleup.equivalence import build_pod_groups
 from autoscaler_tpu_torch.device import resolve_device
+from autoscaler_tpu_torch.estimator.ladder import (
+    HOST_LEVEL_SKIP_REASONS,
+    RUNG_CUDA,
+    RUNG_NATIVE,
+    RUNG_PYTHON,
+    RUNG_TORCH,
+    KernelLadder,
+)
 from autoscaler_tpu_torch.estimator.limiter import ThresholdBasedEstimationLimiter
-from autoscaler_tpu_torch.explain.reasons import reason_histogram, reason_name
-from autoscaler_tpu_torch.kube.objects import NUM_RESOURCES, Node, Pod
+from autoscaler_tpu_torch.estimator.reference_impl import (
+    attribute_unschedulable_reference,
+    ffd_binpack_reference,
+    ffd_binpack_reference_affinity,
+)
+from autoscaler_tpu_torch.explain.reasons import NUM_REASONS, reason_histogram, reason_name
+from autoscaler_tpu_torch.kube.objects import CPU, MEMORY, NUM_RESOURCES, Node, Pod
+from autoscaler_tpu_torch.metrics import metrics as metrics_mod
 from autoscaler_tpu_torch.ops import ffd_scan, ffd_scan_affinity
 from autoscaler_tpu_torch.ops.binpack import (
     attribute_unschedulable,
@@ -80,7 +119,8 @@ from autoscaler_tpu_torch.ops.binpack import (
     ffd_binpack_groups_runs,
     ffd_binpack_groups_runs_affinity,
 )
-from autoscaler_tpu_torch.ops.ffd_scan import operands_from_numpy
+from autoscaler_tpu_torch.ops.telemetry import kernel_observer
+from autoscaler_tpu_torch.perf import PerfObservatory, default_peak_flops
 from autoscaler_tpu_torch.snapshot.affinity import (
     SpreadTermTensors,
     build_affinity_terms,
@@ -95,11 +135,9 @@ from autoscaler_tpu_torch.snapshot.packer import (
     resources_row,
 )
 from autoscaler_tpu_torch.snapshot.tensors import bucket_size
+from autoscaler_tpu_torch.utils.errors import AutoscalerError, ErrorType
 
-# Which scan served each per-pod estimate: on the plain route the kernels
-# K1/K2 or the torch loop when their carry is too wide; on the dynamic
-# route the kernel K3 or the torch loop when the term state is too wide.
-ROUTES = {"ffd_scan": 0, "binpack_loop": 0, "ffd_scan_aff": 0, "affinity_loop": 0}
+logger = logging.getLogger("estimator")
 
 
 def _pack_pods(
@@ -121,16 +159,19 @@ def _build_group_arrays(
     pods: Sequence[Pod],
     names: Sequence[str],
     templates: Dict[str, Node],
-    pad: int,
+    pad: Optional[int] = None,
     interpod: bool = True,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """→ (req [pad,R], masks [G,pad], allocs [G,R]): the packed operands of
-    the per-pod routes, the pod axis bucket-padded to ``pad``.
-    interpod=False leaves inter-pod affinity to the dynamic scan."""
+    """→ (req [P,R], masks [G,P], allocs [G,R]): the ONE packed-array build
+    shared by the device rungs and the host rungs, so the packing schema
+    cannot diverge between rungs. ``pad`` bucket-pads the pod axis for the
+    device rungs (None: the exact pod count). interpod=False leaves
+    inter-pod affinity to the dynamic scan."""
+    P = pad if pad is not None else len(pods)
     ext = _estimation_schema(pods)
-    req = _pack_pods(pods, pad, ext)
+    req = _pack_pods(pods, P, ext)
     masks = np.stack(
-        [template_mask(pods, templates[g], pad, interpod=interpod) for g in names]
+        [template_mask(pods, templates[g], P, interpod=interpod) for g in names]
     )
     allocs = np.stack(
         [_template_capacity_row(templates[g], ext) for g in names]
@@ -176,31 +217,39 @@ def _spread_tuple(sp: SpreadTermTensors, conv=np.asarray) -> tuple:
     )
 
 
-def scan_route(device: torch.device, planes: int, max_nodes: int) -> str:
-    """The plain route's gate, on the shapes alone: "ffd_scan" unless, on a
-    CUDA card, K1/K2's carry of ``planes`` kernel planes (fixed by
-    ``ffd_scan.plan_scan``) over ``max_nodes`` nodes asks for more shared memory
-    than a block may use; then "binpack_loop". The CPU runs K1/K2's plain
-    versions, which have no shared-memory limit."""
-    if device.type == "cuda" and ffd_scan.smem_bytes(planes, max_nodes) > ffd_scan.SMEM_PER_BLOCK:
-        return "binpack_loop"
-    return "ffd_scan"
+def plain_gate(device: torch.device, planes: int, max_nodes: int):
+    """The cuda rung's gate on the plain per-pod route, on the shapes alone
+    (as the JAX package's ``pallas_gate``): None when K1/K2 can serve, else
+    (reason, detail) — ``not_cuda`` off a CUDA device, ``smem`` when the
+    carry of ``planes`` kernel planes (fixed by ``ffd_scan.plan_scan``)
+    over ``max_nodes`` nodes asks for more shared memory than a block may
+    use. Reading the shared memory loads (and at first use builds) the
+    kernel library."""
+    detail = f"cap={max_nodes} planes={planes}"
+    if device.type != "cuda":
+        return ("not_cuda", detail)
+    smem = ffd_scan.smem_bytes(planes, max_nodes)
+    if smem > ffd_scan.SMEM_PER_BLOCK:
+        return ("smem", f"{detail} smem={smem}B budget={ffd_scan.SMEM_PER_BLOCK}B")
+    return None
 
 
-def kernel_route(device: torch.device, R: int, T: int, S: int, max_nodes: int) -> str:
-    """The per-pod dynamic route's gate, on the shapes alone: "ffd_scan_aff"
-    when the spread terms fit K3's bitset (S <= 32, S = 0 when no pod
-    declares one) and, on a CUDA card, K3's carry fits one block's shared
-    memory; else "affinity_loop". The CPU runs K3's plain version, which
-    has no shared-memory limit."""
+def affinity_gate(device: torch.device, R: int, T: int, S: int, max_nodes: int):
+    """The cuda rung's gate on the per-pod dynamic route, on the shapes
+    alone: None when K3 can serve, else (reason, detail) — ``not_cuda`` off
+    a CUDA device, ``spread_width`` when the spread terms overflow K3's
+    bitset (S > 32; S = 0 when no pod declares one), ``smem`` when K3's
+    carry asks for more shared memory than a block may use."""
+    TP = max((T + 31) // 32, 1)
+    detail = f"T={T} planes={TP} S={S} cap={max_nodes} R={R}"
+    if device.type != "cuda":
+        return ("not_cuda", detail)
     if S > ffd_scan_affinity.MAX_SPREAD:
-        return "affinity_loop"
-    if device.type == "cuda":
-        TP = max((T + 31) // 32, 1)
-        smem = ffd_scan_affinity.affinity_smem_bytes(R, TP, S, max_nodes)
-        if smem > ffd_scan.SMEM_PER_BLOCK:
-            return "affinity_loop"
-    return "ffd_scan_aff"
+        return ("spread_width", detail)
+    smem = ffd_scan_affinity.affinity_smem_bytes(R, TP, S, max_nodes)
+    if smem > ffd_scan.SMEM_PER_BLOCK:
+        return ("smem", f"{detail} smem={smem}B budget={ffd_scan.SMEM_PER_BLOCK}B")
+    return None
 
 
 def _template_capacity_row(template: Node, ext: tuple = ()) -> np.ndarray:
@@ -251,23 +300,47 @@ def _augment_virtual(
 
 class BinpackingNodeEstimator:
     """Node-count estimator with the reference's Estimate contract. Its
-    scans run on ``device`` (None = the first CUDA card; raises without
-    one unless ``device="cpu"``). ``operand_arena``: an ``OperandArena``
-    that keeps the operands resident across calls (None = plain uploads)."""
+    device rungs run on ``device`` (None = the first CUDA card; raises
+    without one unless ``device="cpu"``).
+
+    ``metrics``: an AutoscalerMetrics (None = no recording). ``ladder``: the
+    circuit-broken rung state (None = a private ``KernelLadder``).
+    ``observatory``: a ``perf.PerfObservatory`` (None = a private one
+    without metrics). ``operand_arena``: an ``OperandArena`` that keeps the
+    operands resident across calls (None = plain uploads)."""
 
     def __init__(
         self,
         limiter: Optional[ThresholdBasedEstimationLimiter] = None,
-        device=None,
+        metrics=None,
+        ladder: Optional[KernelLadder] = None,
+        observatory=None,
         operand_arena=None,
+        fleet_client=None,
+        device=None,
     ):
+        if fleet_client is not None:
+            raise NotImplementedError(
+                "fleet_client: not ported yet (ROADMAP queue 1 item 4, the "
+                "fleet coalescer)"
+            )
         self.limiter = limiter or ThresholdBasedEstimationLimiter()
         self.device = resolve_device(device)
+        self.metrics = metrics
+        self.ladder = ladder or KernelLadder()
+        self.ladder.bind_metrics(metrics)
         self.operand_arena = operand_arena
+        # the one implementation of the compile-vs-execute split; a bare
+        # estimator gets a private metrics-less observatory, StaticAutoscaler
+        # threads in its own (ringed, /perfz-served)
+        self.observatory = observatory or PerfObservatory(
+            metrics=metrics, peak_flops=default_peak_flops(self.device)
+        )
         # decision provenance: the last estimate's constraint attribution,
         # read by the orchestrator into ScaleUpResult.estimator_explain. The
-        # routes park their device operands and verdict in _explain_scratch;
-        # _finish_explain turns them into reason codes.
+        # array-building sites park their numpy operands in _explain_scratch
+        # (a device rung that serves adds its device operands and verdict
+        # under "dev"); _finish_explain turns them into reason codes.
         self.last_explain: Dict = {"groups": {}, "pod_reasons": {}}
         self._explain_scratch: Optional[Dict] = None
 
@@ -279,6 +352,7 @@ class BinpackingNodeEstimator:
             return self.operand_arena.resident(arr, self.device)
         return torch.tensor(arr, device=self.device)
 
+    # -- the single-template entry -------------------------------------------
     def estimate(
         self,
         pods: Sequence[Pod],
@@ -289,6 +363,17 @@ class BinpackingNodeEstimator:
         """→ (node_count, scheduled_pods) for one template."""
         if not pods:
             return 0, []
+        with trace.span(
+            metrics_mod.ESTIMATE, metrics=self.metrics,
+            single_template=True, pods=len(pods),
+        ) as sp:
+            count, scheduled = self._estimate_inner(
+                pods, template, max_size_headroom, cluster
+            )
+            self._finish_explain(pods, {"template": (count, scheduled)}, span=sp)
+            return count, scheduled
+
+    def _estimate_inner(self, pods, template, max_size_headroom, cluster):
         P = bucket_size(len(pods))
         ext = _estimation_schema(pods)
         req = _pack_pods(pods, P, ext)
@@ -299,12 +384,14 @@ class BinpackingNodeEstimator:
         mask = template_mask(pods, template, P, interpod=not dynamic)
         alloc = _template_capacity_row(template, ext)
         req, alloc2d = _augment_virtual(req, pods, alloc[None, :], [template])
+        alloc = alloc2d[0]
+        scratch = self._explain_scratch = {
+            "kind": "pods", "names": ["template"], "req": req,
+            "masks": mask[None, :], "allocs": alloc2d,
+            "involved": np.zeros((P,), bool),
+        }
         cap = self.limiter.node_cap(max_size_headroom)
         max_nodes = bucket_size(cap, minimum=8)
-        req_t = self._tensor(req)
-        masks_t = self._tensor(mask[None, :])
-        allocs_t = self._tensor(alloc2d)
-        involved = np.zeros((P,), bool)
         if dynamic:
             terms = build_affinity_terms(
                 pods, [template], pad_pods=P, bucket_terms=True,
@@ -313,37 +400,77 @@ class BinpackingNodeEstimator:
             sp = build_spread_terms(
                 pods, [template], pad_pods=P, bucket_terms=True, cluster=cluster
             )
-            involved = _involved(terms, sp)
-            res = ffd_binpack_groups_affinity(
-                req_t,
-                masks_t,
-                allocs_t,
-                max_nodes=max_nodes,
-                match=self._tensor(terms.match),
-                aff_of=self._tensor(terms.aff_of),
-                anti_of=self._tensor(terms.anti_of),
-                node_level=self._tensor(terms.node_level),
-                has_label=self._tensor(terms.has_label),
-                node_caps=self._tensor(np.array([cap], np.int32)),
-                spread=_spread_tuple(sp, conv=self._tensor),
-            )
-            sched_t = res.scheduled
-        else:
-            res = ffd_binpack(
-                req_t, masks_t[0], allocs_t[0], max_nodes=max_nodes, node_cap=cap,
-            )
-            sched_t = res.scheduled[None, :]
-        count = int(res.node_count.reshape(-1)[0])
-        scheduled = sched_t[0].cpu().numpy()
-        out = count, [p for i, p in enumerate(pods) if scheduled[i]]
-        self._explain_scratch = {
-            "kind": "pods", "names": ["template"], "req": req_t, "masks": masks_t,
-            "allocs": allocs_t, "involved": self._tensor(involved),
-            "scheduled": sched_t,
-        }
-        self._finish_explain(pods, {"template": out})
-        return out
+            has_spread = bool(sp.sp_of.any())
+            scratch["involved"] = _involved(terms, sp)
 
+            def torch_fn():
+                req_t = self._tensor(req)
+                masks_t = self._tensor(mask[None, :])
+                allocs_t = self._tensor(alloc2d)
+                res = ffd_binpack_groups_affinity(
+                    req_t, masks_t, allocs_t,
+                    max_nodes=max_nodes,
+                    match=self._tensor(terms.match),
+                    aff_of=self._tensor(terms.aff_of),
+                    anti_of=self._tensor(terms.anti_of),
+                    node_level=self._tensor(terms.node_level),
+                    has_label=self._tensor(terms.has_label),
+                    node_caps=self._tensor(np.array([cap], np.int32)),
+                    spread=_spread_tuple(sp, conv=self._tensor),
+                )
+                # the fetch inside the rung's try: an asynchronous device
+                # fault surfaces here, on the ladder
+                out = int(res.node_count.cpu()[0]), res.scheduled[0].cpu().numpy()
+                scratch["dev"] = {
+                    "req": req_t, "masks": masks_t, "allocs": allocs_t,
+                    "scheduled": res.scheduled,
+                }
+                return out
+
+            def host_fn(native: bool):
+                return lambda: self._host_one_affinity(
+                    req, mask, alloc, cap, terms, group_index=0, native=native,
+                )
+
+            steps = [
+                (RUNG_TORCH, "torch_scan", None, torch_fn),
+                (RUNG_NATIVE, "native",
+                 self._host_gate(spread_active=has_spread, need_native=True),
+                 host_fn(True)),
+                (RUNG_PYTHON, "python_ref",
+                 self._host_gate(spread_active=has_spread), host_fn(False)),
+            ]
+        else:
+            def torch_fn():
+                req_t = self._tensor(req)
+                mask_t = self._tensor(mask)
+                alloc_t = self._tensor(alloc)
+                res = ffd_binpack(
+                    req_t, mask_t, alloc_t,
+                    max_nodes=max_nodes,
+                    node_cap=torch.tensor(cap, dtype=torch.int32, device=self.device),
+                )
+                out = int(res.node_count.cpu()), res.scheduled.cpu().numpy()
+                scratch["dev"] = {
+                    "req": req_t, "masks": mask_t[None, :], "allocs": alloc_t[None, :],
+                    "scheduled": res.scheduled[None, :],
+                }
+                return out
+
+            def host_fn(native: bool):
+                return lambda: self._host_one_plain(req, mask, alloc, cap, native=native)
+
+            steps = [
+                (RUNG_TORCH, "torch_single", None, torch_fn),
+                (RUNG_NATIVE, "native", self._host_gate(need_native=True), host_fn(True)),
+                (RUNG_PYTHON, "python_ref", None, host_fn(False)),
+            ]
+        count, scheduled_mask = self._walk_ladder(
+            steps, initial_reason="single_template", forced=(steps[0][1], torch_fn),
+        )
+        return count, [p for i, p in enumerate(pods) if scheduled_mask[i]]
+
+    # -- every group at once -------------------------------------------------
     def estimate_many(
         self,
         pods: Sequence[Pod],
@@ -359,11 +486,51 @@ class BinpackingNodeEstimator:
             self._explain_scratch = None
             self.last_explain = {"groups": {}, "pod_reasons": {}}
             return {g: (0, []) for g in templates}
-        result = self._estimate_many_inner(
-            pods, templates, headrooms, pod_groups, cluster
-        )
-        self._finish_explain(pods, result)
+        # timeline clock, not the wall: under a synthetic clock the elapsed
+        # value — and the over-budget branch below — replay alike
+        t0 = trace.timeline_now()
+        with trace.span(
+            metrics_mod.ESTIMATE, metrics=self.metrics,
+            pods=len(pods), groups=len(templates),
+        ) as sp_est:
+            oa_before = (
+                self.operand_arena.stats() if self.operand_arena is not None else None
+            )
+            result = self._estimate_many_inner(
+                pods, templates, headrooms, pod_groups, cluster
+            )
+            if oa_before is not None:
+                # resident-operand reuse rides the estimate span
+                oa_after = self.operand_arena.stats()
+                sp_est.set_attrs(
+                    operand_hits=oa_after["hits"] - oa_before["hits"],
+                    operand_misses=oa_after["misses"] - oa_before["misses"],
+                )
+            self._finish_explain(pods, result, span=sp_est)
+        elapsed = trace.timeline_now() - t0
+        # the reference budgets max_duration_s PER GROUP; the batched
+        # dispatch covers every group at once, so the budget is per-group ×
+        # groups. Exceeding it is counted and logged, not an abort.
+        budget = self.limiter.max_duration_s * len(templates)
+        over = self.limiter.max_duration_s > 0 and elapsed > budget
+        if self.metrics is not None and over:
+            self.metrics.estimation_over_budget_total.inc()
+        if over:
+            logger.warning(
+                "binpacking dispatch took %.2fs for %d groups — over the "
+                "%.1fs budget (--max-nodegroup-binpacking-duration)",
+                elapsed, len(templates), budget,
+            )
         return result
+
+    def _dedup_skip(self):
+        """The cuda rung's pseudo-gate on the run-compressed routes: the
+        recorded reason is 'dedup' (routing), and the third element marks
+        whether the rung is ALSO host-level unexercisable — off a CUDA
+        device a half-open probe landing on a dedup dispatch must still
+        resolve the breaker closed (the rung can never fault here), while
+        on a card it is released unresolved."""
+        return ("dedup", "", self.device.type != "cuda")
 
     def _estimate_many_inner(self, pods, templates, headrooms, pod_groups, cluster):
         names = sorted(templates)
@@ -380,7 +547,15 @@ class BinpackingNodeEstimator:
         )
         if not dynamic:
             if len(groups) * 2 <= len(pods):
-                return self._estimate_many_runs(groups, names, templates, caps)
+                return self._walk_ladder([
+                    (RUNG_CUDA, "cuda", self._dedup_skip, None),
+                    (RUNG_TORCH, "torch_runs", None,
+                     lambda: self._estimate_many_runs(groups, names, templates, caps)),
+                    (RUNG_NATIVE, "native", self._host_gate(need_native=True),
+                     lambda: self._host_groups_plain(pods, names, templates, caps, True)),
+                    (RUNG_PYTHON, "python_ref", None,
+                     lambda: self._host_groups_plain(pods, names, templates, caps, False)),
+                ])
         elif not vol_comps and len(groups) * 2 <= len(pods):
             # Conflict worlds stay per pod: run compression builds terms
             # from group exemplars, and one exemplar of a set of identical
@@ -391,65 +566,116 @@ class BinpackingNodeEstimator:
                 self._expand_affinity_runs(groups, templates, names, cluster)
             )
             if len(runs) * 2 <= len(pods):
-                return self._estimate_many_runs_affinity(
-                    runs, group_terms, group_of_run, run_inv, names, templates,
-                    caps, group_sp,
-                )
+                has_spread = bool(group_sp.sp_of.any())
+
+                def runs_aff_fn():
+                    return self._estimate_many_runs_affinity(
+                        runs, group_terms, group_of_run, run_inv, names, templates,
+                        caps, group_sp,
+                    )
+
+                return self._walk_ladder([
+                    (RUNG_CUDA, "cuda", self._dedup_skip, None),
+                    (RUNG_TORCH, "torch_runs", None, runs_aff_fn),
+                    (RUNG_NATIVE, "native",
+                     self._host_gate(spread_active=has_spread, need_native=True),
+                     lambda: self._host_groups_affinity(pods, names, templates, caps, True)),
+                    (RUNG_PYTHON, "python_ref",
+                     self._host_gate(spread_active=has_spread),
+                     lambda: self._host_groups_affinity(pods, names, templates, caps, False)),
+                ], forced=("torch_runs", runs_aff_fn))
         P = bucket_size(len(pods))
         req, masks, allocs = _build_group_arrays(
             pods, names, templates, pad=P, interpod=not dynamic
         )
+        self._explain_scratch = {
+            "kind": "pods", "names": names, "req": req, "masks": masks,
+            "allocs": allocs, "involved": np.zeros((P,), bool),
+        }
         scan_cap = bucket_size(int(caps.max()), minimum=8)
         if dynamic:
-            res, ops = self._estimate_many_dynamic(
+            return self._estimate_many_dynamic(
                 pods, names, templates, req, masks, allocs, caps, scan_cap,
                 vol_comps, cluster,
             )
-        else:
-            res, ops = self._estimate_many_plain(req, masks, allocs, caps, scan_cap)
-        self._explain_scratch = {
-            "kind": "pods", "names": names, **ops, "scheduled": res.scheduled,
-        }
+        return self._estimate_many_plain(pods, names, req, masks, allocs, caps, scan_cap)
+
+    def _assemble(self, pods, names, res, dev_ops) -> Dict[str, Tuple[int, List[Pod]]]:
+        """A device rung's result → {group: (count, scheduled pods)}. The
+        host fetch runs INSIDE the serving rung's try: CUDA errors surface
+        at the next synchronization, and they must land on the ladder, not
+        the caller. Parks the rung's device operands and verdict for the
+        attribution."""
         counts = res.node_count.cpu().numpy()
         scheds = res.scheduled.cpu().numpy()
+        self._explain_scratch["dev"] = {**dev_ops, "scheduled": res.scheduled}
         return {
-            g: (
-                int(counts[gi]),
-                [p for i, p in enumerate(pods) if scheds[gi, i]],
-            )
+            g: (int(counts[gi]), [p for i, p in enumerate(pods) if scheds[gi, i]])
             for gi, g in enumerate(names)
         }
 
-    def _estimate_many_plain(self, req, masks, allocs, caps, scan_cap):
-        """The plain per-pod route: the glue's host probe fixes the kernel
-        planes, the shape gate picks K1/K2 or the torch loop, and only the
-        route taken builds its operands, on the estimator's device.
-        → (result, the attribution's operands)."""
-        req_t, masks_t, allocs_t, caps_t = operands_from_numpy(
-            req, masks, allocs, caps, self.device, upload=self._tensor
-        )
-        ops = {
-            "req": req_t, "masks": masks_t, "allocs": allocs_t,
-            "involved": torch.zeros(req.shape[0], dtype=torch.bool, device=self.device),
-        }
-        plan = ffd_scan.plan_scan(req_t, allocs_t)
-        route = scan_route(self.device, plan.planes, scan_cap)
-        ROUTES[route] += 1
-        if route == "ffd_scan":
-            return ffd_scan.ffd_binpack_groups_cuda(
-                req_t, masks_t, allocs_t, max_nodes=scan_cap, node_caps=caps_t, scan_plan=plan
-            ), ops
-        return ffd_binpack_groups(
-            req_t, masks_t, allocs_t, max_nodes=scan_cap, node_caps=caps_t
-        ), ops
+    def _estimate_many_plain(self, pods, names, req, masks, allocs, caps, scan_cap):
+        """The plain per-pod route: K1/K2 (the cuda rung) when the glue's
+        host probe fixes a carry that fits a block, else the torch loop.
+        The operands are uploaded once, at the first device rung that
+        engages, inside its try."""
+        uploaded: Dict[str, torch.Tensor] = {}
+
+        def operands():
+            if not uploaded:
+                req_t, masks_t, allocs_t, caps_t = ffd_scan.operands_from_numpy(
+                    req, masks, allocs, caps, self.device, upload=self._tensor
+                )
+                uploaded.update(req=req_t, masks=masks_t, allocs=allocs_t, caps=caps_t)
+            return uploaded
+
+        planned = {}
+
+        def cuda_gate():
+            ops = operands()
+            planned["plan"] = ffd_scan.plan_scan(ops["req"], ops["allocs"])
+            return plain_gate(self.device, planned["plan"].planes, scan_cap)
+
+        def dev_ops(ops):
+            return {
+                "req": ops["req"], "masks": ops["masks"], "allocs": ops["allocs"],
+                "involved": torch.zeros(req.shape[0], dtype=torch.bool, device=self.device),
+            }
+
+        def cuda_fn():
+            ops = operands()
+            res = ffd_scan.ffd_binpack_groups_cuda(
+                ops["req"], ops["masks"], ops["allocs"], max_nodes=scan_cap,
+                node_caps=ops["caps"], scan_plan=planned.get("plan"),
+            )
+            return self._assemble(pods, names, res, dev_ops(ops))
+
+        def torch_fn():
+            ops = operands()
+            res = ffd_binpack_groups(
+                ops["req"], ops["masks"], ops["allocs"], max_nodes=scan_cap,
+                node_caps=ops["caps"],
+            )
+            return self._assemble(pods, names, res, dev_ops(ops))
+
+        return self._walk_ladder([
+            (RUNG_CUDA, "cuda", cuda_gate, cuda_fn),
+            (RUNG_TORCH, "torch_scan", None, torch_fn),
+            (RUNG_NATIVE, "native", self._host_gate(need_native=True),
+             lambda: self._host_plain_from_arrays(
+                 pods, names, req, masks, allocs, caps, native=True)),
+            (RUNG_PYTHON, "python_ref", None,
+             lambda: self._host_plain_from_arrays(
+                 pods, names, req, masks, allocs, caps, native=False)),
+        ], forced=("torch_scan", torch_fn))
 
     def _estimate_many_dynamic(
         self, pods, names, templates, req, masks, allocs, caps, scan_cap,
         vol_comps, cluster,
     ):
-        """The per-pod dynamic route: term and spread tensors, the shape
-        gate, then K3 or the torch loop on the estimator's device.
-        → (result, the attribution's operands)."""
+        """The per-pod dynamic route: term and spread tensors, then K3 (the
+        cuda rung) behind its shape gate, the torch loop, and the host
+        rungs (not for spread worlds)."""
         P = req.shape[0]
         tmpl_list = [templates[g] for g in names]
         terms = build_affinity_terms(
@@ -463,27 +689,74 @@ class BinpackingNodeEstimator:
         # term, not S > 0 (padded terms are inert)
         has_spread = bool(sp.sp_of.any())
         spread = _spread_tuple(sp)
-        route = kernel_route(
-            self.device, req.shape[1], terms.match.shape[0],
-            sp.num_terms if has_spread else 0, scan_cap,
-        )
-        ROUTES[route] += 1
-        ops = ffd_scan_affinity.affinity_operands_from_numpy(
-            req, masks, allocs, terms.match, terms.aff_of, terms.anti_of,
-            terms.node_level, terms.has_label, caps,
-            spread=spread if has_spread or route == "affinity_loop" else None,
-            device=self.device, upload=self._tensor,
-        )
-        explain_ops = {
-            "req": ops["pod_req"], "masks": ops["pod_masks"],
-            "allocs": ops["template_allocs"],
-            "involved": self._tensor(_involved(terms, sp)),
-        }
-        if route == "ffd_scan_aff":
-            return ffd_scan_affinity.ffd_binpack_groups_affinity_cuda(
+        involved = _involved(terms, sp)
+        self._explain_scratch["involved"] = involved
+        uploaded: Dict[str, object] = {}
+
+        def operands(with_spread: bool) -> dict:
+            """The kernel operands on the device, uploaded once (the
+            spread tuple at the first rung that reads it)."""
+            if "base" not in uploaded:
+                uploaded["base"] = ffd_scan_affinity.affinity_operands_from_numpy(
+                    req, masks, allocs, terms.match, terms.aff_of, terms.anti_of,
+                    terms.node_level, terms.has_label, caps,
+                    device=self.device, upload=self._tensor,
+                )
+            ops = dict(uploaded["base"])
+            if with_spread:
+                if "spread" not in uploaded:
+                    uploaded["spread"] = tuple(
+                        self._tensor(np.asarray(a, dt))
+                        for a, dt in zip(spread, ffd_scan_affinity.SPREAD_DTYPES)
+                    )
+                ops["spread"] = uploaded["spread"]
+            return ops
+
+        def dev_ops(ops):
+            return {
+                "req": ops["pod_req"], "masks": ops["pod_masks"],
+                "allocs": ops["template_allocs"],
+                # a plain upload: the attribution's own operand, which the
+                # operand arena does not keep (as the JAX package's)
+                "involved": torch.tensor(involved, device=self.device),
+            }
+
+        def cuda_gate():
+            return affinity_gate(
+                self.device, req.shape[1], terms.match.shape[0],
+                sp.num_terms if has_spread else 0, scan_cap,
+            )
+
+        def cuda_fn():
+            ops = operands(with_spread=has_spread)
+            res = ffd_scan_affinity.ffd_binpack_groups_affinity_cuda(
                 **ops, max_nodes=scan_cap
-            ), explain_ops
-        return ffd_binpack_groups_affinity(**ops, max_nodes=scan_cap), explain_ops
+            )
+            return self._assemble(pods, names, res, dev_ops(ops))
+
+        def torch_fn():
+            ops = operands(with_spread=True)
+            res = ffd_binpack_groups_affinity(
+                ops["pod_req"], ops["pod_masks"], ops["template_allocs"],
+                max_nodes=scan_cap, spread=ops["spread"], match=ops["match"],
+                aff_of=ops["aff_of"], anti_of=ops["anti_of"],
+                node_level=ops["node_level"], has_label=ops["has_label"],
+                node_caps=ops["node_caps"],
+            )
+            return self._assemble(pods, names, res, dev_ops(ops))
+
+        return self._walk_ladder([
+            (RUNG_CUDA, "cuda_affinity", cuda_gate, cuda_fn),
+            (RUNG_TORCH, "torch_scan", None, torch_fn),
+            (RUNG_NATIVE, "native",
+             self._host_gate(spread_active=has_spread, need_native=True),
+             lambda: self._host_affinity_from_arrays(
+                 pods, names, req, masks, allocs, caps, terms, native=True)),
+            (RUNG_PYTHON, "python_ref",
+             self._host_gate(spread_active=has_spread),
+             lambda: self._host_affinity_from_arrays(
+                 pods, names, req, masks, allocs, caps, terms, native=False)),
+        ], forced=("torch_scan", torch_fn))
 
     def _estimate_many_runs(
         self,
@@ -508,6 +781,12 @@ class BinpackingNodeEstimator:
         run_req, allocs = _augment_virtual(
             run_req, exemplars, allocs, [templates[g] for g in names]
         )
+        members = [g.pods for g in groups]
+        scratch = self._explain_scratch = {
+            "kind": "runs", "names": names, "req": run_req, "masks": masks,
+            "allocs": allocs, "counts": run_counts, "members": members,
+            "involved": np.zeros((U,), bool),
+        }
         run_req_t, counts_t = self._tensor(run_req), self._tensor(run_counts)
         masks_t, allocs_t = self._tensor(masks), self._tensor(allocs)
         res = ffd_binpack_groups_runs(
@@ -518,14 +797,13 @@ class BinpackingNodeEstimator:
             max_nodes=bucket_size(int(caps.max()), minimum=8),
             node_caps=self._tensor(caps),
         )
-        members = [g.pods for g in groups]
-        self._explain_scratch = {
-            "kind": "runs", "names": names, "req": run_req_t, "masks": masks_t,
-            "allocs": allocs_t, "counts": counts_t, "members": members,
+        out = _expand_run_result(res, members, names)
+        scratch["dev"] = {
+            "req": run_req_t, "masks": masks_t, "allocs": allocs_t, "counts": counts_t,
             "involved": torch.zeros(U, dtype=torch.bool, device=self.device),
             "placed": res.placed_counts,
         }
-        return _expand_run_result(res, members, names)
+        return out
 
     @staticmethod
     def _expand_affinity_runs(
@@ -552,10 +830,7 @@ class BinpackingNodeEstimator:
         spread = build_spread_terms(
             exemplars, tmpl_list, bucket_terms=True, cluster=cluster
         )
-        inv = (
-            (terms.match | terms.aff_of | terms.anti_of).any(axis=0)
-            | (spread.sp_of | spread.sp_match).any(axis=0)
-        )
+        inv = _involved(terms, spread)
         runs: List[Tuple[Pod, List[Pod]]] = []
         group_of_run: List[int] = []
         for gi, grp in enumerate(groups):
@@ -602,6 +877,12 @@ class BinpackingNodeEstimator:
         )
         involved = np.zeros((U,), bool)
         involved[: len(runs)] = run_inv
+        members = [m for _, m in runs]
+        scratch = self._explain_scratch = {
+            "kind": "runs", "names": names, "req": run_req, "masks": masks,
+            "allocs": allocs, "counts": run_counts, "members": members,
+            "involved": involved,
+        }
 
         def to_runs(col_mat: np.ndarray) -> np.ndarray:
             out = np.zeros((col_mat.shape[0], U), bool)
@@ -631,29 +912,298 @@ class BinpackingNodeEstimator:
             node_caps=self._tensor(caps),
             spread=_spread_tuple(run_sp, conv=self._tensor),
         )
-        members = [m for _, m in runs]
-        self._explain_scratch = {
-            "kind": "runs", "names": names, "req": run_req_t, "masks": masks_t,
-            "allocs": allocs_t, "counts": counts_t, "members": members,
+        out = _expand_run_result(res, members, names)
+        scratch["dev"] = {
+            "req": run_req_t, "masks": masks_t, "allocs": allocs_t, "counts": counts_t,
             "involved": involved_t, "placed": res.placed_counts,
         }
-        return _expand_run_result(res, members, names)
+        return out
+
+    # -- the kernel ladder (utils/circuit.py + estimator/ladder.py) ----------
+    def _note_route(self, route: str, reason: str, detail: str = "") -> None:
+        """Record which route served a dispatch (the metric always; one log
+        line when a dispatch lost its kernel to a real cliff — smem,
+        spread_width, a fault — so a fast path lost to a shape stays
+        visible)."""
+        if self.metrics is not None:
+            self.metrics.estimator_kernel_route_total.inc(route=route, reason=reason)
+        if reason in ("smem", "spread_width", "kernel_fault", "device_lost"):
+            logger.info(
+                "estimator dispatch fell back to %s (%s)%s",
+                route, reason, f": {detail}" if detail else "",
+            )
+
+    def _walk_ladder(self, steps, initial_reason: str = "ok", forced=None):
+        """Walk one dispatch down the kernel ladder.
+
+        ``steps`` is an ordered list of ``(rung, route_label, gate, fn)``:
+        ``gate()`` returns None when the rung can serve this dispatch, else
+        ``(reason, detail[, host_level])`` — an environmental skip that
+        leaves the rung's breaker closed; ``fn()`` computes the result
+        (raising records a breaker failure). A rung whose breaker is OPEN is
+        skipped outright until its cooldown admits a half-open probe. The
+        serving rung's route metric carries the most recent skip or failure
+        reason, so cuda→torch→native transitions are visible per dispatch.
+
+        On a CUDA device the cuda rung of a kernel dispatch (``fn`` not
+        None: not the dedup pseudo-step) is strict: its faults are recorded
+        and raised, and an open breaker raises, so a broken kernel fails the
+        tick instead of being served by the torch loop or the host rungs.
+
+        ``forced`` = (label, fn) runs off a CUDA device when every rung was
+        skipped or failed (e.g. a topology-spread dispatch, which no host
+        rung supports, with the device rungs broken): the breaker is
+        bypassed and exceptions propagate to the crash-only control loop.
+
+        Every rung engagement is one ``deviceDispatch`` span (attributes:
+        rung, outcome, reason), siblings under the ``estimate`` span."""
+        on_card = self.device.type == "cuda"
+        reason, detail = initial_reason, ""
+        for rung, label, gate, fn in steps:
+            strict = on_card and rung == RUNG_CUDA and fn is not None
+            then = "raising" if strict else "descending the ladder"
+            with trace.span(
+                metrics_mod.DEVICE_DISPATCH, metrics=self.metrics, rung=rung
+            ) as sp:
+                engaged = self.ladder.begin(rung)
+                if engaged == "breaker_open":
+                    reason, detail = "breaker_open", f"{rung} rung breaker open"
+                    sp.set_attrs(outcome="skipped", reason="breaker_open")
+                    if strict:
+                        raise AutoscalerError(
+                            ErrorType.INTERNAL,
+                            "the cuda rung's breaker is open after kernel faults; "
+                            "on a CUDA device the kernels have no fallback",
+                        )
+                    continue
+                if engaged is not None:  # an injected device-fault kind
+                    logger.warning(
+                        "%s kernel rung failed (injected %s); %s", rung, engaged, then,
+                    )
+                    reason, detail = engaged, f"injected {engaged} on {rung} rung"
+                    sp.set_attrs(outcome="fault", reason=engaged)
+                    if strict:
+                        raise AutoscalerError(ErrorType.INTERNAL, detail)
+                    continue
+                try:
+                    skip = gate() if gate is not None else None
+                except Exception:  # noqa: BLE001 — a raising gate (a failed
+                    # kernel build, a device fault while probing) is a rung
+                    # failure: the begin() above MUST be resolved, or a held
+                    # half-open probe slot would leak and wedge the rung
+                    self.ladder.record_failure(rung)
+                    logger.warning(
+                        "%s rung availability gate raised; %s", rung, then,
+                        exc_info=True,
+                    )
+                    reason, detail = "kernel_fault", f"{rung} gate raised"
+                    sp.set_attrs(outcome="fault", reason="gate_raised")
+                    if strict:
+                        raise
+                    continue
+                if skip is None and fn is None:
+                    skip = ("unsupported", f"{rung} rung has no twin for this dispatch")
+                if skip is not None:
+                    # a gate may append an explicit host-level flag (third
+                    # element) when the recorded reason is dispatch-level
+                    # routing but the rung is ALSO host-level unexercisable
+                    host_level = (
+                        skip[2] if len(skip) > 2 else skip[0] in HOST_LEVEL_SKIP_REASONS
+                    )
+                    reason, detail = skip[0], skip[1]
+                    if host_level:
+                        # static for this process: a probe landing here closes
+                        # the breaker (the rung can never fault on this host)
+                        self.ladder.record_unavailable(rung)
+                    else:
+                        # dispatch-level routing: release a held probe slot
+                        # unresolved
+                        self.ladder.record_skipped_dispatch(rung)
+                    sp.set_attrs(outcome="unavailable", reason=reason)
+                    continue
+                try:
+                    out = self._dispatch(label, fn, sp)
+                except Exception:  # noqa: BLE001 — any kernel failure descends
+                    # off the card, and raises on it (strict)
+                    self.ladder.record_failure(rung)
+                    logger.warning("%s kernel rung failed; %s", rung, then, exc_info=True)
+                    reason, detail = "kernel_fault", f"{rung} kernel raised"
+                    sp.set_attrs(outcome="fault", reason="kernel_raised")
+                    if strict:
+                        raise
+                    continue
+                self.ladder.record_success(rung)
+                sp.set_attrs(outcome="ok", route=label, fallback_reason=reason)
+                self._note_route(label, reason, detail)
+                return out
+        if forced is not None and not on_card:
+            label, fn = forced
+            logger.error(
+                "every kernel rung skipped or failed (last: %s); forcing the "
+                "%s dispatch despite its breaker", reason, label,
+            )
+            with trace.span(
+                metrics_mod.DEVICE_DISPATCH, metrics=self.metrics,
+                rung="forced", route=label,
+            ) as sp:
+                out = self._dispatch(label, fn, sp)
+                sp.set_attrs(outcome="ok")
+            self._note_route(label, "forced", detail)
+            return out
+        raise AutoscalerError(
+            ErrorType.INTERNAL,
+            f"no kernel rung could serve the dispatch (last: {reason})",
+        )
+
+    def _dispatch(self, label: str, fn, sp):
+        """Run one rung under a ``torch.profiler.record_function`` named
+        after the route (the span's name on a captured profile; free when
+        no profiler runs) and hand the dispatch to the perf observatory,
+        which records the compile-vs-execute split per (route, shape
+        signature) as span attributes. The kernel-entry observer seam
+        (ops/telemetry.kernel_observer) hands the observatory the concrete
+        call. The wall comes from ``trace.timeline_now()``, the tracer's
+        injectable clock, so under a synthetic clock the attrs replay
+        alike."""
+        obs = self.observatory
+        # a prior rung that faulted after its kernel entry was observed
+        # must not leak its call onto this rung's record
+        obs.clear_pending()
+        t0 = trace.timeline_now()
+        with kernel_observer(obs.note_kernel):
+            with torch.profiler.record_function(f"autoscaler/estimator/{label}"):
+                out = fn()
+        obs.on_dispatch(label, trace.timeline_now() - t0, span=sp)
+        return out
+
+    @staticmethod
+    def _host_gate(spread_active: bool = False, need_native: bool = False):
+        """Availability gate for the host rungs. Topology-spread counting
+        has no host twin: spread dispatches bottom out at the torch rung.
+        The affinity term factorization (incl. synthetic volume-conflict
+        terms) IS supported on both host rungs."""
+        def gate():
+            if spread_active:
+                return ("spread_unsupported", "host rungs lack topology-spread counting")
+            if need_native and not native_bridge.available():
+                return ("native_unavailable", str(native_bridge.build_error()))
+            return None
+
+        return gate
+
+    def _host_plain_from_arrays(
+        self, pods, names, req, masks, allocs, caps, native: bool
+    ) -> Dict[str, Tuple[int, List[Pod]]]:
+        """Host rungs, plain family: serial FFD per group over the SAME
+        numpy arrays the device rungs upload (never a device tensor: after
+        a device fault the context may be unusable). All rungs share the
+        one FFD order spec, so the answer is rung-independent."""
+        out: Dict[str, Tuple[int, List[Pod]]] = {}
+        for gi, g in enumerate(names):
+            count, sched = self._host_one_plain(
+                req, masks[gi], allocs[gi], int(caps[gi]), native
+            )
+            out[g] = (count, [p for i, p in enumerate(pods) if sched[i]])
+        return out
+
+    def _host_affinity_from_arrays(
+        self, pods, names, req, masks, allocs, caps, terms, native: bool
+    ) -> Dict[str, Tuple[int, List[Pod]]]:
+        """Host rungs, affinity family (term factorization; spread gated
+        upstream by _host_gate)."""
+        out: Dict[str, Tuple[int, List[Pod]]] = {}
+        for gi, g in enumerate(names):
+            count, sched = self._host_one_affinity(
+                req, masks[gi], allocs[gi], int(caps[gi]), terms,
+                group_index=gi, native=native,
+            )
+            out[g] = (count, [p for i, p in enumerate(pods) if sched[i]])
+        return out
+
+    def _host_groups_plain(
+        self, pods, names, templates, caps, native: bool
+    ) -> Dict[str, Tuple[int, List[Pod]]]:
+        """Per-pod array build for the host rungs when the dispatch had
+        chosen run compression: built lazily so the healthy path never
+        pays the P-sized packing twice."""
+        req, masks, allocs = _build_group_arrays(pods, names, templates)
+        self._explain_scratch = {
+            "kind": "pods", "names": list(names), "req": req, "masks": masks,
+            "allocs": allocs, "involved": np.zeros((len(pods),), bool),
+        }
+        return self._host_plain_from_arrays(pods, names, req, masks, allocs, caps, native)
+
+    def _host_groups_affinity(
+        self, pods, names, templates, caps, native: bool
+    ) -> Dict[str, Tuple[int, List[Pod]]]:
+        req, masks, allocs = _build_group_arrays(pods, names, templates, interpod=False)
+        terms = build_affinity_terms(
+            pods, [templates[g] for g in names], pad_pods=len(pods),
+            volume_components=(),  # the runs-affinity route excludes conflicts
+        )
+        self._explain_scratch = {
+            "kind": "pods", "names": list(names), "req": req, "masks": masks,
+            "allocs": allocs,
+            "involved": (terms.match | terms.aff_of | terms.anti_of).any(axis=0),
+        }
+        return self._host_affinity_from_arrays(
+            pods, names, req, masks, allocs, caps, terms, native
+        )
+
+    @staticmethod
+    def _host_one_plain(req, mask, alloc, cap, native: bool):
+        """One template on a host rung → (count, scheduled mask)."""
+        if native:
+            count, sched = native_bridge.ffd_binpack_native(
+                req, mask, alloc, int(cap), cpu_axis=CPU, mem_axis=MEMORY
+            )
+        else:
+            count, sched = ffd_binpack_reference(req, mask, alloc, int(cap))
+        return int(count), sched
+
+    @staticmethod
+    def _host_one_affinity(req, mask, alloc, cap, terms, group_index: int, native: bool):
+        hl = terms.has_label[group_index]
+        if native:
+            count, sched = native_bridge.ffd_binpack_affinity_native(
+                req, mask, alloc, int(cap), terms.match, terms.aff_of, terms.anti_of,
+                terms.node_level, hl, cpu_axis=CPU, mem_axis=MEMORY,
+            )
+        else:
+            count, sched = ffd_binpack_reference_affinity(
+                req, mask, alloc, int(cap), terms.match, terms.aff_of, terms.anti_of,
+                terms.node_level, hl,
+            )
+        return int(count), sched
 
     # -- decision provenance (explain/) ---------------------------------------
-    def _finish_explain(self, pods, result) -> None:
-        """Turn the serving route's parked operands and verdict into
+    def _finish_explain(self, pods, result, span=None) -> None:
+        """Turn the serving rung's parked operands and verdict into
         ``last_explain``: per-group fit counts with rejection-reason
         histograms, and each pod's dominant reason (the closest it came to
-        scheduling anywhere). A pure function of the packed operands, so
-        the DecisionRecord built from it is the JAX package's."""
+        scheduling anywhere). Rung-independent — the packed arrays are the
+        same whichever rung served — and a pure function of them, so the
+        DecisionRecord built from it is the JAX package's."""
         scratch, self._explain_scratch = self._explain_scratch, None
         if scratch is None or not pods:
             self.last_explain = {"groups": {}, "pod_reasons": {}}
             return
+        try:
+            hist, dom = self._attribution_device(scratch, pods, result)
+        except Exception:  # noqa: BLE001 — attribution is observability: it
+            # must never take down a decision the ladder already salvaged
+            logger.warning(
+                "attribution kernel failed; using the serial oracle twin",
+                exc_info=True,
+            )
+            hist, dom = self._attribution_host(scratch, pods, result)
         if scratch["kind"] == "runs":
-            hist, pod_reasons = self._explain_runs(scratch)
+            pod_reasons = {
+                p.key(): reason_name(int(dom[u]))
+                for u, members in enumerate(scratch["members"]) for p in members
+            }
         else:
-            hist, pod_reasons = self._explain_pods(scratch, pods)
+            pod_reasons = {p.key(): reason_name(int(dom[i])) for i, p in enumerate(pods)}
         groups: Dict[str, Dict] = {}
         for gi, g in enumerate(scratch["names"]):
             count, sched = result.get(g, (0, []))
@@ -663,46 +1213,105 @@ class BinpackingNodeEstimator:
                 "reasons": reason_histogram(hist[gi]),
             }
         self.last_explain = {"groups": groups, "pod_reasons": pod_reasons}
+        if span is not None:
+            totals: Dict[str, int] = {}
+            for verdict in groups.values():
+                for rname, count in verdict["reasons"].items():
+                    totals[rname] = totals.get(rname, 0) + count
+            if totals:
+                top = sorted(totals.items(), key=lambda kv: (-kv[1], kv[0]))[0]
+                span.set_attrs(
+                    explain_top_rejection=f"{top[0]}={top[1]}",
+                    explain_rejections=sum(totals.values()),
+                )
+
+    def _attribution_device(self, scratch, pods, result):
+        """(hist [G, NUM_REASONS], dominant [P]) as numpy: one batched pass
+        on the estimator's device over the serving device rung's operands
+        and verdict (plain uploads of the numpy ones when a host rung
+        served; the operand arena keeps only the kernels' operands), then
+        two small fetches. Run routes: a run counts as scheduled when
+        every member placed, and the histogram weights are the unplaced
+        member counts ('memory=40' means forty pods); pod routes: padding
+        rows count as unplaced with zero weight."""
+        dev = scratch.get("dev", {})
+
+        def upload(arr):
+            return torch.tensor(arr, device=self.device)
+
+        def operand(key):
+            return dev[key] if key in dev else upload(scratch[key])
+
+        if scratch["kind"] == "runs":
+            counts = operand("counts")[None, :]
+            placed = dev["placed"] if "placed" in dev else upload(_run_placed(scratch, result))
+            placed = torch.minimum(placed, counts)
+            weights = (counts - placed).clamp(min=0).to(torch.int32)
+            scheduled = placed >= counts
+        else:
+            sched = (dev["scheduled"] if "scheduled" in dev
+                     else upload(_pod_verdict(scratch, pods, result)))
+            G, P_pad = sched.shape
+            valid = torch.arange(P_pad, device=sched.device) < len(pods)
+            weights = valid.to(torch.int32).expand(G, P_pad)
+            scheduled = sched & valid
+        reasons = attribute_unschedulable(
+            operand("req"), operand("masks"), operand("allocs"), scheduled,
+            operand("involved"),
+        )
+        hist, dom = attribution_summary(reasons, weights)
+        return hist.cpu().numpy(), dom.cpu().numpy()
 
     @staticmethod
-    def _attribution(scratch, scheduled, weights):
-        """(hist [G, NUM_REASONS], dominant [P]) as numpy: one batched pass
-        on the operands' device, then two small fetches."""
-        reasons = attribute_unschedulable(
+    def _attribution_host(scratch, pods, result):
+        """The serial oracle twin of ``_attribution_device`` on the numpy
+        operands, the verdict rebuilt from the result on the host (no
+        device tensor is read)."""
+        if scratch["kind"] == "runs":
+            counts = np.asarray(scratch["counts"], np.int64)[None, :]
+            placed = _run_placed(scratch, result)
+            scheduled = placed >= counts     # pad slots: 0 >= 0 → inert
+            weights = np.maximum(counts - placed, 0).astype(np.int32)
+        else:
+            scheduled = _pod_verdict(scratch, pods, result)
+            weights = np.zeros(scheduled.shape, np.int32)
+            weights[:, : len(pods)] = 1
+        reasons = attribute_unschedulable_reference(
             scratch["req"], scratch["masks"], scratch["allocs"], scheduled,
             scratch["involved"],
         )
-        hist, dom = attribution_summary(reasons, weights)
-        return hist.cpu().numpy(), dom.cpu().tolist()
+        hist = np.stack(
+            [np.sum(np.where(reasons == code, weights, 0), axis=1)
+             for code in range(NUM_REASONS)],
+            axis=1,
+        )
+        return hist, reasons.min(axis=0)
 
-    def _explain_pods(self, scratch, pods):
-        """Per-pod attribution over the route's [G, P_pad] verdict; padding
-        rows count as unplaced with zero weight, so they never reach a
-        histogram."""
-        sched = scratch["scheduled"]
-        G, P_pad = sched.shape
-        valid = torch.arange(P_pad, device=sched.device) < len(pods)
-        weights = valid.to(torch.int32).expand(G, P_pad)
-        hist, dom = self._attribution(scratch, sched & valid, weights)
-        pod_reasons = {p.key(): reason_name(dom[i]) for i, p in enumerate(pods)}
-        return hist, pod_reasons
 
-    def _explain_runs(self, scratch):
-        """Run-compressed attribution: a run counts as scheduled when every
-        member placed; histogram weights are the unplaced member counts, so
-        'memory=40' means forty pods, not one run of forty. Every member
-        inherits the run's dominant reason (members are interchangeable by
-        the equivalence-group construction)."""
-        counts = scratch["counts"][None, :]
-        placed = torch.minimum(scratch["placed"], counts)
-        weights = (counts - placed).clamp(min=0).to(torch.int32)
-        hist, dom = self._attribution(scratch, placed >= counts, weights)
-        pod_reasons: Dict[str, str] = {}
-        for u, members in enumerate(scratch["members"]):
-            rname = reason_name(dom[u])
-            for p in members:
-                pod_reasons[p.key()] = rname
-        return hist, pod_reasons
+def _pod_verdict(scratch, pods, result) -> np.ndarray:
+    """[G, P_pad] bool — the scheduled matrix of a pod route, rebuilt from
+    the result's lists by object identity."""
+    idx_of = {id(p): i for i, p in enumerate(pods)}
+    scheduled = np.zeros((len(scratch["names"]), scratch["req"].shape[0]), bool)
+    for gi, g in enumerate(scratch["names"]):
+        for p in result.get(g, (0, []))[1]:
+            i = idx_of.get(id(p))
+            if i is not None:
+                scheduled[gi, i] = True
+    return scheduled
+
+
+def _run_placed(scratch, result) -> np.ndarray:
+    """[G, U_pad] i32 — members placed per run, rebuilt from the result's
+    lists by object identity."""
+    run_of = {id(p): u for u, mem in enumerate(scratch["members"]) for p in mem}
+    placed = np.zeros((len(scratch["names"]), scratch["req"].shape[0]), np.int32)
+    for gi, g in enumerate(scratch["names"]):
+        for p in result.get(g, (0, []))[1]:
+            u = run_of.get(id(p))
+            if u is not None:
+                placed[gi, u] += 1
+    return placed
 
 
 def _involved(terms, sp) -> np.ndarray:
@@ -716,7 +1325,8 @@ def _involved(terms, sp) -> np.ndarray:
 
 def _expand_run_result(res, members: List[List[Pod]], names: List[str]):
     """A run scan's result → {group: (node_count, scheduled pods)}: 'k of
-    this run placed' expands to the run's first k member pods."""
+    this run placed' expands to the run's first k member pods. The host
+    fetch runs inside the serving rung's try."""
     counts = res.node_count.cpu().numpy()
     placed = res.placed_counts.cpu().numpy()
     out: Dict[str, Tuple[int, List[Pod]]] = {}

@@ -18,7 +18,9 @@ in-memory ``FakeClusterAPI``. Not ported yet, and refused with exit code 2
 and a message naming the ROADMAP item: the gce, externalgrpc,
 externalgrpc-ref and clusterapi providers, ``--kube-api``, ``--kubeconfig``
 and ``--leader-elect`` (queue 1, the serving paths item). ``/perfz``
-answers 501 (queue 1, the estimator services item).
+serves the perf observatory's per-tick records (``--perf-enabled``), with
+the cost model behind ``--perf-cost-model``; ``/health-check``, ``/status``
+and the status ConfigMap report the estimator's tripped kernel rungs.
 ``--compile-cache-dir`` is accepted and has no effect: the port's kernels
 build into ``build/kernels/`` of the checkout at first use.
 """
@@ -271,9 +273,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "telemetry, cost model, residency; the observatory "
                         "itself always runs, bounded)")
     p.add_argument("--perf-cost-model", type=_bool_flag, default=False,
-                   help="capture the XLA cost model per new (kernel route, "
-                        "shape signature) — one extra AOT compile per new "
-                        "signature, process-cached")
+                   help="record the cost model (bytes and operations of the "
+                        "route's search, from the call's shapes) per new "
+                        "(kernel route, shape signature)")
     p.add_argument("--perf-ring-size", type=int, default=64,
                    help="how many recent per-tick perf records the "
                         "in-memory ring keeps")
@@ -637,13 +639,39 @@ class ObservabilityServer:
                     else:
                         self._send(200, rec.list_json(), "application/json")
                 elif self.path.startswith("/perfz"):
-                    # the perf observatory is not ported: say so, never a
-                    # silent empty ring
-                    self._send(
-                        501,
-                        "perf observatory not ported yet (ROADMAP queue 1, "
-                        "the estimator services item)",
+                    # perf observatory (autoscaler_tpu_torch/perf): gated
+                    # like /tracez — the observatory always records, the
+                    # endpoint is the opt-out
+                    obs = getattr(autoscaler, "observatory", None)
+                    enabled = getattr(
+                        autoscaler.options, "perf_enabled", True
                     )
+                    if obs is None or not enabled:
+                        self._send(
+                            404, "perf observatory disabled (--perf-enabled)"
+                        )
+                        return
+                    from urllib.parse import parse_qs, urlparse
+
+                    url = urlparse(self.path)
+                    if url.path.rstrip("/") not in ("", "/perfz"):
+                        self._send(404, "not found")
+                        return
+                    q = parse_qs(url.query)
+                    raw_tick = q.get("tick", [None])[0]
+                    if raw_tick is not None:
+                        try:
+                            tick = int(raw_tick)
+                        except ValueError:
+                            self._send(400, f"bad tick {raw_tick!r}")
+                            return
+                        body = obs.detail_json(tick)
+                        if body is None:
+                            self._send(404, f"no perf record for tick {tick}")
+                            return
+                        self._send(200, body, "application/json")
+                    else:
+                        self._send(200, obs.list_json(), "application/json")
                 elif self.path.startswith("/explainz"):
                     # decision explainer (autoscaler_tpu/explain): gated
                     # like /perfz — the explainer always records, the

@@ -14,11 +14,14 @@ group's cap.
 The JAX versions are ``lax.scan``s; here each is a Python loop over the
 pod (or run) axis whose body is vectorized over node groups and nodes. The
 arithmetic is the same IEEE f32 mul, add, sub and compare sequence as the
-XLA scans, so results are bit-identical on the same operands. The hot
-plain route of the estimator does not come here: it runs the hand-written
-scan kernels of ``ops/ffd_scan.py``, and its per-pod dynamic route runs
-the kernel of ``ops/ffd_scan_affinity.py`` unless the term state is too
-wide for it.
+XLA scans, so results are bit-identical on the same operands. These
+loops are the estimator's torch rung (``estimator/ladder.py``): on a CUDA
+card its per-pod routes run the hand-written kernels of
+``ops/ffd_scan.py`` and ``ops/ffd_scan_affinity.py`` (the cuda rung) and
+come here only when a kernel's carry is too wide for it or its rung is
+tripped; on the CPU the torch rung serves. The run-compressed routes and
+the single-template estimate always come here. Each entry is ``@observed``
+(``ops/telemetry.py``), so the perf observatory sees its calls.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from autoscaler_tpu_torch.explain.reasons import (
     REASON_TOPOLOGY,
 )
 from autoscaler_tpu_torch.kube.objects import CPU, MEMORY, PODS
+from autoscaler_tpu_torch.ops.telemetry import observed
 
 BIG_I32 = 2**30  # "no domain yet" sentinel in the spread minimums
 
@@ -86,6 +90,7 @@ def _caps(node_caps: Optional[torch.Tensor], G: int, max_nodes: int, device):
     return torch.clamp(node_caps.to(torch.int32), max=max_nodes)
 
 
+@observed
 def ffd_binpack(
     pod_req: torch.Tensor,         # [P, R] f32
     pod_mask: torch.Tensor,        # [P] bool
@@ -132,6 +137,7 @@ def ffd_binpack(
     return BinpackResult(node_count=opened, scheduled=scheduled, node_used=used)
 
 
+@observed
 def ffd_binpack_groups(
     pod_req: torch.Tensor,          # [P, R] f32 shared pending-pod matrix
     pod_masks: torch.Tensor,        # [G, P] bool per-group schedulability
@@ -198,6 +204,7 @@ def _max_fit(q: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
     return torch.where(fits_k(cnt + 1), cnt + 1, cnt)
 
 
+@observed
 def ffd_binpack_groups_runs(
     run_req: torch.Tensor,          # [U, R] f32 unique pod-requirement rows
     run_counts: torch.Tensor,       # [U] i32 — identical pods per run
@@ -350,6 +357,7 @@ def _term_state_init(G: int, T: int, max_nodes: int, device):
     return z(G, T, max_nodes), z(G, T), z(G, T, max_nodes), z(G, T)
 
 
+@observed
 def ffd_binpack_groups_runs_affinity(
     run_req: torch.Tensor,          # [U, R] f32 unique pod-requirement rows
     run_counts: torch.Tensor,       # [U] i32 — identical pods per run
@@ -457,6 +465,7 @@ def ffd_binpack_groups_runs_affinity(
     )
 
 
+@observed
 def ffd_binpack_groups_affinity(
     pod_req: torch.Tensor,          # [P, R] f32 shared pending-pod matrix
     pod_masks: torch.Tensor,        # [G, P] bool static mask
@@ -553,6 +562,7 @@ def _over(pod_req: torch.Tensor, template_allocs: torch.Tensor, r: int) -> torch
     return pod_req[None, :, r] > template_allocs[:, r, None]
 
 
+@observed
 def attribute_unschedulable(
     pod_req: torch.Tensor,          # [P, R] f32 shared pending-pod matrix
     pod_masks: torch.Tensor,        # [G, P] bool per-group schedulability

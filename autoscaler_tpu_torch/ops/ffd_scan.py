@@ -39,6 +39,7 @@ import torch
 from autoscaler_tpu_torch.device import resolve_device
 from autoscaler_tpu_torch.ops import _build
 from autoscaler_tpu_torch.ops.binpack import BinpackResult, score_order
+from autoscaler_tpu_torch.ops.telemetry import observed
 
 BIG_I32 = 2**31 - 1
 STEP_BLOCK = 32  # the kernels stage 32 steps at a time: P pads to a multiple
@@ -571,6 +572,7 @@ def finish_scan(ops: ScanOperands, free, opened, placed) -> BinpackResult:
     )
 
 
+@observed
 def ffd_binpack_groups_cuda(
     pod_req: torch.Tensor,          # [P, R] f32
     pod_masks: torch.Tensor,        # [G, P] bool

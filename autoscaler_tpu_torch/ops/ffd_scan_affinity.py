@@ -56,6 +56,7 @@ from autoscaler_tpu_torch.ops.ffd_scan import (
     _search_counts,
     clamp_inf_allocs,
 )
+from autoscaler_tpu_torch.ops.telemetry import observed
 
 MAX_SPREAD = 32          # the spread bitset payload is one int32 plane
 GROUP_WARPS = 8          # warps of each group's block (kWarps in csrc/ffd_scan_affinity.cu)
@@ -494,6 +495,7 @@ def finish_scan_aff(ops: AffScanOperands, free, opened, placed) -> BinpackResult
     )
 
 
+@observed
 def ffd_binpack_groups_affinity_cuda(
     pod_req: torch.Tensor,          # [P, R] f32
     pod_masks: torch.Tensor,        # [G, P] bool

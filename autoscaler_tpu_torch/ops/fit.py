@@ -10,8 +10,11 @@ comparison stays dynamic, because node usage changes during simulation.
 Factored snapshots past the packer's dense-cell limit route to the tiled
 kernel K4 (``ops/fit_reduce.fit_reduce_exact``) instead of holding [P, N].
 
-Not here yet: ``fit_reason_matrix`` and ``pending_fit_reasons``, which
-come with the decision-explain work (ROADMAP queue 1).
+``fit_reason_matrix`` and ``pending_fit_reasons`` keep what ``fit_matrix``
+reduces away: why each pod does not fit each node, in the estimator's
+attribution vocabulary (``explain/reasons.py``). They are torch code on
+the snapshot's device, as the JAX package's are XLA code (no Pallas
+kernel, so no hand kernel here).
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ from typing import Tuple
 
 import torch
 
+from autoscaler_tpu_torch.explain.reasons import REASON_TOPOLOGY
 from autoscaler_tpu_torch.ops import fit_reduce
+from autoscaler_tpu_torch.ops.binpack import attribute_unschedulable
 from autoscaler_tpu_torch.ops.fit_reduce import _resource_fits
 from autoscaler_tpu_torch.snapshot import packer
 from autoscaler_tpu_torch.snapshot.tensors import SnapshotTensors
@@ -104,3 +109,43 @@ def first_fit_node(snap: SnapshotTensors) -> torch.Tensor:
     node_ids = torch.arange(fits.shape[1], dtype=torch.int32, device=fits.device)
     first = torch.where(fits, node_ids, fit_reduce.BIG_I32).amin(dim=1)
     return torch.where(fits.any(dim=1), first, -1)
+
+
+def fit_reason_matrix(snap: SnapshotTensors) -> torch.Tensor:
+    """[P, N] i32 — WHY pod i does not fit node j right now, as a reason
+    code from explain/reasons.py (REASON_NONE where it fits): the
+    per-constraint violation mask ``fit_matrix`` reduces away, kept. The
+    estimator's attribution (``ops/binpack.attribute_unschedulable``) with
+    the nodes' free capacity in place of the templates' and the fit verdict
+    in place of the binpack's, so "why is this pod pending" and "why would
+    a new node not help" speak one vocabulary. Refuses factored-mask
+    worlds past the dense-cell limit, like fit_matrix."""
+    if _factored_too_big(snap):
+        raise ValueError(
+            f"fit_reason_matrix would materialize "
+            f"{snap.num_pods * snap.num_nodes} cells from a factored-mask "
+            "snapshot; attribute against group templates instead "
+            "(ops.binpack.attribute_unschedulable)"
+        )
+    free = snap.free()                                           # [N, R]
+    mask = (
+        snap.dense_sched()
+        & snap.pod_valid[:, None]
+        & snap.node_valid[None, :]
+    )                                                            # [P, N]
+    fits = _resource_fits(snap.pod_req, free) & mask
+    involved = torch.zeros(snap.pod_req.shape[0], dtype=torch.bool, device=fits.device)
+    return attribute_unschedulable(snap.pod_req, mask.T, free, fits.T, involved).T
+
+
+def pending_fit_reasons(snap: SnapshotTensors) -> torch.Tensor:
+    """[P] i32 — each pod's dominant no-fit reason against the CURRENT
+    cluster: the MIN code over nodes (reasons.py orders codes by severity,
+    nearest-to-schedulable first). REASON_NONE means some node fits now;
+    a world with no valid nodes attributes everything to the predicate
+    mask (there is no node to measure resources against)."""
+    codes = fit_reason_matrix(snap)
+    if codes.shape[1] == 0:
+        return torch.full((codes.shape[0],), REASON_TOPOLOGY, dtype=torch.int32,
+                          device=codes.device)
+    return torch.clamp(codes.amin(dim=1), max=REASON_TOPOLOGY)

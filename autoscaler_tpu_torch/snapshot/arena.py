@@ -52,8 +52,14 @@ Threading: every mutation of arena state happens under the instance
 lock; walls come from ``trace.timeline_now()``.
 
 ``metrics=`` (an ``AutoscalerMetrics``) counts full uploads and delta rows
-as the JAX package's arena does. Not ported: the perf observatory
-(``observatory=`` raises ``NotImplementedError``; ROADMAP queue 1 item 3).
+as the JAX package's arena does. ``observatory=`` (a ``perf.PerfObservatory``)
+sees every scatter — the apply's and the prewarm walk's — as a dispatch on
+route ``arena_rows``, ``arena_vec`` or ``arena_cols``, timed on ``clock``
+(the tracer's timeline clock), so the arena shares the compile-telemetry
+ledger with the estimator. Its shape signature is the JAX package's: the
+batch as that package dispatches it, index and payload padded to the delta
+bucket (``delta_bucket``) — the observatory is handed their shapes
+(``_Shaped``), while the scatter itself gets the unpadded batch.
 """
 from __future__ import annotations
 
@@ -84,8 +90,16 @@ from autoscaler_tpu_torch.ops.arena_apply import (
 from autoscaler_tpu_torch.perf import array_bytes
 
 # the delta-axis ladder the JAX package pads its batches to (a small
-# closed set of traced shapes there); here only prewarm walks it
+# closed set of traced shapes there); here prewarm walks it and the perf
+# observatory signs each batch by its rung
 _K_BASE = 8
+
+# the scatter behind each observatory route
+_SCATTERS = {
+    "arena_rows": arena_scatter_rows,
+    "arena_vec": arena_scatter_vec,
+    "arena_cols": arena_scatter_cols,
+}
 
 # a buffer the arena alone holds, seen from _writable_locked: Python
 # references (the generation dict, _scatter_locked's local, the parameter,
@@ -176,12 +190,15 @@ def _zero_stats() -> Dict[str, int]:
     }
 
 
-def _refuse_unported(observatory: Any) -> None:
-    if observatory is not None:
-        raise NotImplementedError(
-            "observatory: not ported yet (ROADMAP queue 1, the estimator "
-            "services item)"
-        )
+class _Shaped:
+    """A tensor's shape and dtype without its data: what the perf
+    observatory reads of a delta batch padded to its bucket (signature
+    and bytes), without building the padded copy."""
+
+    def __init__(self, shape: Tuple[int, ...], dtype):
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+        self.nbytes = int(np.prod(self.shape, dtype=np.int64)) * self.dtype.itemsize
 
 
 class DeviceArena:
@@ -198,10 +215,16 @@ class DeviceArena:
         observatory: Any = None,
         metrics: Any = None,
         device=None,
+        clock: Optional[Callable[[], float]] = None,
     ):
-        _refuse_unported(observatory)
         self.device = resolve_device(device)
+        self.observatory = observatory
         self.metrics = metrics
+        # the clock seam: the autoscaler passes its tracer's timeline clock
+        # so prewarm walls (outside any tick trace, where
+        # trace.timeline_now() would fall back to the wall) share the
+        # apply walls' timeline
+        self._clock = clock or trace.timeline_now
         self._lock = threading.Lock()
         self.buckets = parse_arena_buckets(buckets)
         # the fault seam: returns a truthy fault kind to fail this apply
@@ -368,11 +391,32 @@ class DeviceArena:
         for op in ops:
             buf = bufs[op.field]
             if op.axis == 0:
-                fn = arena_scatter_vec if buf.ndim == 1 else arena_scatter_rows
+                route = "arena_vec" if buf.ndim == 1 else "arena_rows"
             else:
-                fn = arena_scatter_cols
-            bufs[op.field] = fn(self._writable_locked(buf), op.idx, op.payload)
+                route = "arena_cols"
+            K = delta_bucket(int(op.idx.size))
+            padded = list(op.payload.shape)
+            padded[op.axis] = K
+            bufs[op.field] = self._dispatch_locked(
+                route, (self._writable_locked(buf), op.idx, op.payload),
+                (buf, _Shaped((K,), np.int32), _Shaped(padded, op.payload.dtype)),
+            )
             self._stats["delta_bytes"] += int(op.payload.nbytes)
+
+    def _dispatch_locked(self, route: str, args: tuple, observed: tuple = None):
+        """One scatter on ``route``, measured on the clock and handed to the
+        perf observatory (``observed``: what it is told the operands are,
+        default ``args``)."""
+        fn = _SCATTERS[route]
+        obs = self.observatory
+        t0 = self._clock()
+        if obs is not None:
+            obs.note_kernel(fn, observed or args, {})
+        out = fn(*args)
+        wall = self._clock() - t0
+        if obs is not None:
+            obs.on_dispatch(route, wall)
+        return out
 
     def _live_view_locked(self) -> Dict[str, torch.Tensor]:
         view = dict(self._bufs[self._live])
@@ -418,9 +462,10 @@ class DeviceArena:
         with self._lock:
             return self._prewarm_locked(R, dense)
 
-    def _prewarm_call(self, fn, shape, dtype, K: int, axis: int, clone: bool) -> None:
-        """One scatter of a K-entry batch into a zero buffer: its first
-        min(K, axis length) entries real, the rest padding (dropped)."""
+    def _prewarm_call(self, route, shape, dtype, K: int, axis: int, clone: bool) -> None:
+        """One scatter of a K-entry batch into a zero buffer on ``route``:
+        its first min(K, axis length) entries real, the rest padding
+        (dropped)."""
         axis_len = shape[axis]
         buf = torch.zeros(shape, dtype=dtype, device=self.device)
         if clone:
@@ -431,7 +476,7 @@ class DeviceArena:
         payload_shape = list(shape)
         payload_shape[axis] = K
         payload = torch.zeros(payload_shape, dtype=dtype, device=self.device)
-        fn(buf, idx, payload)
+        self._dispatch_locked(route, (buf, idx, payload))
 
     def _prewarm_locked(self, R: int, dense: Optional[bool]) -> int:
         calls = 0
@@ -447,19 +492,19 @@ class DeviceArena:
                 ((P,), torch.int32, P),       # pod_node / pod_class
             ]
             for shape, dtype, axis_len in specs:
-                kern = arena_scatter_vec if len(shape) == 1 else arena_scatter_rows
+                route = "arena_vec" if len(shape) == 1 else "arena_rows"
                 for K in delta_ladder(axis_len):
                     for clone in (False, True):
-                        self._prewarm_call(kern, shape, dtype, K, 0, clone)
+                        self._prewarm_call(route, shape, dtype, K, 0, clone)
                         calls += 1
             if dense is not False:
                 for K in delta_ladder(P):
                     for clone in (False, True):
-                        self._prewarm_call(arena_scatter_rows, (P, N), torch.bool, K, 0, clone)
+                        self._prewarm_call("arena_rows", (P, N), torch.bool, K, 0, clone)
                         calls += 1
                 for K in delta_ladder(N):
                     for clone in (False, True):
-                        self._prewarm_call(arena_scatter_cols, (P, N), torch.bool, K, 1, clone)
+                        self._prewarm_call("arena_cols", (P, N), torch.bool, K, 1, clone)
                         calls += 1
         trace.add_event("arena.prewarm", calls=calls, buckets=len(self.buckets))
         return calls

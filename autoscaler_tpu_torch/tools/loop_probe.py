@@ -106,20 +106,22 @@ def loop_world(tenth: bool = False, seed: int = 0):
     return nodes, pods, burst[: len(burst) // cut], zoned_templates(templates)
 
 
-def build_loop(nodes, pods, burst, groups, device=None, clock=None):
+def build_loop(nodes, pods, burst, groups, device=None, clock=None, metrics=None):
     """→ (autoscaler, provider, api) of the port on ``device``: the shape
     groups owning ``nodes``, a group per burst template (min 0, max
     TICK_MAX_SIZE, target 0), the listing with the burst pending. With
     ``clock``, the tracer's timeline clock is that callable (the SLO
-    window's tick durations then replay alike on any device)."""
+    window's tick durations then replay alike on any device). The
+    autoscaler counts on ``metrics`` (None = an AutoscalerMetrics of its
+    own)."""
     provider = shape_provider(nodes)
     for gid, template in sorted(groups.items()):
         provider.add_node_group(gid, 0, TICK_MAX_SIZE, 0, template)
     api = fake_api(nodes, list(pods) + list(burst))
     options = AutoscalingOptions(**LOOP_OPTIONS)
-    kw = {}
+    kw = {} if metrics is None else {"metrics": metrics}
     if clock is not None:
-        kw["metrics"] = metrics_mod.AutoscalerMetrics()
+        kw.setdefault("metrics", metrics_mod.AutoscalerMetrics())
         kw["tracer"] = trace.Tracer(
             clock=clock, metrics=kw["metrics"],
             recorder=trace.FlightRecorder(capacity=options.trace_ring_size),
@@ -407,18 +409,19 @@ def hold_launches(launches) -> list:
 
 
 def run_loop_ticks(nodes, pods, burst, groups, device=None, timed=False,
-                   arrive=ARRIVALS, debugger=None, replayable=False):
+                   arrive=ARRIVALS, debugger=None, replayable=False, metrics=None):
     """3o's three ticks on ``device``; a ``debugger`` (a
     ``DebuggingSnapshotter``) is attached and armed before the last tick,
     which it captures. ``replayable`` runs the tracer on a timeline clock
     that reads each tick's ``now_ts``, so that two runs (on two devices)
     write the same SLO windows; otherwise the ticks are timed by the wall
-    clock. → {"autoscaler", "provider", "api", "ticks": [{"result",
+    clock. The autoscaler counts on ``metrics`` (``build_loop``). →
+    {"autoscaler", "provider", "api", "ticks": [{"result",
     "state", "churn", "probe", and with ``timed`` the "split" and
     "journal" seconds}]}."""
     timeline = {"now": 0.0}
     clock = (lambda: timeline["now"]) if replayable else None
-    sa, provider, api = build_loop(nodes, pods, burst, groups, device, clock)
+    sa, provider, api = build_loop(nodes, pods, burst, groups, device, clock, metrics)
     sa.debugger = debugger
     timer = JournalTimer(sa) if timed else None
     probes = []

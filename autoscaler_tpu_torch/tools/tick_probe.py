@@ -207,18 +207,19 @@ def listing_snapshot(nodes, pods, device, packer=None) -> ClusterSnapshot:
 
 
 def run_tick(world_nodes, world_pods, extra, templates, device, timed=False,
-             packer=None, operand_arena=None):
+             packer=None, operand_arena=None, metrics=None):
     """One scale-up tick (static_autoscaler.py:629-631, :712: fork,
     filter-out-schedulable, revert, scale_up on a TestCloudProvider whose
     groups are ``templates``, min 0, max TICK_MAX_SIZE, target 0,
     least-waste with seeded ties) over the world plus ``extra`` pending
     pods, on ``device``, packed through ``packer`` (an IncrementalPacker
     carried across ticks; None = a full pack) and estimated from
-    ``operand_arena`` when given: → a record of what came out (``out``),
-    the tick's tensors and meta, the packer's counters after its update
-    and, when ``timed``, the host clock of its parts, the greedy loop's
-    operands, span on the card and output devices, and the operands the
-    estimate handed its kernel."""
+    ``operand_arena`` when given, its orchestrator and estimator counting
+    on ``metrics`` (an AutoscalerMetrics; None = no recording): → a
+    record of what came out (``out``), the tick's tensors and meta, the
+    packer's counters after its update and, when ``timed``, the host clock
+    of its parts, the greedy loop's operands, span on the card and output
+    devices, and the operands the estimate handed its kernel."""
     snap = listing_snapshot(world_nodes, list(world_pods) + list(extra), device, packer)
     pending = snap.pending_pods()
     before = tick_state(snap)
@@ -227,7 +228,7 @@ def run_tick(world_nodes, world_pods, extra, templates, device, timed=False,
         provider.add_node_group(g, 0, TICK_MAX_SIZE, 0, templates[g])
     opts = AutoscalingOptions(expander="least-waste", expander_random_seed=0)
     orch = ScaleUpOrchestrator(provider, opts, ClusterStateRegistry(provider, opts),
-                               device=device, operand_arena=operand_arena)
+                               device=device, operand_arena=operand_arena, metrics=metrics)
     rec = {"pending": len(pending)}
     real_greedy, real_ctx = schedule.greedy_schedule, hinting.build_spread_context_from_meta
     real_estimate, real_best = orch.estimator.estimate_many, orch.expander.best_option
@@ -312,6 +313,18 @@ def run_tick(world_nodes, world_pods, extra, templates, device, timed=False,
     return rec
 
 
+def tick_summary(rec) -> dict:
+    """What a tick run in another process sends back: its ``out`` record
+    with the result in ``canon`` form (which ``tick_differences`` reads
+    alike), the chosen group and new nodes, its host clock and its
+    packer's counts."""
+    out, res = rec["out"], rec["out"]["result"]
+    return {"out": {**{k: out[k] for k in OUT_KEYS}, "result": canon(res)},
+            "chosen_group": res.chosen_group, "new_nodes": res.new_nodes,
+            **{k: rec[k] for k in ("pack_s", "filter_s", "scale_up_s")},
+            "packer": rec.get("packer")}
+
+
 def packer_counts(packer) -> dict:
     """An IncrementalPacker's counters after its last update: full and
     incremental updates so far, and the last update's dirty rows."""
@@ -377,15 +390,17 @@ def churn(nodes, pods, out, templates, seed, arrive, remove=None,
 
 
 def run_sequence(nodes, pods, templates, device, packer, timed=False, report=None,
-                 churns=CHURNS):
+                 churns=CHURNS, metrics=None):
     """The tick sequence on ``device``, every tick packed through
     ``packer``: a tick on the listing (``nodes``, ``pods``), then for each
     of ``churns`` the next listing and its tick. → one (nodes, pods, churn
     counts, record) entry a tick (the first tick's counts are None);
-    ``report`` is called with each entry as its tick ends."""
+    ``report`` is called with each entry as its tick ends; every tick
+    counts on ``metrics``."""
     seq, counts = [], None
     for i in range(len(churns) + 1):
-        rec = run_tick(nodes, pods, (), templates, device, timed=timed, packer=packer)
+        rec = run_tick(nodes, pods, (), templates, device, timed=timed, packer=packer,
+                       metrics=metrics)
         seq.append((nodes, pods, counts, rec))
         if report is not None:
             report(seq[-1])

@@ -13,7 +13,13 @@ Phases (any failure raises and exits non-zero):
 2. build: each CUDA source compiled with nvcc, all at once; each ptxas
    report (registers, static shared memory, spills);
 3. the main paths, each with every launch and route count set to 0 just
-   before it and read just after:
+   before it and read just after; every estimate walks the kernel ladder
+   (``estimator/ladder.py``), and a path fails if, on the card, a rung
+   attempt faults, a dispatch is served below the cuda rung for any reason
+   but the shape gates (smem, spread_width) or dedup routing, a dispatch
+   is forced, a breaker changes state, or the ``estimator`` logger warns
+   (``tools/ladder_probe.LadderWatch``, over the counters of one
+   ``AutoscalerMetrics`` that every estimator on the card counts on):
    a. the repo's headline estimate (bench.py's workload: 100k pending pods
       × 500 node groups, 1000-node cap, 6 resource axes) through
       ``ffd_binpack_groups_cuda`` with integral requests (SWAR kernel K2)
@@ -45,8 +51,9 @@ Phases (any failure raises and exits non-zero):
    i. the plain route's shape gate: a 300-pod world with 7 f32 planes
       (fractional memory, four host ports) at a scan cap of 8192 through
       ``estimate_many``, whose carry exceeds a block's shared memory, so
-      the torch loop serves it ("binpack_loop"), and the same world with 6
-      planes, which launches K1;
+      the cuda rung's gate answers smem and the torch loop serves it (route
+      torch_scan), and the same world with 6 planes, which launches K1
+      (route cuda);
    j. the scale-up tick: the snapshot world of (h) plus (b)'s 30k burst in
       a ``ClusterSnapshot`` on the card, run through ``run_once``'s
       sequence (static_autoscaler.py:629-631, :712): ``fork``,
@@ -102,7 +109,7 @@ Phases (any failure raises and exits non-zero):
       encode and probe times are printed;
    p. an ``ObservabilityServer`` (profiling on) on (o)'s autoscaler:
       every endpoint answers 200 with a body of (o)'s ticks, ``/perfz``
-      answers 501;
+      with one perf record a tick;
    q. ``python -m autoscaler_tpu_torch.main --provider=test
       --max-iterations=2 --scan-interval=0 --address=:0`` in a subprocess on
       the card exits 0.
@@ -115,13 +122,17 @@ Phases (any failure raises and exits non-zero):
    results against the plain versions' results; the
    estimator's results and choices against the same calls on the CPU (the
    CPU takes a stride sample of the templates for the dynamic worlds:
-   each group's result depends on its own template only); the gate worlds
-   against the CPU; K4 on all 100k pods of the tiled fit and on the
-   probe's two launches, and its rows entry on the probe's special rows,
-   with K4's launch geometry, registers and SASS instructions a pair
-   (4e); the probe's ``fit_reduce_exact`` on all 131 072 pod rows against
-   a reduction of ``dense_sched()`` rows chunked by pods, and its exact
-   patch timed in parts (4f); both ticks again on a ``ClusterSnapshot``
+   each group's result depends on its own template only; the CPU's
+   estimator takes its own route, the torch loops, so 4c, 4d and 4g-4h
+   run in ``CPU_WORKERS`` worker processes started once the worlds exist,
+   while the card works, and each result is read where its check
+   stands); the gate worlds against the CPU; K4 on all
+   100k pods of the tiled fit and on the probe's two launches, and its
+   rows entry on the probe's special rows, with K4's launch geometry,
+   registers and SASS instructions a pair (4e); the probe's
+   ``fit_reduce_exact`` on all 131 072 pod rows against a reduction of
+   ``dense_sched()`` rows chunked by pods, and its exact patch timed in
+   parts (4f); both ticks again on a ``ClusterSnapshot``
    on the CPU of the same objects: every filtered key and assignment, the
    snapshot after the revert, the whole ScaleUpResult and the provider's
    target sizes equal (4g); the tick sequence: tick 2's tensors against a
@@ -145,7 +156,21 @@ Phases (any failure raises and exits non-zero):
    probes and the debugger's capture), captured with copies of its
    operands and outputs, against its plain version on those operands,
    every field exact (4m);
-5. timings with CUDA events, each run queued behind ~10 ms of a spinning
+5. the estimator's services: (a) each of (o)'s perf records (residency
+   pools, the arena's delta rows, dispatches by route) and the ladder's
+   proof over every path so far: no fault attempt, no breaker transition;
+   (b) a fault walk on the card at (4l)'s size: three faults armed on the
+   cuda rung of a reconcile loop's estimator through ``fault_hook``; each
+   faulted estimate raises (on the card the kernels have no fallback) and
+   is counted and logged, the third opens the breaker, ``/health-check``
+   reads degraded and the next estimate raises too; past the cooldown one
+   half-open probe launches the kernel, serves the first decisions and
+   closes the breaker; (c) the native rung (its library built from
+   ``autoscaler_tpu_torch/csrc/ffd_serial.cpp`` at first use, timed) on
+   every group of (4l)'s burst and the Python rung on every 50th, each
+   served by an estimator on the CPU with the rungs above it faulted,
+   against the cuda rung's decisions;
+6. timings with CUDA events, each run queued behind ~10 ms of a spinning
    card so that they time the card and not the host's launches: each
    kernel alone, its whole entry call, and the plain version; K3 on the
    zone and hostname spread worlds; K4 on the probe's operands, the whole
@@ -187,12 +212,17 @@ BURST_TEMPLATES = 100
 REPLICATED_PODS = 30_000
 REPLICATED_CONTROLLERS = 300
 REPS = 3
-CPU_TEMPLATE_STRIDE = 2      # spread worlds: every other template on the CPU
+CPU_TEMPLATE_STRIDE = 2      # spread worlds: every second template on the CPU (8 of 16)
 CPU_RUNS_TEMPLATE_STRIDE = 20  # replicated affinity world: 5 of 100 templates
 HOST_LEAD_CYCLES = 20_000_000  # ~10 ms of the card's clock before each timing
 GATE_PODS = 300          # the plain-route gate worlds
 GATE_MAX_NODES = 5000    # a scan cap of 8192
 HOSTNAME_KEY = "kubernetes.io/hostname"
+CPU_WORKERS = 4          # worker processes for the CPU's side of 4c, 4d, 4g and 4h
+CPU_WORKER_THREADS = 2   # torch's threads in each
+CPU_WAIT_S = 600         # the longest wait for one worker's result
+
+_POOL = None             # the CPU workers, stopped when the script ends
 
 
 def log(msg: str) -> None:
@@ -307,7 +337,56 @@ def k4_sass_loops(lib_path) -> dict:
     return out
 
 
+def _cpu_worker_init(threads: int) -> None:
+    import torch
+
+    torch.set_num_threads(threads)
+
+
+def cpu_estimate(pods, templates, max_nodes=None):
+    """One ``estimate_many`` on the CPU, in a worker → (seconds, {group:
+    (node count, [scheduled pod names])})."""
+    from autoscaler_tpu_torch.estimator.binpacking import BinpackingNodeEstimator
+    from autoscaler_tpu_torch.estimator.limiter import ThresholdBasedEstimationLimiter
+
+    limiter = ThresholdBasedEstimationLimiter(max_nodes=max_nodes) if max_nodes else None
+    t0 = time.perf_counter()
+    out = BinpackingNodeEstimator(limiter, device="cpu").estimate_many(pods, templates)
+    return time.perf_counter() - t0, {
+        g: (count, [p.name for p in sched]) for g, (count, sched) in out.items()}
+
+
+def cpu_tick(world_nodes, world_pods, extra, templates):
+    """One scale-up tick on the CPU (``tick_probe.run_tick``), in a worker
+    → its ``tick_probe.tick_summary``."""
+    from autoscaler_tpu_torch.tools import tick_probe
+
+    return tick_probe.tick_summary(
+        tick_probe.run_tick(world_nodes, world_pods, extra, templates, "cpu"))
+
+
+def cpu_sequence(listings, templates):
+    """The tick sequence's listings on the CPU through a packer of its own,
+    in a worker → for tick 1, its packer update alone: (seconds, None);
+    for each later tick, the whole tick: (seconds,
+    ``tick_probe.tick_summary``)."""
+    from autoscaler_tpu_torch.snapshot.incremental import IncrementalPacker
+    from autoscaler_tpu_torch.tools import tick_probe
+
+    packer, out = IncrementalPacker(device="cpu"), []
+    for k, (nodes_k, pods_k) in enumerate(listings):
+        t0 = time.perf_counter()
+        if k == 0:
+            tick_probe.listing_snapshot(nodes_k, pods_k, "cpu", packer).tensors()
+            out.append((time.perf_counter() - t0, None))
+            continue
+        rec = tick_probe.run_tick(nodes_k, pods_k, (), templates, "cpu", packer=packer)
+        out.append((time.perf_counter() - t0, tick_probe.tick_summary(rec)))
+    return out
+
+
 def main() -> int:
+    global _POOL
     try:
         import torch
     except ImportError:
@@ -323,7 +402,6 @@ def main() -> int:
     sys.path.insert(0, root)
     import numpy as np
 
-    from autoscaler_tpu_torch.estimator import binpacking
     from autoscaler_tpu_torch.estimator.binpacking import (
         BinpackingNodeEstimator,
         _build_group_arrays,
@@ -338,7 +416,8 @@ def main() -> int:
     from autoscaler_tpu_torch.snapshot.incremental import IncrementalPacker
     from autoscaler_tpu_torch.snapshot.tensors import bucket_size
     from autoscaler_tpu_torch.main import ObservabilityServer
-    from autoscaler_tpu_torch.tools import loop_probe, scaledown_probe, tick_probe
+    from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
+    from autoscaler_tpu_torch.tools import ladder_probe, loop_probe, scaledown_probe, tick_probe
     from autoscaler_tpu_torch.utils.test_utils import (
         GB,
         MB,
@@ -495,6 +574,32 @@ def main() -> int:
     }
     phase("operand set-up", t0)
 
+    # the CPU's side of 4c, 4d and 4g, begun now in worker processes (the
+    # CPU's estimator takes its own route there, the torch loops, which
+    # take minutes at these sizes); each result is read where its check
+    # stands, and 4h's is begun once the card's sequence has run
+    import multiprocessing
+
+    _POOL = multiprocessing.get_context("spawn").Pool(
+        CPU_WORKERS, initializer=_cpu_worker_init, initargs=(CPU_WORKER_THREADS,))
+
+    def sampled(tmpl_w, stride):
+        return {g: tmpl_w[g] for g in sorted(tmpl_w)[::stride]}
+
+    cpu_jobs = {
+        "tick 3k": _POOL.apply_async(cpu_tick, (world_nodes, world_pods, spread_burst,
+                                                tick_templates)),
+        **{f"{variant} spread world": _POOL.apply_async(cpu_estimate, (
+            pods_sw, sampled(tmpl_sw, CPU_TEMPLATE_STRIDE), SPREAD_MAX_NODES))
+           for variant, (pods_sw, tmpl_sw) in spread_worlds.items()},
+        "burst": _POOL.apply_async(cpu_estimate, (burst, templates)),
+        "tick 3j": _POOL.apply_async(cpu_tick, (world_nodes, world_pods, burst,
+                                                tick_templates)),
+        "replicated": _POOL.apply_async(cpu_estimate, (replicated, templates)),
+        "replicated affinity world": _POOL.apply_async(cpu_estimate, (
+            replicated_aff, sampled(templates, CPU_RUNS_TEMPLATE_STRIDE))),
+    }
+
     class Group:
         def __init__(self, name, template):
             self.name, self.template = name, template
@@ -528,26 +633,38 @@ def main() -> int:
         best = strategy.best_option(options)
         return (best.node_group.id() if best else None), strategy.last_table
 
-    counters = (ffd_scan.LAUNCHES, ffd_scan_affinity.LAUNCHES, fit_reduce.LAUNCHES,
-                binpacking.ROUTES)
-    launches = {name: 0 for d in counters[:3] for name in d}
+    counters = (ffd_scan.LAUNCHES, ffd_scan_affinity.LAUNCHES, fit_reduce.LAUNCHES)
+    launches = {name: 0 for d in counters for name in d}
+    # every estimator on the card counts on card_metrics; the watch reads
+    # its ladder counters and the estimator logger's warnings per path
+    card_metrics = AutoscalerMetrics()
+    watch = ladder_probe.LadderWatch(card_metrics)
 
     def run_path(label, fn):
         """Drive one main path with every count set to 0 just before it;
-        → (its result, its counts read just after, host seconds)."""
+        → (its result, its counts read just after, host seconds). The
+        counts hold the kernels' launches and the estimators' served routes
+        ("route:<route>", "route:<route>:<reason>"); the path fails if its
+        ladders did what they must not on the card
+        (``tools/ladder_probe.LadderWatch``)."""
         for d in counters:
             for k in d:
                 d[k] = 0
+        watch.reset()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = {**ffd_scan.LAUNCHES, **ffd_scan_affinity.LAUNCHES, **fit_reduce.LAUNCHES,
-                  **{f"route:{k}": v for k, v in binpacking.ROUTES.items()}}
+                  **watch.counts()}
         for name in launches:
             launches[name] += counts[name]
         print(f"# path {label}: {secs:.3f} s host clock, counts {counts}", flush=True)
+        check(not watch.problems(), f"path {label}: the kernel ladder {watch.problems()}")
         return out, counts, secs
+
+    def launched(counts) -> int:
+        return sum(counts[name] for name in launches)
 
     # -- 3. the main paths ----------------------------------------------------
     t3 = time.perf_counter()
@@ -561,18 +678,20 @@ def main() -> int:
     ))
     check(counts["ffd_scan_swar"] == 1 and counts["ffd_scan_f32"] == 1,
           "the headline did not run K2 and K1 once each")
-    estimator = BinpackingNodeEstimator()          # device=None: the card
+    estimator = BinpackingNodeEstimator(metrics=card_metrics)   # device=None: the card
 
     def burst_path():
         out = estimator.estimate_many(burst, templates)
         return out, choose(out, templates)
 
     (burst_card, choice_card), counts, t_burst = run_path("30k burst + expander", burst_path)
-    check(counts["ffd_scan_swar"] == 1, "the burst estimate did not run the SWAR kernel")
+    check(counts["ffd_scan_swar"] == 1 and counts.get("route:cuda:ok") == 1,
+          "the burst estimate did not run the SWAR kernel")
     replicated_card, counts, t_replicated = run_path(
         "replicated burst", lambda: estimator.estimate_many(replicated, templates)
     )
-    check(not any(counts.values()), "the replicated burst did not take the runs route")
+    check(not launched(counts) and counts.get("route:torch_runs:dedup") == 1,
+          "the replicated burst did not take the runs route")
     res_aff, counts, t_aff = run_path(
         "affinity workload K3",
         lambda: ffd_scan_affinity.ffd_binpack_groups_affinity_cuda(
@@ -585,7 +704,7 @@ def main() -> int:
     # returns, to hold it against its plain version and time it below (the
     # capture calls the wrapper itself, which counts)
     spread_estimator = BinpackingNodeEstimator(
-        ThresholdBasedEstimationLimiter(max_nodes=SPREAD_MAX_NODES)
+        ThresholdBasedEstimationLimiter(max_nodes=SPREAD_MAX_NODES), metrics=card_metrics
     )
     captured = {}
     real_scan = ffd_scan_affinity.ffd_scan_aff
@@ -606,15 +725,15 @@ def main() -> int:
         finally:
             ffd_scan_affinity.ffd_scan_aff = real_scan
         counts = spread_card[variant][1]
-        check(counts["ffd_scan_aff"] == 1 and counts["route:ffd_scan_aff"] == 1
-              and counts["route:affinity_loop"] == 0,
-              f"the {variant} spread world did not take the ffd_scan_aff route")
+        check(counts["ffd_scan_aff"] == 1 and counts.get("route:cuda_affinity:ok") == 1
+              and counts.get("route:torch_scan", 0) == 0,
+              f"the {variant} spread world did not take the cuda_affinity route")
         check(captured[variant][0].num_spread == 32, f"{variant}: expected 32 spread terms")
     replicated_aff_card, counts, t_replicated_aff = run_path(
         "replicated affinity world",
         lambda: estimator.estimate_many(replicated_aff, templates),
     )
-    check(not any(counts.values()),
+    check(not launched(counts) and counts.get("route:torch_runs:dedup") == 1,
           "the replicated affinity world did not take the runs-affinity route")
 
     res_fit, counts, t_fit = run_path(
@@ -688,19 +807,21 @@ def main() -> int:
     check(counts["fit_reduce_rows"] == 2, "the snapshot probe did not run K4's rows entry twice")
 
     # the plain route's gate: 7 f32 planes at a scan cap of 8192 ask for
-    # more shared memory than a block may use (the torch loop serves); 6
-    # planes launch K1
+    # more shared memory than a block may use (the cuda rung's gate answers
+    # smem and the torch loop serves); 6 planes launch K1
     gate_limiter = ThresholdBasedEstimationLimiter(max_nodes=GATE_MAX_NODES)
     gate_card = {}
-    for ports, route in ((4, "binpack_loop"), (3, "ffd_scan")):
+    for ports, route in ((4, "torch_scan:smem"), (3, "cuda:ok")):
         pods_g, tmpl_g = gate_worlds[ports]
         out, counts, _ = run_path(
             f"plain-route gate ({3 + ports} planes)",
-            lambda: BinpackingNodeEstimator(gate_limiter).estimate_many(pods_g, tmpl_g),
+            lambda: BinpackingNodeEstimator(gate_limiter, metrics=card_metrics).estimate_many(
+                pods_g, tmpl_g),
         )
-        check(counts[f"route:{route}"] == 1 and counts["ffd_scan_f32"] == int(route == "ffd_scan")
-              and sum(counts[f"route:{k}"] for k in binpacking.ROUTES) == 1,
-              f"the {3 + ports}-plane world did not take the {route} route")
+        served = {k: v for k, v in counts.items() if k.count(":") == 2}
+        check(served == {f"route:{route}": 1}
+              and counts["ffd_scan_f32"] == int(route == "cuda:ok"),
+              f"the {3 + ports}-plane world did not take the {route} route: {served}")
         gate_card[ports] = out
     # the scale-up half of a reconcile tick (static_autoscaler.py:629-631,
     # :712): fork, filter-out-schedulable, revert, scale_up on the
@@ -708,17 +829,18 @@ def main() -> int:
     tick_card = {}
     for label, extra in (("3j", burst), ("3k", spread_burst)):
         rec, counts, _ = run_path(f"scale-up tick {label}", lambda extra=extra: tick_probe.run_tick(
-            world_nodes, world_pods, extra, tick_templates, dev, timed=True))
+            world_nodes, world_pods, extra, tick_templates, dev, timed=True,
+            metrics=card_metrics))
         tick_card[label] = rec
         out = rec["out"]
-        route = [k for k in ("ffd_scan", "ffd_scan_aff") if counts[f"route:{k}"]]
-        check(len(route) == 1 and sum(counts[f"route:{k}"] for k in binpacking.ROUTES) == 1,
+        route = [k for k in ("cuda", "cuda_affinity") if counts.get(f"route:{k}:ok")]
+        check(len(route) == 1 and sum(v for k, v in counts.items() if k.count(":") == 2) == 1,
               f"tick {label}: the estimate did not take one kernel route: {counts}")
         kernel_launches = (counts["ffd_scan_swar"] + counts["ffd_scan_f32"]
-                           if route[0] == "ffd_scan" else counts["ffd_scan_aff"])
+                           if route[0] == "cuda" else counts["ffd_scan_aff"])
         check(kernel_launches == 1 and counts["fit_reduce"] == 0,
               f"tick {label}: the estimate did not launch the kernel of its route {route[0]}")
-        check(label == "3j" or route[0] == "ffd_scan_aff",
+        check(label == "3j" or route[0] == "cuda_affinity",
               "tick 3k: the spread leftovers did not take K3")
         check(rec["greedy_devices"] == ("cuda", "cuda"),
               f"tick {label}: greedy_schedule's outputs are not on the card")
@@ -745,11 +867,14 @@ def main() -> int:
     # pack is the delta alone
     seq_packer = IncrementalPacker(device=dev)
     seq, counts, _ = run_path("tick sequence (3 ticks)", lambda: tick_probe.run_sequence(
-        world_nodes, list(world_pods) + burst, tick_templates, dev, seq_packer, timed=True))
+        world_nodes, list(world_pods) + burst, tick_templates, dev, seq_packer, timed=True,
+        metrics=card_metrics))
+    cpu_jobs["sequence"] = _POOL.apply_async(cpu_sequence, (
+        [(nodes_k, pods_k) for nodes_k, pods_k, *_ in seq], tick_templates))
     check([rec["packer"]["full_packs"] for *_, rec in seq] == [1, 1, 1]
           and [rec["packer"]["incremental_updates"] for *_, rec in seq] == [0, 1, 2],
           "tick sequence: ticks 2 and 3 were not incremental")
-    check(counts["route:ffd_scan"] == len(seq)
+    check(counts.get("route:cuda:ok") == len(seq)
           and counts["ffd_scan_swar"] + counts["ffd_scan_f32"] == len(seq),
           f"tick sequence: each tick's estimate did not launch K1/K2 once: {counts}")
     diff = tick_probe.tick_differences(seq[0][3]["out"], tick_card["3j"]["out"])
@@ -802,16 +927,20 @@ def main() -> int:
     with loop_probe.KernelCapture() as loop_capture:
         loop_card, counts, t_loop = run_path("reconcile loop 3o (3 ticks)", lambda: (
             loop_probe.run_loop_ticks(loop_nodes, loop_pods, burst, tick_templates, None,
-                                      timed=True, debugger=DebuggingSnapshotter())))
+                                      timed=True, debugger=DebuggingSnapshotter(),
+                                      metrics=card_metrics)))
     check(all(loop_capture.counts()[name] == counts[name] for name in launches),
           f"reconcile loop: launches {counts} but captured {loop_capture.counts()}")
     loop_sa = loop_card["autoscaler"]
     check(loop_sa.device == dev and loop_sa._packer.device == dev,
           "reconcile loop: the autoscaler does not run on the card")
-    check(counts["route:ffd_scan"] >= 1 and counts["ffd_scan_swar"] + counts["ffd_scan_f32"] >= 1,
+    check(counts.get("route:cuda:ok", 0) >= 1
+          and counts["ffd_scan_swar"] + counts["ffd_scan_f32"] >= 1,
           f"reconcile loop: no estimate launched K1/K2: {counts}")
-    check(counts["route:ffd_scan_aff"] == 1 and counts["ffd_scan_aff"] == 1,
+    check(counts.get("route:cuda_affinity:ok") == 1 and counts["ffd_scan_aff"] == 1,
           f"reconcile loop: tick 3's estimate did not launch K3: {counts}")
+    check(loop_sa.degraded_rungs() == [] and len(loop_sa.observatory.records()) == 3,
+          "reconcile loop: a degraded rung, or not one perf record a tick")
     check(counts["fit_reduce"] >= 2 * len(loop_probe.LOOP_TICKS),
           f"reconcile loop: the journal probes did not run K4: {counts}")
     for k, entry in enumerate(loop_card["ticks"]):
@@ -848,13 +977,15 @@ def main() -> int:
         answers = {path: http_get(path) for path in (
             "/metrics", "/health-check", "/snapshotz", "/tracez", "/tracez?id=2",
             "/explainz", "/explainz?tick=2", "/sloz", "/journalz", "/journalz?diff=0,2",
-            "/status", "/debug/pprof/", "/debug/pprof/threadz", "/perfz")}
+            "/status", "/debug/pprof/", "/debug/pprof/threadz", "/perfz", "/perfz?tick=2")}
     finally:
         server.stop()
     for path, (code, body) in answers.items():
-        want = 501 if path == "/perfz" else 200
-        check(code == want and body, f"server: {path} answered {code}")
-    check(len(json.loads(answers["/explainz"][1])["ticks"]) == 3
+        check(code == 200 and body, f"server: {path} answered {code}")
+    check(len(json.loads(answers["/perfz"][1])["ticks"]) == 3
+          and json.loads(answers["/perfz?tick=2"][1])["dispatches"]
+          and "degraded" not in answers["/health-check"][1]
+          and len(json.loads(answers["/explainz"][1])["ticks"]) == 3
           and len(json.loads(answers["/journalz"][1])["ticks"]) == 3
           and json.loads(answers["/snapshotz"][1])["pending_pods"] is not None
           and "cluster_autoscaler_scaled_up_nodes_total" in answers["/metrics"][1],
@@ -1087,13 +1218,21 @@ def main() -> int:
         phase(f"4b K3 on the {label} against its plain version", t0)
     del aff_got, k3_launches, captured
 
-    # the estimator's results and choices against the same calls on the CPU
+    # the estimator's results and choices against the same calls on the
+    # CPU (4c-4d), read from the workers begun after the operand set-up
+    def from_cpu(label, pods_w):
+        """A worker's estimate → (its seconds, {group: (count, pods)}),
+        the pods this process's own by name; the wait is the phase's."""
+        secs, named = cpu_jobs[label].get(CPU_WAIT_S)
+        by_name = {p.name: p for p in pods_w}
+        return secs, {g: (c, [by_name[n] for n in names]) for g, (c, names) in named.items()}
+
     t0 = time.perf_counter()
-    cpu_estimator = BinpackingNodeEstimator(device="cpu")
-    burst_cpu = cpu_estimator.estimate_many(burst, templates)
+    burst_s, burst_cpu = from_cpu("burst", burst)
     choice_cpu = choose(burst_cpu, templates)
-    replicated_cpu = cpu_estimator.estimate_many(replicated, templates)
-    log(f"estimator on the CPU: {time.perf_counter() - t0:.1f} s")
+    replicated_s, replicated_cpu = from_cpu("replicated", replicated)
+    log(f"estimator on the CPU: burst {burst_s:.1f} s, replicated {replicated_s:.1f} s "
+        f"in a worker")
     for label, on_card, on_cpu in (
         ("burst", burst_card, burst_cpu), ("replicated", replicated_card, replicated_cpu)
     ):
@@ -1106,17 +1245,20 @@ def main() -> int:
     check(choice_card == choice_cpu, "the expander chose differently on the card")
     print(
         f"# estimator: card equals CPU on {len(templates)} groups (burst and "
-        f"replicated), least-waste picks {choice_card[0]}", flush=True,
+        f"replicated), least-waste picks {choice_card[0]}; on the CPU (torch loops, a "
+        f"worker of {CPU_WORKER_THREADS} threads): burst {burst_s:.3f} s, replicated "
+        f"{replicated_s:.3f} s", flush=True,
     )
     phase("4c plain-route estimates on the CPU", t0)
 
-    def compare_sampled(label, est_cpu, pods_w, tmpl_w, on_card, stride):
-        """The CPU's estimate on every ``stride``-th template against the
-        card's results for those templates, and the least-waste choice
-        among them."""
+    def compare_sampled(label, pods_w, tmpl_w, on_card, stride, on_cpu=None):
+        """The CPU's estimate on every ``stride``-th template (a worker's,
+        or ``on_cpu``) against the card's results for those templates, and
+        the least-waste choice among them."""
         t0 = time.perf_counter()
-        sample = {g: tmpl_w[g] for g in sorted(tmpl_w)[::stride]}
-        on_cpu = est_cpu.estimate_many(pods_w, sample)
+        sample = sampled(tmpl_w, stride)
+        secs, on_cpu = from_cpu(label, pods_w) if on_cpu is None else (None, on_cpu)
+        check(set(on_cpu) == set(sample), f"{label}: the CPU estimated other templates")
         for g in sample:
             check(on_card[g][0] == on_cpu[g][0], f"{label} {g}: node count differs")
             check(
@@ -1130,23 +1272,22 @@ def main() -> int:
             f"# {label}: card equals CPU on {len(sample)} of {len(tmpl_w)} templates, "
             f"{sum(c for c, _ in on_card.values())} nodes on the card in all, "
             f"least-waste picks {choose(on_card, tmpl_w)[0]} (all) and "
-            f"{choose(card_sample, sample)[0]} (sample)", flush=True,
+            f"{choose(card_sample, sample)[0]} (sample)"
+            + (f"; {secs:.3f} s on the CPU in a worker" if secs is not None else ""),
+            flush=True,
         )
         phase(f"4d {label} on the CPU", t0)
 
-    spread_cpu = BinpackingNodeEstimator(
-        ThresholdBasedEstimationLimiter(max_nodes=SPREAD_MAX_NODES), device="cpu"
-    )
     for variant, (pods_sw, tmpl_sw) in spread_worlds.items():
         (out, _choice), _, _ = spread_card[variant]
-        compare_sampled(f"{variant} spread world", spread_cpu, pods_sw, tmpl_sw, out,
-                        CPU_TEMPLATE_STRIDE)
-    compare_sampled("replicated affinity world", cpu_estimator, replicated_aff, templates,
+        compare_sampled(f"{variant} spread world", pods_sw, tmpl_sw, out, CPU_TEMPLATE_STRIDE)
+    compare_sampled("replicated affinity world", replicated_aff, templates,
                     replicated_aff_card, CPU_RUNS_TEMPLATE_STRIDE)
     for ports, (pods_g, tmpl_g) in gate_worlds.items():
-        compare_sampled(f"plain-route gate world ({3 + ports} planes)",
-                        BinpackingNodeEstimator(gate_limiter, device="cpu"), pods_g, tmpl_g,
-                        gate_card[ports], 1)
+        compare_sampled(f"plain-route gate world ({3 + ports} planes)", pods_g, tmpl_g,
+                        gate_card[ports], 1,
+                        BinpackingNodeEstimator(gate_limiter, device="cpu").estimate_many(
+                            pods_g, tmpl_g))
 
     # K4 against its plain version on the card: the tiled fit's main-path
     # launch on all 100k pods, and the probe's two launches on the operands
@@ -1363,22 +1504,23 @@ def main() -> int:
     del special, srows, sreq, slots, part, base
     phase("4f the probe against a dense path", t0)
 
-    # both ticks again on ClusterSnapshots on the CPU, of the same objects:
-    # every filtered key and assignment, the snapshot after the revert, the
-    # whole ScaleUpResult and the provider afterwards must be equal
-    for label, extra in (("3j", burst), ("3k", spread_burst)):
+    # both ticks again on ClusterSnapshots on the CPU, of the same objects
+    # (in workers): every filtered key and assignment, the snapshot after
+    # the revert, the whole ScaleUpResult and the provider afterwards must
+    # be equal
+    for label in ("3j", "3k"):
         t0 = time.perf_counter()
-        cpu_rec = tick_probe.run_tick(world_nodes, world_pods, extra, tick_templates, "cpu")
+        cpu_rec = cpu_jobs[f"tick {label}"].get(CPU_WAIT_S)
         on_cpu, on_card = cpu_rec["out"], tick_card[label]["out"]
         diff = tick_probe.tick_differences(on_card, on_cpu)
         check(not diff, f"tick {label}: {diff} differ from the CPU")
         print(
             f"# tick {label}: card equals CPU: {len(on_cpu['filtered'])} filtered keys and "
             f"their assignments, {len(on_cpu['still'])} still pending, the snapshot after "
-            f"revert, the whole ScaleUpResult ({on_cpu['result'].chosen_group} "
-            f"+{on_cpu['result'].new_nodes}) and {len(on_cpu['sizes'])} target sizes; on "
-            f"the CPU: pack {cpu_rec['pack_s']:.3f} s, filter-out {cpu_rec['filter_s']:.3f} s, "
-            f"scale_up {cpu_rec['scale_up_s']:.3f} s", flush=True,
+            f"revert, the whole ScaleUpResult ({cpu_rec['chosen_group']} "
+            f"+{cpu_rec['new_nodes']}) and {len(on_cpu['sizes'])} target sizes; on "
+            f"the CPU (a worker): pack {cpu_rec['pack_s']:.3f} s, filter-out "
+            f"{cpu_rec['filter_s']:.3f} s, scale_up {cpu_rec['scale_up_s']:.3f} s", flush=True,
         )
         phase(f"4g tick {label} on the CPU", t0)
 
@@ -1396,26 +1538,21 @@ def main() -> int:
           f"used, groups, assignments); the full pack {time.perf_counter() - t0:.3f} s "
           f"with the comparison", flush=True)
     del full_2, full_meta_2
-    cpu_packer = IncrementalPacker(device="cpu")
-    for k, (nodes_k, pods_k, _, rec) in enumerate(seq):
-        t0 = time.perf_counter()
+    for k, ((nodes_k, pods_k, _, rec), (secs, cpu_rec)) in enumerate(
+            zip(seq, cpu_jobs["sequence"].get(CPU_WAIT_S))):
         if k == 0:
-            tick_probe.listing_snapshot(nodes_k, pods_k, "cpu", cpu_packer).tensors()
-            print(f"# sequence tick 1 on the CPU: the packer's update {time.perf_counter() - t0:.3f}"
-                  f" s host clock", flush=True)
+            print(f"# sequence tick 1 on the CPU: the packer's update {secs:.3f} s host clock "
+                  f"(a worker)", flush=True)
             continue
-        cpu_rec = tick_probe.run_tick(nodes_k, pods_k, (), tick_templates, "cpu",
-                                      packer=cpu_packer)
         diff = tick_probe.tick_differences(rec["out"], cpu_rec["out"])
         check(not diff, f"tick sequence: tick {k + 1} differs from the CPU in {diff}")
         check(cpu_rec["packer"] == rec["packer"],
               f"tick sequence: tick {k + 1}'s packer counts differ from the CPU's")
         print(f"# sequence tick {k + 1}: card equals CPU ({len(cpu_rec['out']['filtered'])} "
               f"filtered, {len(cpu_rec['out']['still'])} still pending, the whole "
-              f"ScaleUpResult); on the CPU: {time.perf_counter() - t0:.3f} s host clock, pack "
+              f"ScaleUpResult); on the CPU (a worker): {secs:.3f} s host clock, pack "
               f"{cpu_rec['pack_s']:.3f} s", flush=True)
-        del cpu_rec
-    del cpu_packer
+    _POOL.close()
     phase("4h the tick sequence against a full pack and on the CPU", t4h)
 
     # the resident arena: a second packer with a DeviceArena on the card
@@ -1497,8 +1634,11 @@ def main() -> int:
     t0 = time.perf_counter()
     tenth = loop_probe.loop_world(tenth=True)
     arrive = loop_probe.ARRIVALS // 10
-    on_card = loop_probe.run_loop_ticks(*tenth, dev, arrive=arrive, replayable=True)
+    watch.reset()
+    on_card = loop_probe.run_loop_ticks(*tenth, dev, arrive=arrive, replayable=True,
+                                        metrics=card_metrics)
     t_card = time.perf_counter() - t0
+    check(not watch.problems(), f"reconcile loop 4l: the kernel ladder {watch.problems()}")
     on_cpu = loop_probe.run_loop_ticks(*tenth, "cpu", arrive=arrive, replayable=True)
     diffs = [loop_probe.state_differences(a["state"], b["state"])
              for a, b in zip(on_card["ticks"], on_cpu["ticks"])]
@@ -1510,7 +1650,7 @@ def main() -> int:
     check(len(diffs) == 3 and not any(diffs), f"reconcile loop 4l: the card differs: {diffs}")
     check(all(not e["probe"]["drift"] for e in on_card["ticks"] + on_cpu["ticks"]),
           "reconcile loop 4l: a journal probe found drift")
-    del on_card, on_cpu, tenth
+    del on_card, on_cpu
     phase("4l the reconcile loop at a tenth on the card and the CPU", t0)
 
     # every kernel launch of 3o, at the loop's own shapes, against its plain
@@ -1534,6 +1674,62 @@ def main() -> int:
           flush=True)
     del held, loop_capture
     phase("4m the reconcile loop's launches against their plain versions", t0)
+
+    # 5a: what 3o's ticks left in the perf observatory (one record a tick,
+    # /perfz's body) and the ladder's proof: since the process started, no
+    # rung attempt of a card estimator faulted and no breaker changed state
+    # (each path was checked for its routes, forced dispatches and
+    # estimator warnings as it ran)
+    t0 = time.perf_counter()
+    for line in ladder_probe.perf_lines(loop_sa):
+        print(line.replace("# perf record", "# perf record 5a"), flush=True)
+    attempts = card_metrics.estimator_kernel_rung_attempts_total.values
+    faults = sum(n for key, n in attempts.items() if dict(key)["outcome"] == "fault")
+    transitions = sum(card_metrics.estimator_breaker_transitions_total.values.values())
+    check(faults == 0 and transitions == 0,
+          f"ladder: {faults} fault attempts and {transitions} breaker transitions before 5b")
+    served = {f"{dict(key)['route']}:{dict(key)['reason']}": int(n)
+              for key, n in card_metrics.estimator_kernel_route_total.values.items()}
+    print(f"# ladder 5a: the card's estimators served {served}; 0 fault attempts, "
+          f"0 breaker transitions; every card path checked for its routes, forced "
+          f"dispatches and estimator warnings", flush=True)
+    phase("5a perf records and the ladder's proof", t0)
+
+    # 5b: the fault walk on the card at 4l's size (tools/ladder_probe):
+    # faults armed three times on the cuda rung of a reconcile loop's
+    # estimator; each faulted estimate raises (on the card the kernels have
+    # no fallback), is counted and logged, and the third opens the breaker;
+    # /health-check reads degraded and the estimate past the open breaker
+    # raises too; past the cooldown one half-open probe launches the kernel,
+    # serves the first decisions and closes the breaker
+    t0 = time.perf_counter()
+    watch.reset()
+    walk = ladder_probe.fault_walk(*tenth, None)
+    print(ladder_probe.walk_line(walk).replace("# fault walk", "# fault walk 5b"), flush=True)
+    bad = ladder_probe.walk_problems(walk)
+    check(walk["card"] and not bad, f"fault walk 5b: {bad}")
+    check(sum("kernel rung failed" in w for w in watch.warnings) == ladder_probe.FAULTS,
+          f"fault walk 5b: the faults were not logged: {watch.warnings}")
+    phase("5b the ladder's fault walk on the card", t0)
+
+    # 5c: the native and Python rungs against the cuda rung on 4l's burst
+    # (tools/ladder_probe): the native library built from its source at
+    # first use (timed), every group on the native rung, every 50th on the
+    # Python oracle, each served by an estimator on the CPU with the rungs
+    # above it faulted
+    t0 = time.perf_counter()
+    rungs = ladder_probe.host_rungs(tenth[2], tenth[3], walk["steps"][0][0])
+    print(ladder_probe.host_line(rungs).replace("# host rungs", "# host rungs 5c"), flush=True)
+    check(rungs["built"], f"native rung: {rungs['error']}")
+    check(rungs["native"][2] and rungs["python_ref"][2],
+          "host rungs 5c: a host rung decided differently from the cuda rung")
+    check(rungs["native"][3] == {("native", "kernel_fault"): 1}
+          and rungs["python_ref"][3] == {("python_ref", "kernel_fault"): 1},
+          f"host rungs 5c: the host rungs did not serve: {rungs['native'][3]} "
+          f"{rungs['python_ref'][3]}")
+    del tenth, walk
+    watch.close()
+    phase("5c the native and Python rungs against the cuda rung", t0)
 
     # where the burst estimate's time goes: the host operand build (mask
     # engine, packing) and the scan call on the card
@@ -1577,4 +1773,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        if _POOL is not None:
+            _POOL.terminate()
+            _POOL.join()
+    sys.exit(code)

@@ -211,13 +211,33 @@ def test_held_served_tensor_keeps_its_values(hold):
 
 
 def test_unported_arena_options_raise():
-    from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
+    """Nothing of the arena is refused since the perf observatory was
+    ported: ``observatory=`` is taken, and prewarm's scatters reach it as
+    the JAX package's do — the same routes, signatures, cache verdicts and
+    compile-cache counts, at 0 s of wall under one synthetic clock."""
+    import autoscaler_tpu.metrics.metrics as jmetrics
+    import autoscaler_tpu.perf as jperf
+    import autoscaler_tpu_torch.metrics.metrics as tmetrics
+    import autoscaler_tpu_torch.perf as tperf
 
-    metrics = AutoscalerMetrics()
-    for kw in ({"observatory": object()}, {"observatory": object(), "metrics": metrics}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tarena.DeviceArena(device="cpu", **kw)
+    metrics = tmetrics.AutoscalerMetrics()
     assert tarena.DeviceArena(device="cpu", metrics=metrics).metrics is metrics
+    lines = []
+    for arena_mod, perf_mod, metrics_mod, kw in (
+        (jarena, jperf, jmetrics, {}), (tarena, tperf, tmetrics, {"device": "cpu"}),
+    ):
+        m = metrics_mod.AutoscalerMetrics()
+        obs = perf_mod.PerfObservatory(metrics=m)
+        arena = arena_mod.DeviceArena(buckets="16x8x8", observatory=obs, metrics=m,
+                                      clock=lambda: 0.0, **kw)
+        obs.begin_tick(0, 0.0)
+        calls = arena.prewarm(R=6)
+        rec = obs.end_tick()
+        assert arena.observatory is obs
+        lines.append((calls, [(d["route"], d["sig"], d["cache"], d["operand_bytes"])
+                              for d in rec["dispatches"]],
+                      sorted(m.kernel_compile_cache_total.values.items())))
+    assert lines[0] == lines[1] and lines[1][0] > 0
 
 
 def test_operand_arena_hits_by_content_and_device():

@@ -4,7 +4,10 @@ seeded operands (bit for bit: every step is an f32 compare or an integer
 select, sum or min), and the estimator's ``last_explain`` (per-group fit
 counts and reason histograms, each pod's dominant reason) on the worlds of
 tests/test_torch_estimator.py: the plain, runs, affinity, spread and
-runs-affinity routes of ``estimate_many`` and both routes of ``estimate``."""
+runs-affinity routes of ``estimate_many`` and both routes of ``estimate``,
+the port's as it routes on the CPU (the torch loops); and
+the attribution's fallback to the serial oracle twin when the device pass
+fails."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +15,7 @@ import torch
 
 import autoscaler_tpu.ops.binpack as jbin
 import autoscaler_tpu_torch.ops.binpack as tbin
+import autoscaler_tpu_torch.metrics.metrics as tmetrics
 from autoscaler_tpu_torch.estimator import binpacking as tes
 from test_torch_estimator import (
     HOST,
@@ -24,6 +28,7 @@ from test_torch_estimator import (
     make_pods,
     make_templates,
     pod_spec,
+    routes_of,
     template_spec,
     zoned_templates,
 )
@@ -69,13 +74,17 @@ def test_attribution_ops_match_jax(seed, R):
     assert_bits_equal(np.asarray(ref_dom), dom)
 
 
-def explain_both(make, templates_of, call):
-    """``last_explain`` of each package's estimator after ``call``."""
+def explain_both(make, templates_of, call, routes=None):
+    """``last_explain`` of each package's estimator after ``call``; the
+    port's routes land in ``routes``."""
     out = []
+    metrics = tmetrics.AutoscalerMetrics()
     for pkg in (JAX, TORCH):
-        est = estimator(pkg, 16)
+        est = estimator(pkg, 16, metrics if pkg is TORCH else None)
         call(est, pkg, make(pkg), templates_of(pkg))
         out.append(est.last_explain)
+    if routes is not None:
+        routes.update(routes_of(metrics))
     return out
 
 
@@ -89,24 +98,26 @@ def dynamic(spec, seed=0, n_templates=4):
 
 
 WORLDS = {
-    "plain": (plain(0), "ffd_scan"),
-    "plain-extras": (plain(3, extras=True), "ffd_scan"),
-    "runs": (plain(4, replicated=True), None),
-    "affinity": (dynamic(dynamic_spec(10, 60, anti=0.4, aff=0.2)), "ffd_scan_aff"),
-    "spread": (dynamic(dynamic_spec(11, 60, spread=0.5, anti=0.2, skew=2)), "ffd_scan_aff"),
+    "plain": (plain(0), ("torch_scan", "not_cuda")),
+    "plain-extras": (plain(3, extras=True), ("torch_scan", "not_cuda")),
+    "runs": (plain(4, replicated=True), ("torch_runs", "dedup")),
+    "affinity": (dynamic(dynamic_spec(10, 60, anti=0.4, aff=0.2)),
+                 ("torch_scan", "not_cuda")),
+    "spread": (dynamic(dynamic_spec(11, 60, spread=0.5, anti=0.2, skew=2)),
+               ("torch_scan", "not_cuda")),
     "runs-affinity": (dynamic(dynamic_spec(16, 140, replicated=True, apps=7, spread=1.0,
-                                           spread_key=HOST)), None),
+                                           spread_key=HOST)), ("torch_runs", "dedup")),
 }
 
 
 @pytest.mark.parametrize("world", sorted(WORLDS))
 def test_estimate_many_explain_matches_jax(world):
     (make, templates_of), route = WORLDS[world]
-    before = dict(tes.ROUTES)
+    routed = {}
     ref, out = explain_both(make, templates_of,
-                            lambda est, pkg, pods, tmpls: est.estimate_many(pods, tmpls))
-    routed = [k for k in tes.ROUTES if tes.ROUTES[k] != before[k]]
-    assert routed == ([route] if route else [])
+                            lambda est, pkg, pods, tmpls: est.estimate_many(pods, tmpls),
+                            routes=routed)
+    assert routed == {route: 1}
     assert out == ref
     assert out["groups"] and len(out["pod_reasons"]) == len(make(TORCH))
     assert any(g["reasons"] for g in out["groups"].values())
@@ -137,3 +148,24 @@ def test_empty_estimate_clears_the_explain():
     assert est.last_explain["pod_reasons"]
     assert est.estimate_many([], templates_of(TORCH)) == {g: (0, []) for g in templates_of(TORCH)}
     assert est.last_explain == {"groups": {}, "pod_reasons": {}}
+
+
+@pytest.mark.parametrize("world", sorted(WORLDS))
+def test_attribution_falls_back_to_the_oracle_twin(world, monkeypatch, caplog):
+    """When the device pass raises, the serial oracle twin answers from the
+    numpy operands: the same ``last_explain`` as the JAX package's, and one
+    WARNING on the estimator logger."""
+    (make, templates_of), _ = WORLDS[world]
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("attribution pass failed")
+
+    ref = explain_both(make, templates_of,
+                       lambda est, pkg, pods, tmpls: est.estimate_many(pods, tmpls))[0]
+    monkeypatch.setattr(tes, "attribute_unschedulable", broken)
+    est = estimator(TORCH, 16)
+    with caplog.at_level("WARNING", logger="estimator"):
+        est.estimate_many(make(TORCH), templates_of(TORCH))
+    assert est.last_explain == ref
+    warned = [r for r in caplog.records if r.name == "estimator" and r.levelname == "WARNING"]
+    assert len(warned) == 1 and "serial oracle twin" in warned[0].getMessage()

@@ -5,7 +5,10 @@ build_test_pod/build_test_node from one numpy-seeded spec. Node counts,
 scheduled pods and the expander's choice must be equal, on the plain and
 runs routes and on every dynamic route (inter-pod affinity, hard spread,
 legacy volume conflicts), where each case also checks which of the port's
-routes served it."""
+routes served it (``estimator_kernel_route_total``). On the CPU the port's
+cuda rung is unavailable (``not_cuda``) and its torch loops serve; the
+cuda rung's gates are held on their own, at the shapes these worlds give
+them."""
 import dataclasses
 from types import SimpleNamespace
 
@@ -16,14 +19,16 @@ import autoscaler_tpu.estimator.binpacking as jest
 import autoscaler_tpu.estimator.limiter as jlim
 import autoscaler_tpu.expander.core as jexp
 import autoscaler_tpu.kube.objects as jobj
+import autoscaler_tpu.metrics.metrics as jmetrics
 import autoscaler_tpu.utils.test_utils as jtu
 import autoscaler_tpu_torch.estimator.binpacking as tes
 import autoscaler_tpu_torch.estimator.limiter as tlim
 import autoscaler_tpu_torch.expander.core as texp
 import autoscaler_tpu_torch.kube.objects as tobj
+import autoscaler_tpu_torch.metrics.metrics as tmetrics
 import autoscaler_tpu_torch.utils.test_utils as ttu
 from autoscaler_tpu_torch.ops import ffd_scan, ffd_scan_affinity
-from torch_parity import port_world
+from torch_parity import aff_smem, port_series, port_world, scan_smem, series
 
 JAX = SimpleNamespace(obj=jobj, tu=jtu, est=jest, lim=jlim, exp=jexp)
 TORCH = SimpleNamespace(obj=tobj, tu=ttu, est=tes, lim=tlim, exp=texp)
@@ -138,11 +143,18 @@ class Group:
         return self.template
 
 
-def estimator(pkg, max_nodes):
+def estimator(pkg, max_nodes, metrics=None):
     limiter = pkg.lim.ThresholdBasedEstimationLimiter(max_nodes=max_nodes)
     if pkg is TORCH:
-        return pkg.est.BinpackingNodeEstimator(limiter=limiter, device="cpu")
-    return pkg.est.BinpackingNodeEstimator(limiter=limiter)
+        return pkg.est.BinpackingNodeEstimator(limiter=limiter, metrics=metrics,
+                                               device="cpu")
+    return pkg.est.BinpackingNodeEstimator(limiter=limiter, metrics=metrics)
+
+
+def routes_of(metrics) -> dict:
+    """{(route, reason): count} of the port's estimator_kernel_route_total."""
+    return {(dict(labels)["route"], dict(labels)["reason"]): n
+            for labels, n in metrics.estimator_kernel_route_total.values.items()}
 
 
 def run_both(pspecs, tspecs, max_nodes=64, headrooms=None):
@@ -336,25 +348,30 @@ def cluster_of(pkg):
 
 
 def run_dynamic(specs, seed=0, n_templates=4, max_nodes=16, cluster=False, headrooms=None):
-    """estimate_many on both packages (the port on the CPU) and the route
-    the port took."""
+    """estimate_many on both packages (the port on the CPU), whose route
+    lines must be equal under the name map. → (results, the route the
+    port took)."""
     results = {}
-    routes_before = dict(tes.ROUTES)
     launches_before = dict(ffd_scan_affinity.LAUNCHES)
-    for label, pkg in (("jax", JAX), ("torch", TORCH)):
+
+    def run(pkg, metrics):
         pods = make_dynamic_pods(pkg, specs)
         templates = zoned_templates(pkg, seed, n_templates)
-        res = estimator(pkg, max_nodes).estimate_many(
+        res = estimator(pkg, max_nodes, metrics).estimate_many(
             pods, templates, headrooms, cluster=cluster_of(pkg) if cluster else None
         )
-        results[label] = (res, templates)
+        return res, templates
+
+    jm, tm = jmetrics.AutoscalerMetrics(), tmetrics.AutoscalerMetrics()
+    results["jax"] = run(JAX, jm)
+    results["torch"] = run(TORCH, tm)
+    assert series(tm.estimator_kernel_route_total) == port_series(jm.estimator_kernel_route_total)
     assert ffd_scan_affinity.LAUNCHES == launches_before  # CPU: no kernel launch
-    routed = {k: tes.ROUTES[k] - routes_before[k] for k in tes.ROUTES}
-    return results, routed
+    return results, routes_of(tm)
 
 
-def per_pod_route(results, routed, route="ffd_scan_aff"):
-    assert routed == {k: int(k == route) for k in routed}, routed
+def per_pod_route(results, routed, route=("torch_scan", "not_cuda")):
+    assert routed == {route: 1}, routed
     return assert_same(results)
 
 
@@ -392,30 +409,41 @@ def test_legacy_volume_conflicts_per_pod_route():
 
 def test_replicated_world_runs_affinity_route():
     """Replicas of 7 deployments, one with hostname anti-affinity: dedup
-    still halves the runs, so neither K3 nor the torch loop serves."""
+    still halves the runs, so neither K3 nor the per-pod torch loop
+    serves: the runs-affinity loop does, the cuda rung skipped (dedup)."""
     specs = dynamic_spec(15, 140, replicated=True, apps=7)
     pods = make_dynamic_pods(TORCH, specs)
     groups = tes.build_pod_groups(pods)
     assert len(groups) * 2 <= len(pods)
     results, routed = run_dynamic(specs)
-    assert routed == {k: 0 for k in tes.ROUTES}
+    assert routed == {("torch_runs", "dedup"): 1}
     assert_same(results)
 
 
 def test_replicated_world_with_spread_runs_affinity_route():
     specs = dynamic_spec(16, 140, replicated=True, apps=7, spread=1.0, spread_key=HOST)
     results, routed = run_dynamic(specs)
-    assert routed == {k: 0 for k in tes.ROUTES}
+    assert routed == {("torch_runs", "dedup"): 1}
     assert_same(results)
 
 
 def test_more_than_32_spread_terms_take_the_torch_loop():
     """More than 32 apps with distinct spread terms: S buckets to 64,
-    wider than K3's bitset, so the gate sends the estimate to the torch
-    loop."""
+    wider than K3's bitset, so on a card the gate sends the estimate to
+    the torch loop (reason spread_width); on the CPU the torch loop serves
+    it (not_cuda)."""
+    import torch
+
+    from autoscaler_tpu_torch.snapshot.affinity import build_spread_terms
+
     specs = dynamic_spec(17, 100, spread=1.0, apps=50, skew=2)
     assert len({s["app"] for s in specs}) > 32
-    per_pod_route(*run_dynamic(specs), route="affinity_loop")
+    per_pod_route(*run_dynamic(specs))
+    pods = make_dynamic_pods(TORCH, specs)
+    templates = zoned_templates(TORCH, 0, 4)
+    sp = build_spread_terms(pods, list(templates.values()), pad_pods=128, bucket_terms=True)
+    assert sp.num_terms == 64
+    assert tes.affinity_gate(torch.device("cuda", 0), 6, 4, sp.num_terms, 16)[0] == "spread_width"
 
 
 def test_headrooms_cap_dynamic_groups():
@@ -425,8 +453,10 @@ def test_headrooms_cap_dynamic_groups():
 
 
 def test_kernel_route_gate(monkeypatch):
-    """The gate reads K3's shared memory from the kernel library on a card
-    (stubbed here), and only the spread width on the CPU."""
+    """The cuda rung's gate on the dynamic route reads K3's shared memory
+    from the kernel library on a card (stubbed here): off a CUDA device it
+    answers not_cuda before asking, past 32 spread terms spread_width, past
+    a block's shared memory smem."""
     import torch
 
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
@@ -434,30 +464,24 @@ def test_kernel_route_gate(monkeypatch):
 
     def smem(R, TP, S, max_nodes):
         seen.append((R, TP, S, max_nodes))
-        return 4 * (R + 2 * TP + S) * max_nodes
+        return aff_smem(R, TP, S, max_nodes)
 
     monkeypatch.setattr(ffd_scan_affinity, "affinity_smem_bytes", smem)
-    assert tes.kernel_route(cuda, 6, 64, 32, 1024) == "ffd_scan_aff"
+    assert tes.affinity_gate(cuda, 6, 64, 32, 1024) is None
     assert seen == [(6, 2, 32, 1024)]
-    assert tes.kernel_route(cuda, 6, 64, 32, 2048) == "affinity_loop"
-    assert tes.kernel_route(cuda, 6, 4, 64, 16) == "affinity_loop"
-    assert tes.kernel_route(cpu, 6, 64, 32, 2048) == "ffd_scan_aff"
-    assert tes.kernel_route(cpu, 6, 4, 33, 16) == "affinity_loop"
-
-
-def scan_smem(planes, max_nodes):
-    """csrc/ffd_scan.cu's smem_bytes: the carry [NP, M], the block
-    summaries [NP, ceil(M/32)], two staged request blocks [2, 32, NP], the
-    guards [NP] and two rounds' hit slots [2, 8], in 4-byte words."""
-    return 4 * (planes * max_nodes + planes * -(-max_nodes // 32) + 64 * planes + planes + 16)
+    assert tes.affinity_gate(cuda, 6, 64, 32, 2048)[0] == "smem"
+    assert tes.affinity_gate(cuda, 6, 4, 64, 16)[0] == "spread_width"
+    assert tes.affinity_gate(cpu, 6, 64, 32, 2048)[0] == "not_cuda"
+    assert tes.affinity_gate(cpu, 6, 4, 33, 16)[0] == "not_cuda"
+    assert len(seen) == 2
 
 
 @pytest.mark.parametrize("max_nodes,widest", [(1024, 51), (2048, 26), (4096, 13), (8192, 6)])
 def test_scan_route_gate(monkeypatch, max_nodes, widest):
-    """The plain route's gate reads K1/K2's shared memory from the kernel
-    library on a card (the C formula here): the widest carry that fits a
-    block launches the kernel, one plane more takes the torch loop. The
-    CPU never asks, and runs the plain versions."""
+    """The cuda rung's gate on the plain route reads K1/K2's shared memory
+    from the kernel library on a card (the C formula here): the widest
+    carry that fits a block passes, one plane more answers smem. Off a
+    CUDA device it answers not_cuda without asking."""
     import torch
 
     seen = []
@@ -469,52 +493,55 @@ def test_scan_route_gate(monkeypatch, max_nodes, widest):
     monkeypatch.setattr(ffd_scan, "smem_bytes", smem)
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
     assert scan_smem(widest, max_nodes) <= ffd_scan.SMEM_PER_BLOCK < scan_smem(widest + 1, max_nodes)
-    assert tes.scan_route(cuda, widest, max_nodes) == "ffd_scan"
-    assert tes.scan_route(cuda, widest + 1, max_nodes) == "binpack_loop"
+    assert tes.plain_gate(cuda, widest, max_nodes) is None
+    assert tes.plain_gate(cuda, widest + 1, max_nodes)[0] == "smem"
     assert seen == [(widest, max_nodes), (widest + 1, max_nodes)]
-    assert tes.scan_route(cpu, widest + 1, max_nodes) == "ffd_scan"
+    assert tes.plain_gate(cpu, widest + 1, max_nodes)[0] == "not_cuda"
     assert len(seen) == 2
 
 
 def test_plain_route_gate_counts_routes(monkeypatch):
-    """A world with 7 f32 planes at a scan cap of 8192: on the CPU the gate
-    keeps the plain versions ("ffd_scan"); where a card's gate refuses the
-    kernel ("binpack_loop") the torch loop answers the same, and ROUTES
-    counts each. No kernel launches on the CPU, and the loop route builds
-    no request stream for the kernels."""
+    """A world with 7 f32 planes at a scan cap of 8192: where a card's gate
+    passes, the cuda rung's glue runs K1's plain version on the CPU (route
+    cuda); where it refuses (smem), the torch loop answers the same
+    (torch_scan, smem), and builds no request stream for the kernels; off
+    a card the torch loop serves (not_cuda). The route metric counts each;
+    no kernel launches on the CPU."""
     pods, templates = port_world(ttu, 150, ports=4)
-    est = tes.BinpackingNodeEstimator(tlim.ThresholdBasedEstimationLimiter(max_nodes=5000),
-                                      device="cpu")
     req, _, _ = tes._build_group_arrays(pods, sorted(templates), templates, pad=256)
     assert req.shape[1] == 6 + 4
     launches = dict(ffd_scan.LAUNCHES)
-    routes = dict(tes.ROUTES)
-    on_kernel_route = est.estimate_many(pods, templates)
-    assert {k: tes.ROUTES[k] - routes[k] for k in tes.ROUTES} == {
-        k: int(k == "ffd_scan") for k in tes.ROUTES
-    }
     decided = []
 
-    def card_gate(device, planes, max_nodes):
-        decided.append((planes, max_nodes))
-        return "binpack_loop"
+    def estimate(gate_answer):
+        def card_gate(device, planes, max_nodes):
+            decided.append((planes, max_nodes))
+            return gate_answer
+
+        monkeypatch.setattr(tes, "plain_gate", card_gate)
+        m = tmetrics.AutoscalerMetrics()
+        est = tes.BinpackingNodeEstimator(tlim.ThresholdBasedEstimationLimiter(max_nodes=5000),
+                                          metrics=m, device="cpu")
+        return est.estimate_many(pods, templates), routes_of(m)
+
+    on_kernel_route, routed = estimate(None)
+    assert routed == {("cuda", "ok"): 1} and decided == [(7, 8192)]
 
     def no_stream(*args, **kwargs):
         raise AssertionError("the loop route built the kernels' request stream")
 
-    monkeypatch.setattr(tes, "scan_route", card_gate)
     monkeypatch.setattr(ffd_scan, "prepare_scan", no_stream)
-    routes = dict(tes.ROUTES)
-    on_loop = est.estimate_many(pods, templates)
-    assert decided == [(7, 8192)]
-    assert {k: tes.ROUTES[k] - routes[k] for k in tes.ROUTES} == {
-        k: int(k == "binpack_loop") for k in tes.ROUTES
-    }
+    on_loop, routed = estimate(("smem", "stub"))
+    assert routed == {("torch_scan", "smem"): 1} and decided == [(7, 8192)] * 2
+    monkeypatch.undo()
+    on_cpu, routed = estimate(("not_cuda", "stub"))
+    assert routed == {("torch_scan", "not_cuda"): 1}
     assert ffd_scan.LAUNCHES == launches
     assert any(n > 0 for n, _ in on_loop.values())
     for g in templates:
-        assert on_loop[g][0] == on_kernel_route[g][0]
-        assert [p.name for p in on_loop[g][1]] == [p.name for p in on_kernel_route[g][1]]
+        for other in (on_loop, on_cpu):
+            assert other[g][0] == on_kernel_route[g][0]
+            assert [p.name for p in other[g][1]] == [p.name for p in on_kernel_route[g][1]]
 
 
 @pytest.mark.parametrize("cluster", [False, True])

@@ -3,7 +3,10 @@ JAX package's ops/fit.py on the same packed worlds: fit_matrix in f32 and
 bf16, fits_any_node, first_fit_node, the bf16 rounding helpers and the
 routing of huge factored worlds to the tiled path. Exact throughout: the
 outputs are booleans and indices, and the bf16 helpers' outputs are
-compared bit for bit."""
+compared bit for bit; and the fit-reason matrix (why each pod does not
+fit each node) with each pending pod's dominant reason."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -130,3 +133,58 @@ def test_huge_factored_worlds_route_to_the_tiled_path(monkeypatch, seed):
     # a dense snapshot is never "too big", whatever the limit
     assert torch.equal(tfit.fits_any_node(tt_d), ref_any)
     assert len(routed) == 2
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "factored"])
+@pytest.mark.parametrize("seed", range(3))
+def test_fit_reason_matrix_matches_jax(seed, dense):
+    """Why each pod does not fit each node, and each pod's dominant reason,
+    on the mask worlds: equal codes, int32 both."""
+    jt, tt = packed(seed, dense, frac=seed == 2)
+    want, got = jfit.fit_reason_matrix(jt), tfit.fit_reason_matrix(tt)
+    assert got.dtype == torch.int32 and got.shape == (tt.num_pods, tt.num_nodes)
+    np.testing.assert_array_equal(to_np(want), to_np(got))
+    want, got = jfit.pending_fit_reasons(jt), tfit.pending_fit_reasons(tt)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(to_np(want), to_np(got))
+    assert len(np.unique(to_np(got))) >= 2
+
+
+def test_pending_fit_reasons_against_live_cluster():
+    """tests/test_explain.py's live-cluster case on both packages: a pod
+    that fits, a cpu hog and a memory hog."""
+    from autoscaler_tpu.explain.reasons import REASON_CPU, REASON_MEMORY, REASON_NONE
+    import autoscaler_tpu.snapshot.cluster_snapshot as jcs
+    import autoscaler_tpu_torch.snapshot.cluster_snapshot as tcs
+
+    out = []
+    for tu, cs, fit, kw in ((jtu, jcs, jfit, {}), (ttu, tcs, tfit, {"device": "cpu"})):
+        snap = cs.ClusterSnapshot(**kw)
+        snap.add_node(tu.build_test_node("n1", cpu_m=1000, mem=2 * tu.GB))
+        snap.add_pod(tu.build_test_pod("ok", cpu_m=200, mem=100 * tu.MB))
+        snap.add_pod(tu.build_test_pod("cpuhog", cpu_m=5000, mem=100 * tu.MB))
+        snap.add_pod(tu.build_test_pod("memhog", cpu_m=200, mem=8 * tu.GB))
+        t = snap.tensors()
+        t = t[0] if isinstance(t, tuple) else t
+        codes = to_np(fit.pending_fit_reasons(t))
+        out.append({p.name: int(codes[i]) for i, p in enumerate(snap.pending_pods())})
+    assert out[0] == out[1] == {"ok": REASON_NONE, "cpuhog": REASON_CPU,
+                                "memhog": REASON_MEMORY}
+
+
+def test_fit_reasons_without_nodes_and_past_the_dense_limit(monkeypatch):
+    """No valid node: every pod's dominant reason is the predicate mask.
+    A factored world past the dense-cell limit is refused, as fit_matrix
+    refuses it."""
+    from autoscaler_tpu_torch.explain.reasons import REASON_TOPOLOGY
+
+    jt, tt = packed(0, True)
+    empty = dataclasses.replace(tt, node_valid=torch.zeros_like(tt.node_valid))
+    j_empty = dataclasses.replace(jt, node_valid=jnp.zeros_like(jt.node_valid))
+    got = tfit.pending_fit_reasons(empty)
+    np.testing.assert_array_equal(to_np(jfit.pending_fit_reasons(j_empty)), to_np(got))
+    assert (to_np(got) == REASON_TOPOLOGY).all()
+    _, factored = packed(0, False)
+    monkeypatch.setattr(tpack, "DENSE_MASK_CELL_LIMIT", 16)
+    with pytest.raises(ValueError, match="fit_reason_matrix"):
+        tfit.fit_reason_matrix(factored)

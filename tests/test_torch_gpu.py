@@ -395,11 +395,14 @@ def test_estimator_dynamic_route_on_card_equals_cpu(cuda):
     from autoscaler_tpu_torch.estimator import binpacking
     from autoscaler_tpu_torch.utils.workload import build_spread_world
 
+    from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
+
     pods, templates = build_spread_world(600, 4, 6, seed=3)
-    before = dict(binpacking.ROUTES)
+    metrics = AutoscalerMetrics()
     launches = ffd_scan_affinity.LAUNCHES["ffd_scan_aff"]
-    on_card = binpacking.BinpackingNodeEstimator().estimate_many(pods, templates)
-    assert binpacking.ROUTES["ffd_scan_aff"] == before["ffd_scan_aff"] + 1
+    on_card = binpacking.BinpackingNodeEstimator(metrics=metrics).estimate_many(pods, templates)
+    assert metrics.estimator_kernel_route_total.values == {
+        (("reason", "ok"), ("route", "cuda_affinity")): 1.0}
     assert ffd_scan_affinity.LAUNCHES["ffd_scan_aff"] == launches + 1
     on_cpu = binpacking.BinpackingNodeEstimator(device="cpu").estimate_many(pods, templates)
     for g in templates:
@@ -522,26 +525,28 @@ def test_fit_reduce_waits_on_no_host_value(cuda):
             assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("ports,route", [(4, "binpack_loop"), (3, "ffd_scan")])
+@pytest.mark.parametrize("ports,route", [(4, ("torch_scan", "smem")), (3, ("cuda", "ok"))])
 def test_plain_route_gate_on_card(cuda, ports, route):
     """At a scan cap of 8192, 7 f32 planes ask for more shared memory than
-    a block may use: the gate sends the estimate to the torch loop, which
-    equals the CPU estimate; one plane fewer launches K1."""
+    a block may use: the cuda rung's gate answers smem and the torch loop
+    serves, equal to the CPU estimate; one plane fewer launches K1."""
     from autoscaler_tpu_torch.estimator import binpacking
     from autoscaler_tpu_torch.estimator.limiter import ThresholdBasedEstimationLimiter
     from autoscaler_tpu_torch.utils import test_utils as ttu
     from torch_parity import port_world
 
     pods, templates = port_world(ttu, 300, ports=ports)
+    from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
+
     limiter = ThresholdBasedEstimationLimiter(max_nodes=5000)
-    routes = dict(binpacking.ROUTES)
+    metrics = AutoscalerMetrics()
     launches = dict(ffd_scan.LAUNCHES)
-    on_card = binpacking.BinpackingNodeEstimator(limiter).estimate_many(pods, templates)
+    on_card = binpacking.BinpackingNodeEstimator(limiter, metrics=metrics).estimate_many(
+        pods, templates)
     torch.cuda.synchronize()
-    assert {k: binpacking.ROUTES[k] - routes[k] for k in binpacking.ROUTES} == {
-        k: int(k == route) for k in binpacking.ROUTES
-    }
-    assert ffd_scan.LAUNCHES["ffd_scan_f32"] == launches["ffd_scan_f32"] + int(route == "ffd_scan")
+    assert metrics.estimator_kernel_route_total.values == {
+        (("reason", route[1]), ("route", route[0])): 1.0}
+    assert ffd_scan.LAUNCHES["ffd_scan_f32"] == launches["ffd_scan_f32"] + int(route[0] == "cuda")
     assert ffd_scan.LAUNCHES["ffd_scan_swar"] == launches["ffd_scan_swar"]
     on_cpu = binpacking.BinpackingNodeEstimator(limiter, device="cpu").estimate_many(pods, templates)
     assert any(n > 0 for n, _ in on_card.values())
@@ -565,9 +570,10 @@ def test_fit_reduce_launch_geometry(cuda, P, N, R, CN, rows):
     assert (gx, gy) == geometry(P, N, sms, per_sm)[:2]
 
 
-def _tick(spread, device, form_limit=None):
+def _tick(spread, device, metrics=None):
     """The scale-up half of tests/torch_parity.tick_world's tick on
-    ``device``: fork, filter-out, revert, scale_up (least-waste, seeded)."""
+    ``device``: fork, filter-out, revert, scale_up (least-waste, seeded),
+    the estimator's routes counted on ``metrics``."""
     import autoscaler_tpu_torch.cloudprovider.test_provider as tprov
     import autoscaler_tpu_torch.kube.objects as tobj
     import autoscaler_tpu_torch.snapshot.cluster_snapshot as tcs
@@ -583,20 +589,20 @@ def _tick(spread, device, form_limit=None):
     still, filtered = FilterOutSchedulablePodListProcessor().process(snap, pending)
     snap.revert()
     opts = AutoscalingOptions(expander="least-waste", expander_random_seed=0)
-    orch = ScaleUpOrchestrator(provider, opts, ClusterStateRegistry(provider, opts), device=device)
+    orch = ScaleUpOrchestrator(provider, opts, ClusterStateRegistry(provider, opts),
+                               device=device, metrics=metrics)
     res = orch.scale_up(still, snap.nodes(), 5.0, pods_of_node=snap.pods_on_node)
     return ([p.key() for p in filtered], [p.key() for p in still], canon(res),
             [(g.id(), g.target_size()) for g in provider.node_groups()])
 
 
-@pytest.mark.parametrize("spread,route,kernel", [(False, "ffd_scan", "ffd_scan_swar"),
-                                                 (True, "ffd_scan_aff", "ffd_scan_aff")])
+@pytest.mark.parametrize("spread,route,kernel", [(False, "cuda", "ffd_scan_swar"),
+                                                 (True, "cuda_affinity", "ffd_scan_aff")])
 @pytest.mark.parametrize("factored", [False, True], ids=["dense", "factored"])
 def test_scale_up_tick_on_card_equals_cpu(cuda, spread, route, kernel, factored, monkeypatch):
     """The tick's filter-out loop runs on the card and its estimate
     launches the kernel its route names; every filtered key, the whole
     ScaleUpResult and the provider afterwards equal the tick on the CPU."""
-    from autoscaler_tpu_torch.estimator import binpacking
     from autoscaler_tpu_torch.ops import schedule
     from autoscaler_tpu_torch.snapshot import packer
 
@@ -611,12 +617,14 @@ def test_scale_up_tick_on_card_equals_cpu(cuda, spread, route, kernel, factored,
         return out
 
     monkeypatch.setattr(schedule, "greedy_schedule", spy)
-    routes = dict(binpacking.ROUTES)
+    from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
+
+    metrics = AutoscalerMetrics()
     launches = {**ffd_scan.LAUNCHES, **ffd_scan_affinity.LAUNCHES}
-    on_card = _tick(spread, cuda)
+    on_card = _tick(spread, cuda, metrics)
     torch.cuda.synchronize()
     assert devices == [(factored, "cuda", "cuda")]
-    assert binpacking.ROUTES[route] == routes[route] + 1
+    assert metrics.estimator_kernel_route_total.get(route=route, reason="ok") == 1
     now = {**ffd_scan.LAUNCHES, **ffd_scan_affinity.LAUNCHES}
     assert now[kernel] == launches[kernel] + 1
     assert _tick(spread, "cpu") == on_card
@@ -962,22 +970,114 @@ def test_loop_on_card_equals_cpu(cuda):
     RunOnceResult, provider, API, decision, journal and SLO lines equal,
     the journal's probe (K4 on factored snapshots) finding no drift, the
     third tick's estimate on the dynamic route."""
-    from autoscaler_tpu_torch.estimator import binpacking
     from autoscaler_tpu_torch.tools import loop_probe
     from autoscaler_tpu_torch.utils.workload import build_snapshot_world
 
     nodes, pods = loop_probe.scale_in_listing(*build_snapshot_world(N=300, P=2000, port_nodes=100))
     templates, burst = loop_probe.burst_operands()
     groups = loop_probe.zoned_templates(templates)
-    for key in binpacking.ROUTES:
-        binpacking.ROUTES[key] = 0
     card = loop_probe.run_loop_ticks(nodes, pods, burst[:600], groups, cuda, arrive=100,
                                      replayable=True)
-    routes = dict(binpacking.ROUTES)
+    routes = card["autoscaler"].metrics.estimator_kernel_route_total
     cpu = loop_probe.run_loop_ticks(nodes, pods, burst[:600], groups, "cpu", arrive=100,
                                     replayable=True)
     for a, b in zip(card["ticks"], cpu["ticks"]):
         assert loop_probe.state_differences(a["state"], b["state"]) == []
         assert a["probe"]["checked"] and not a["probe"]["drift"]
     assert card["autoscaler"]._packer.device.type == "cuda"
-    assert routes["ffd_scan"] >= 1 and routes["ffd_scan_aff"] == 1
+    assert routes.get(route="cuda", reason="ok") >= 1
+    assert routes.get(route="cuda_affinity", reason="ok") == 1
+    assert card["autoscaler"].degraded_rungs() == []
+
+
+@pytest.mark.parametrize("kind", ["plain", "dynamic"])
+def test_failed_kernel_build_is_a_fault_on_card(cuda, kind, monkeypatch, tmp_path, caplog):
+    """On a CUDA card, a kernel source that does not build is a fault of
+    the cuda rung, never an unavailability, and it has no fallback: each
+    estimate raises, the fault is counted with outcome fault and logged at
+    WARNING, the breaker trips after its threshold, and past it the open
+    breaker raises too; no lower rung serves."""
+    from autoscaler_tpu_torch.estimator.binpacking import BinpackingNodeEstimator
+    from autoscaler_tpu_torch.estimator.ladder import KernelLadder
+    from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
+    from autoscaler_tpu_torch.ops import _build
+    from autoscaler_tpu_torch.utils.errors import AutoscalerError
+    from autoscaler_tpu_torch.utils.workload import build_spread_world
+    from autoscaler_tpu_torch.utils import test_utils as ttu
+    from torch_parity import port_world
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    if kind == "plain":
+        pods, templates = port_world(ttu, 200, ports=2)
+    else:
+        pods, templates = build_spread_world(600, 4, 6, seed=3)
+    metrics = AutoscalerMetrics()
+    ladder = KernelLadder(failure_threshold=2, cooldown_s=60.0)
+    est = BinpackingNodeEstimator(metrics=metrics, ladder=ladder)
+    with caplog.at_level("WARNING", logger="estimator"):
+        for now, raised in ((0.0, RuntimeError), (1.0, RuntimeError), (2.0, AutoscalerError)):
+            ladder.tick(now)
+            with pytest.raises(raised):
+                est.estimate_many(pods, templates)
+    attempts = metrics.estimator_kernel_rung_attempts_total
+    assert attempts.get(rung="cuda", outcome="fault") == 2
+    assert attempts.get(rung="cuda", outcome="skipped") == 1
+    assert attempts.get(rung="cuda", outcome="unavailable") == 0
+    assert sum(attempts.get(rung=r, outcome="ok") for r in ("torch", "native", "python")) == 0
+    assert sum(metrics.estimator_kernel_route_total.values.values()) == 0
+    assert ladder.degraded() == ["cuda"]
+    assert any(r.levelname == "WARNING" for r in caplog.records if r.name == "estimator")
+
+
+def test_ladder_fault_walk_on_card(cuda):
+    """Three faults armed on the cuda rung: on the card each faulted
+    estimate raises and launches nothing (the kernels have no fallback),
+    the breaker opens at the third and the estimate past it raises too;
+    past the cooldown one half-open probe on the cuda rung launches the
+    kernel, serves the first decisions and closes it."""
+    from autoscaler_tpu_torch.estimator.binpacking import BinpackingNodeEstimator
+    from autoscaler_tpu_torch.estimator.ladder import KernelLadder
+    from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
+    from autoscaler_tpu_torch.utils.errors import AutoscalerError
+    from autoscaler_tpu_torch.utils import test_utils as ttu
+    from torch_parity import port_world
+
+    pods, templates = port_world(ttu, 200, ports=2)
+    metrics = AutoscalerMetrics()
+    ladder = KernelLadder(failure_threshold=3, cooldown_s=30.0)
+    est = BinpackingNodeEstimator(metrics=metrics, ladder=ladder)
+    armed = {"left": 0}
+
+    def hook(rung):
+        if rung == "cuda" and armed["left"]:
+            armed["left"] -= 1
+            return "kernel_fault"
+        return None
+
+    ladder.fault_hook = hook
+    first = None
+    for i, now in enumerate((0.0, 1.0, 2.0, 3.0, 4.0, 40.0)):
+        ladder.tick(now)
+        armed["left"] += 3 * (i == 1)
+        launches = sum(ffd_scan.LAUNCHES.values())
+        if 0 < i < 5:                  # three faults, then the open breaker
+            with pytest.raises(AutoscalerError):
+                est.estimate_many(pods, templates)
+        else:
+            out = est.estimate_many(pods, templates)
+            out = {g: (c, [p.name for p in s]) for g, (c, s) in out.items()}
+            first = first or out
+            assert out == first
+        assert (sum(ffd_scan.LAUNCHES.values()) - launches) == int(i in (0, 5))
+        assert ladder.degraded() == (["cuda"] if i in (3, 4) else [])
+    assert ladder.degraded() == []
+    routes = metrics.estimator_kernel_route_total
+    assert routes.get(route="cuda", reason="ok") == 2 == sum(routes.values.values())
+    attempts = metrics.estimator_kernel_rung_attempts_total
+    assert attempts.get(rung="cuda", outcome="fault") == 3
+    assert attempts.get(rung="cuda", outcome="skipped") == 1

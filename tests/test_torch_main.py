@@ -20,6 +20,7 @@ import autoscaler_tpu_torch.main as tmain
 from autoscaler_tpu_torch.metrics.healthcheck import HealthCheck
 from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics, MetricsRegistry
 from test_torch_static_autoscaler import JAX, TORCH, build_world, exposition, tick
+from torch_parity import port_label
 
 GB = 1024**3
 
@@ -138,7 +139,17 @@ SAME = ("/health-check", "/explainz", "/explainz?tick=1", "/explainz?pod=default
         "/explainz?group=g", "/explainz?tick=x", "/sloz", "/sloz?slo=tick_duration",
         "/sloz?slo=nope", "/journalz", "/journalz?tick=0", "/journalz?diff=0,1",
         "/journalz?tick=9", "/tracez?id=x", "/tracez?format=bad", "/debug/pprof/",
-        "/debug/pprof/nope", "/nope")
+        "/debug/pprof/nope", "/nope", "/perfz", "/perfz?tick=99999", "/perfz?tick=bogus",
+        "/perfz/nope")
+
+
+def perf_detail(body: str, jax: bool) -> dict:
+    """A /perfz?tick= body, the JAX package's under the name map."""
+    rec = json.loads(body)
+    if jax:
+        for d in rec["dispatches"]:
+            d["route"] = port_label("route", d["route"])
+    return rec
 
 
 def test_server_endpoints_match_jax():
@@ -156,9 +167,15 @@ def test_server_endpoints_match_jax():
         # the header line carries the wall clock of the request
         assert tc == jc == 200 and tb.splitlines()[1:] == jb.splitlines()[1:]
         assert get(tport, "/snapshotz")[0] == 200          # armed for the next loop
-        code, body = get(tport, "/perfz")
-        assert code == 501 and "ROADMAP" in body
-        assert get(jport, "/perfz")[0] == 200
+        # /perfz: one record a tick, the same as the JAX package's under
+        # the name map (the listing is in SAME)
+        listing = json.loads(get(tport, "/perfz")[1])
+        assert [t["tick"] for t in listing["ticks"]] == [0, 1]
+        for t in listing["ticks"]:
+            path = f"/perfz?tick={t['tick']}"
+            (jc, jb), (tc, tb) = get(jport, path), get(tport, path)
+            assert tc == jc == 200 and perf_detail(tb, False) == perf_detail(jb, True), path
+        assert listing["ticks"][0]["dispatches"] >= 1
         for path in ("/debug/pprof/heap", "/debug/pprof/threadz"):
             assert get(tport, path)[0] == 200, path
     finally:
@@ -196,3 +213,19 @@ def test_unported_bindings_exit_2(argv, capsys):
 def test_unknown_provider_exits_2(capsys):
     assert tmain.main(["--provider=nope", "--device=cpu"]) == 2
     assert "unknown cloud provider" in capsys.readouterr().err
+
+
+def test_perfz_gated_like_tracez():
+    """tests/test_perf.py::TestPerfzEndpoint::test_perfz_gated_like_tracez on
+    the port: --perf-enabled=false answers 404, as the JAX package does."""
+    answers = []
+    for k, main in ((JAX, jmain), (TORCH, tmain)):
+        w = build_world(k, [("g", 0, 10, 1000, 2 * GB)], {"g": 1}, perf_enabled=False)
+        tick(w, 0.0)
+        server = main.ObservabilityServer(w.sa, "127.0.0.1:0")
+        port = server.start()
+        try:
+            answers.append(get(port, "/perfz"))
+        finally:
+            server.stop()
+    assert answers[0] == answers[1] and answers[1][0] == 404

@@ -174,8 +174,66 @@ SCALEDOWN_MODULES = (
 )
 
 
+# the estimator's services: the kernel ladder, its native and Python rungs,
+# the kernel-entry observer seam and the perf observatory, each at its JAX
+# counterpart's path
+ESTIMATOR_SERVICE_MODULES = (
+    "utils/circuit.py", "estimator/ladder.py", "estimator/reference_impl.py",
+    "native_bridge.py", "ops/telemetry.py", "perf/costmodel.py", "perf/ledger.py",
+    "perf/observatory.py", "perf/__init__.py",
+)
+
+_SERVICES_BLOCKED = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+from autoscaler_tpu_torch import native_bridge
+from autoscaler_tpu_torch.estimator.binpacking import BinpackingNodeEstimator
+from autoscaler_tpu_torch.estimator.ladder import KernelLadder
+from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
+from autoscaler_tpu_torch.ops.fit import pending_fit_reasons
+from autoscaler_tpu_torch.perf import PerfObservatory, validate_records
+from autoscaler_tpu_torch.snapshot.packer import pack
+from autoscaler_tpu_torch.utils.test_utils import build_test_node, build_test_pod
+pods = [build_test_pod(f"p{i}", cpu_m=100 + 37 * i) for i in range(12)]
+tmpl = {"g": build_test_node("t", cpu_m=1000)}
+m = AutoscalerMetrics()
+obs = PerfObservatory(metrics=m, cost_model=True)
+ladder = KernelLadder(failure_threshold=1)
+ladder.fault_hook = lambda rung: "kernel_fault" if rung == "torch" else None
+est = BinpackingNodeEstimator(metrics=m, ladder=ladder, observatory=obs, device="cpu")
+obs.begin_tick(0, 0.0)
+res = est.estimate_many(pods, tmpl)
+rec = obs.end_tick()
+served = "native" if native_bridge.available() else "python_ref"
+assert m.estimator_kernel_route_total.get(route=served, reason="kernel_fault") == 1
+assert ladder.degraded() == ["torch"] and validate_records([rec]) == []
+hog = build_test_pod("hog", cpu_m=5000)
+codes = pending_fit_reasons(pack([build_test_node("n", cpu_m=1000)], pods + [hog],
+                                 device="cpu")[0])[:13]
+loaded = [m for m in sys.modules if m == "autoscaler_tpu" or m.startswith("autoscaler_tpu.")]
+assert not loaded, loaded
+print("OK", res["g"][0], rec["dispatches"][0]["route"], sorted(set(codes.tolist())))
+"""
+
+
+def test_estimator_services_run_with_jax_blocked():
+    """The ladder descending past a faulted torch rung to a host rung, the
+    observatory's record with the cost model, the fit reasons: with jax
+    blocked, nothing of the JAX package loaded."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVICES_BLOCKED], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ok, count, route, codes = proc.stdout.split(maxsplit=3)
+    assert ok == "OK" and int(count) == 4 and route in ("native", "python_ref")
+    assert codes.strip() == "[0, 6]"
+
+
 def test_tick_modules_are_ported():
-    for rel in TICK_MODULES + PACKER_MODULES + SCALEDOWN_MODULES:
+    for rel in TICK_MODULES + PACKER_MODULES + SCALEDOWN_MODULES + ESTIMATOR_SERVICE_MODULES:
         assert (PORT / rel).is_file(), rel
         assert (REPO / "autoscaler_tpu" / rel).is_file(), rel
         assert f"autoscaler_tpu_torch/{rel}" in PORT_FILES

@@ -37,11 +37,11 @@ import autoscaler_tpu_torch.core.scaleup.resource_manager as trm
 import autoscaler_tpu_torch.explain.reasons as treasons
 import autoscaler_tpu_torch.expander.core as texp
 import autoscaler_tpu_torch.kube.objects as tobj
+import autoscaler_tpu_torch.metrics.metrics as tmetrics
 import autoscaler_tpu_torch.processors.pipeline as tpipe
 import autoscaler_tpu_torch.snapshot.cluster_snapshot as tcs
 import autoscaler_tpu_torch.snapshot.packer as tpack
 import autoscaler_tpu_torch.utils.test_utils as ttu
-from autoscaler_tpu_torch.estimator import binpacking as tbin
 from torch_parity import canon, tick_world
 
 JAX = types.SimpleNamespace(
@@ -369,7 +369,6 @@ def test_orchestrator_estimates_on_its_device():
 
 
 @pytest.mark.parametrize("unported", [
-    {"metrics": object(), "observatory": object()}, {"observatory": object()},
     {"priorities_fetch": lambda: {}}, {"preemption_churn_weight": 0.5},
 ])
 def test_unported_options_raise(unported):
@@ -379,6 +378,33 @@ def test_unported_options_raise(unported):
     csr = treg.ClusterStateRegistry(provider, opts)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_orch.ScaleUpOrchestrator(provider, opts, csr, device="cpu", **unported)
+
+
+@pytest.mark.parametrize("with_metrics", [False, True])
+def test_orchestrator_threads_the_observatory_and_ladder(with_metrics):
+    """The estimator the orchestrator builds takes its observatory, its
+    metrics and a kernel ladder with the options' breaker settings."""
+    from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
+    from autoscaler_tpu_torch.perf import PerfObservatory
+
+    provider = make_provider(TORCH, [("g", 0, 5, 0, 1000, 2 * GB)])
+    opts = topts.AutoscalingOptions(kernel_breaker_failure_threshold=5,
+                                    kernel_breaker_cooldown_s=7.0)
+    metrics = AutoscalerMetrics() if with_metrics else None
+    obs = PerfObservatory(metrics=metrics)
+    orch = torch_orch.ScaleUpOrchestrator(provider, opts, treg.ClusterStateRegistry(provider, opts),
+                                          device="cpu", metrics=metrics, observatory=obs)
+    est = orch.estimator
+    assert est.observatory is obs and est.metrics is metrics
+    breaker = est.ladder.breakers["cuda"]
+    assert (breaker.failure_threshold, breaker.cooldown_s) == (5, 7.0)
+    obs.begin_tick(0, 0.0)
+    res = orch.scale_up([ttu.build_test_pod(f"p{i}", cpu_m=400 + 10 * i) for i in range(3)],
+                        [], 1.0)
+    rec = obs.end_tick()
+    assert res.scaled_up and [d["route"] for d in rec["dispatches"]] == ["torch_scan"]
+    if with_metrics:
+        assert metrics.estimator_kernel_route_total.get(route="torch_scan", reason="not_cuda") == 1
 
 
 @pytest.mark.parametrize("name", ["price", "priority", "grpc"])
@@ -412,9 +438,8 @@ def test_scale_up_tick_matches_jax(form, spread, monkeypatch):
     if form == "factored":
         monkeypatch.setattr(jpack, "DENSE_MASK_CELL_LIMIT", 16)
         monkeypatch.setattr(tpack, "DENSE_MASK_CELL_LIMIT", 16)
-    for k in tbin.ROUTES:
-        tbin.ROUTES[k] = 0
     out = {}
+    metrics = tmetrics.AutoscalerMetrics()
     for pkg in (JAX, TORCH):
         snap, pending, provider = tick_world(pkg.tu, pkg.obj, pkg.prov, pkg.cs, spread,
                                              **pkg.kw)
@@ -426,7 +451,8 @@ def test_scale_up_tick_matches_jax(form, spread, monkeypatch):
         assert after == before
         opts = pkg.opts.AutoscalingOptions(expander="least-waste", expander_random_seed=0)
         csr = pkg.reg.ClusterStateRegistry(provider, opts)
-        res = orchestrator(pkg, provider, opts, csr).scale_up(
+        res = orchestrator(pkg, provider, opts, csr,
+                           **({"metrics": metrics} if pkg is TORCH else {})).scale_up(
             still, snap.nodes(), 5.0, pods_of_node=snap.pods_on_node)
         out[pkg.name] = (
             [p.key() for p in filtered], [p.key() for p in still], result_canon(res),
@@ -436,8 +462,9 @@ def test_scale_up_tick_matches_jax(form, spread, monkeypatch):
         if pkg is TORCH:
             assert filtered and still and res.scaled_up and res.new_nodes > 0
             assert set(res.estimator_explain["pod_reasons"]) == {p.key() for p in still}
-            route = "ffd_scan_aff" if spread else "ffd_scan"
-            assert tbin.ROUTES[route] == 1 and sum(tbin.ROUTES.values()) == 1
+            routes = metrics.estimator_kernel_route_total
+            assert routes.get(route="torch_scan", reason="not_cuda") == 1
+            assert sum(routes.values.values()) == 1
     assert out["torch"] == out["jax"]
 
 

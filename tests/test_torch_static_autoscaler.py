@@ -12,11 +12,15 @@ target sizes and calls, the API's nodes, taints, pods, evictions, events
 and ConfigMaps (the status ConfigMap among them), every line of the
 decision ledger (the estimator's attribution and each pending pod's
 reason included), of the flight journal and of the SLO windows, and the
-metrics exposition. The exposition leaves out only the families of what
-the port does not have yet, listed by name in ``UNPORTED_FAMILIES``, and
-the spans those time (``UNPORTED_SPANS``); the duration families keep
-their counts, not their wall-clock values.
+metrics exposition: the JAX package's lines under the rung, route and
+reason name map (``torch_parity.NAME_MAP``), the estimator's, the kernel
+ladder's and the perf observatory's families and spans among them. Only
+the families of what the port does not have yet would be left out, listed
+by name in ``UNPORTED_FAMILIES``, with the spans those time
+(``UNPORTED_SPANS``): both are empty. The duration families keep their
+counts, not their wall-clock values.
 """
+import json
 import types
 
 import pytest
@@ -41,9 +45,8 @@ import autoscaler_tpu_torch.metrics.metrics as tmetrics
 import autoscaler_tpu_torch.snapshot.cluster_snapshot as tcs
 import autoscaler_tpu_torch.trace as ttrace
 import autoscaler_tpu_torch.utils.test_utils as ttu
-from autoscaler_tpu_torch.estimator import binpacking as tbin
 from autoscaler_tpu_torch.tools import loop_probe
-from torch_parity import tick_world
+from torch_parity import port_exposition_line, port_label, tick_world
 
 JAX = types.SimpleNamespace(
     name="jax", iface=jiface, prov=jprov, opts=jopts, sa=jsa, api=japi, obj=jobj,
@@ -55,18 +58,12 @@ TORCH = types.SimpleNamespace(
 )
 GB = 1024**3
 
-# the metric families of the estimator's routes and budget, the kernel
-# ladder and the perf observatory, which the port does not have yet
-UNPORTED_FAMILIES = (
-    "device_dispatches_total", "estimator_kernel_route_total",
-    "estimation_over_budget_total",
-    "estimator_kernel_rung_attempts_total", "estimator_kernel_breaker_state",
-    "estimator_breaker_transitions_total",
-    "kernel_compile_seconds", "kernel_execute_seconds", "kernel_compile_cache_total",
-    "kernel_model_utilization", "device_resident_bytes",
-)
-# the spans of the estimator, its dispatch and the perf record
-UNPORTED_SPANS = ('function="estimate"', 'function="deviceDispatch"', 'function="perfRecord"')
+# the metric families of what the port does not have yet: none since the
+# estimator's routes and budget, the kernel ladder and the perf
+# observatory were ported
+UNPORTED_FAMILIES = ()
+# the spans those would time
+UNPORTED_SPANS = ()
 DURATIONS = ("function_duration_seconds", "function_duration_quantile_seconds")
 
 # the one synthetic timeline clock both packages' tracers read
@@ -118,11 +115,14 @@ def tick(w: World, now: float):
 
 
 def exposition(w: World) -> list:
-    """The metrics exposition, less the unported families and spans, with
-    the duration families' wall-clock values dropped (their counts stay)."""
+    """The metrics exposition (the JAX package's under the name map), less
+    the unported families and spans, with the duration families'
+    wall-clock values dropped (their counts stay)."""
     prefix = "cluster_autoscaler_"
     out = []
     for line in w.sa.metrics.registry.expose().splitlines():
+        if w.k is JAX:
+            line = port_exposition_line(line)
         name = line.split()[2] if line.startswith("#") else line.split("{")[0].split()[0]
         family = name[len(prefix):] if name.startswith(prefix) else name
         if any(family.startswith(f) for f in UNPORTED_FAMILIES):
@@ -376,10 +376,19 @@ def test_tick_world_sequence_matches_jax(arena):
     port's estimate taking the dynamic route on the spread leftovers. With
     the arena, the packer serves resident tensors and the estimator its
     resident operands, and the arena's metrics count alike."""
-    for key in tbin.ROUTES:
-        tbin.ROUTES[key] = 0
-    assert run_twins(lambda k: case_tick_world_sequence(k, arena_enabled=arena)) == 3
-    assert tbin.ROUTES["ffd_scan_aff"] >= 1
+    worlds = {}
+
+    def case(k):
+        for w, result in case_tick_world_sequence(k, arena_enabled=arena):
+            worlds[k.name] = w
+            yield w, result
+
+    assert run_twins(case) == 3
+    # the dynamic per-pod route: the affinity torch loop, observed with its
+    # term operands
+    records = worlds["torch"].sa.observatory.records()
+    assert any(d["route"] == "torch_scan" and "match=" in d["sig"]
+               for rec in records for d in rec["dispatches"])
 
 
 def test_loop_probe_runs_the_chip_loop_on_the_cpu():
@@ -393,14 +402,16 @@ def test_loop_probe_runs_the_chip_loop_on_the_cpu():
     nodes, pods = loop_probe.scale_in_listing(nodes, pods)
     templates, burst = loop_probe.burst_operands()
     groups = loop_probe.zoned_templates(templates)
-    for key in tbin.ROUTES:
-        tbin.ROUTES[key] = 0
     with loop_probe.KernelCapture() as capture:
         timed = loop_probe.run_loop_ticks(nodes, pods, burst[:600], groups, "cpu",
                                           timed=True, arrive=100, replayable=True)
-    routes = dict(tbin.ROUTES)
-    assert capture.counts()["ffd_scan_aff"] == routes["ffd_scan_aff"] == 1
-    assert capture.counts()["ffd_scan_swar"] + capture.counts()["ffd_scan_f32"] >= 1
+    route = timed["autoscaler"].metrics.estimator_kernel_route_total
+    # on the CPU the torch loops serve every estimate (not_cuda), so the
+    # capture (in place, and transparent) sees no scan launch; the scan
+    # kernels' capture and hold are tested on their own below
+    assert route.get(route="torch_scan", reason="not_cuda") >= 2
+    assert route.get(route="cuda", reason="ok") == route.get(route="cuda_affinity", reason="ok") == 0
+    assert not {"ffd_scan_swar", "ffd_scan_f32", "ffd_scan_aff"} & set(capture.counts())
     held = loop_probe.hold_launches(capture.launches)
     assert len(held) == len(capture.launches) and not any(differ for *_, differ in held)
     plain = loop_probe.run_loop_ticks(nodes, pods, burst[:600], groups, "cpu", arrive=100,
@@ -412,8 +423,34 @@ def test_loop_probe_runs_the_chip_loop_on_the_cpu():
     first, second, third = (t["result"] for t in timed["ticks"])
     assert first.scale_up.scaled_up and first.scale_down_in_cooldown
     assert second.scale_down is not None and second.scale_down.deleted_empty
-    assert third.scale_up is not None and routes["ffd_scan_aff"] == 1
+    assert third.scale_up is not None
     assert timed["autoscaler"]._packer.journal_sink == timed["autoscaler"].journal.observe_update
+
+
+def test_hold_launches_holds_the_scan_kernels():
+    """K1, K2 and K3 launched through their glue on CPU tensors (their
+    wrappers then run the plain versions) are captured and held, every
+    field equal."""
+    import numpy as np
+
+    from autoscaler_tpu_torch.ops import ffd_scan, ffd_scan_affinity
+    from autoscaler_tpu_torch.utils.workload import build_affinity_workload, build_workload
+
+    req, masks, allocs, caps = build_workload(P=300, G=6, seed=1)
+    frac = req.copy()
+    frac[:, 1] += 0.5                      # fractional memory: the f32 plan
+    aff = build_affinity_workload(200, 4, 8, seed=2)
+    with loop_probe.KernelCapture() as capture:
+        for r in (req, frac):
+            ops = ffd_scan.operands_from_numpy(r, masks, allocs, caps, "cpu")
+            ffd_scan.ffd_binpack_groups_cuda(*ops[:3], max_nodes=64, node_caps=ops[3])
+        ops = ffd_scan_affinity.affinity_operands_from_numpy(
+            *aff, node_caps=np.full(4, 32, np.int32), device="cpu")
+        ffd_scan_affinity.ffd_binpack_groups_affinity_cuda(**ops, max_nodes=32)
+    assert capture.counts() == {"ffd_scan_swar": 1, "ffd_scan_f32": 1, "ffd_scan_aff": 1}
+    held = loop_probe.hold_launches(capture.launches)
+    assert [name for name, *_ in held] == ["ffd_scan_swar", "ffd_scan_f32", "ffd_scan_aff"]
+    assert all(err == 0.0 and not differ for _, _, err, differ in held)
 
 
 def test_hold_launches_finds_a_differing_output():
@@ -444,17 +481,24 @@ def test_hold_launches_finds_a_differing_output():
 
 
 def test_unported_options_raise():
+    """Preemption and the profiler still raise, naming their ROADMAP items;
+    the perf observatory and its cost model are taken."""
+    from autoscaler_tpu_torch.perf import PerfObservatory
+
     provider, api = tprov.TestCloudProvider(), tapi.FakeClusterAPI()
     for kw, item in (
         ({"preemption_enabled": True}, "preemption"),
         ({"jax_profiler_dir": "x"}, "trace/device.py"),
-        ({"perf_cost_model": True}, "estimator services"),
     ):
         with pytest.raises(NotImplementedError, match=item):
             tsa.StaticAutoscaler(provider, api, topts.AutoscalingOptions(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="observatory"):
-        tsa.StaticAutoscaler(provider, api, topts.AutoscalingOptions(),
-                             observatory=object(), device="cpu")
+    sa = tsa.StaticAutoscaler(provider, api, topts.AutoscalingOptions(perf_cost_model=True),
+                              device="cpu")
+    assert sa.observatory.cost_model_enabled
+    obs = PerfObservatory()
+    sa = tsa.StaticAutoscaler(provider, api, topts.AutoscalingOptions(), observatory=obs,
+                              device="cpu")
+    assert sa.observatory is obs and sa.scale_up_orchestrator.estimator.observatory is obs
 
 
 def test_autoscaler_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
@@ -474,4 +518,102 @@ def test_autoscaler_threads_its_device():
     assert sa.device == cpu and sa._packer.device == cpu and sa._arena.device == cpu
     assert sa.scale_up_orchestrator.estimator.device == cpu
     assert sa._operand_arena.device == cpu
-    assert sa.kernel_ladder() is None and sa.degraded_rungs() == []
+    from autoscaler_tpu_torch.estimator.ladder import KernelLadder
+
+    assert isinstance(sa.kernel_ladder(), KernelLadder) and sa.degraded_rungs() == []
+    assert sa._arena.observatory is sa.observatory
+
+
+# -- run_once with faults injected through the kernel ladder's hook
+
+
+def port_named(st: dict, k) -> dict:
+    """A tick state with the JAX package's rung names under the name map
+    (its decision lines' degraded rungs, its status ConfigMap's degraded
+    line), and each journal line without its decision line's sha256: that
+    hash pins a decision line which differs between the packages exactly
+    by those names. Each package's own pin is held in
+    ``test_run_once_under_kernel_faults_matches_jax``."""
+    import json
+    import re
+
+    from autoscaler_tpu_torch.explain.ledger import record_line as explain_line
+
+    def rename(rec):
+        if isinstance(rec, dict):
+            return {key: ([port_label("rung", r) for r in value] if key == "degraded_rungs"
+                          else rename(value)) for key, value in rec.items()}
+        if isinstance(rec, list):
+            return [rename(v) for v in rec]
+        return rec
+
+    def status_line(match):
+        return match.group(1) + ",".join(port_label("rung", r) for r in match.group(2).split(","))
+
+    out = dict(st)
+    out["decision"] = [explain_line(rename(json.loads(line))) for line in st["decision"]]
+    out["journal"] = [{k_: v for k_, v in json.loads(line).items() if k_ != "explain_sha256"}
+                      for line in st["journal"]]
+    out["configmaps"] = json.loads(re.sub(
+        r"(kernel ladder rungs tripped: )([a-z_,]+)", status_line, json.dumps(st["configmaps"])))
+    return out
+
+
+def faulted_world(k):
+    """Two pods a 2000m node holds and five it never can, so every tick
+    estimates: the five stay pending, the first two scale up."""
+    pods = [k.tu.build_test_pod(f"fit{i}", cpu_m=900.0 + 10 * i, mem=GB) for i in range(2)]
+    pods += [k.tu.build_test_pod(f"big{i}", cpu_m=3000.0 + 10 * i, mem=GB) for i in range(5)]
+    return build_world(k, [("g", 0, 10, 2000, 4 * GB)], {"g": 0}, pods,
+                       kernel_breaker_failure_threshold=2, kernel_breaker_cooldown_s=30.0)
+
+
+def faulted_tick_world(k):
+    w = None
+    for w, _ in case_tick_world_sequence(k, kernel_breaker_failure_threshold=2,
+                                         kernel_breaker_cooldown_s=30.0):
+        break
+    return w
+
+
+@pytest.mark.parametrize("faults", [("cuda", "torch"), ("torch",)], ids=["device", "torch"])
+@pytest.mark.parametrize("world", ["plain", "spread"])
+def test_run_once_under_kernel_faults_matches_jax(world, faults):
+    """Faults armed on the device rungs (``fault_hook``) for the first
+    ticks, then cleared: after every tick the whole state and the metrics
+    exposition — the route, rung-attempt, breaker and perf families among
+    them — equal the JAX package's under the name map; the breaker trips,
+    the estimator serves from a lower rung (forced on the spread world, which
+    no host rung serves), the status reads degraded, and past the cooldown a
+    half-open probe closes the breakers again."""
+    import hashlib
+
+    worlds = {}
+    for k in (JAX, TORCH):
+        w = faulted_world(k) if world == "plain" else faulted_tick_world(k)
+        armed = {"on": True}
+        ladder = w.sa.kernel_ladder()
+        ladder.fault_hook = lambda rung, armed=armed: (
+            "kernel_fault" if armed["on"] and port_label("rung", rung) in faults else None)
+        worlds[k.name] = (w, armed)
+    degraded = []
+    for i, now in enumerate((700.0, 710.0, 720.0, 800.0)):
+        states = {}
+        for name, (w, armed) in worlds.items():
+            armed["on"] = i < 3
+            result = tick(w, now)
+            st = state(w, result)
+            for line, jline in zip(st["decision"], st["journal"]):
+                pin = json.loads(jline)["explain_sha256"]
+                assert pin in ("", hashlib.sha256(line.encode()).hexdigest())
+            states[name] = port_named(st, w.k)
+        diff = sorted(key for key in states["jax"] if states["jax"][key] != states["torch"][key])
+        assert not diff, f"tick {i + 1}: {diff} differ"
+        degraded.append(worlds["torch"][0].sa.degraded_rungs())
+    sa = worlds["torch"][0].sa
+    assert any(degraded) and degraded[-1] == []
+    attempts = sa.metrics.estimator_kernel_rung_attempts_total
+    assert attempts.get(rung=faults[-1], outcome="fault") >= 2
+    assert attempts.get(rung=faults[-1], outcome="skipped") >= 1
+    transitions = sa.metrics.estimator_breaker_transitions_total
+    assert transitions.get(rung=faults[-1], from_state="half_open", to_state="closed") == 1

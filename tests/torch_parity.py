@@ -2,6 +2,7 @@
 worlds fed to both the JAX package and its PyTorch port, and a bit-exact
 comparison (tolerance 0: every operation on both sides is an IEEE f32
 mul, add, sub or compare in a fixed order, or integer arithmetic)."""
+
 import numpy as np
 import torch
 
@@ -488,3 +489,56 @@ def removal_spread_context(arrays, C, seed, S=3, D=4):
         np.full(S, D - 1, np.int32),
     ]
     return ctx, rng.integers(0, 2, (C, S)).astype(np.int32)
+
+
+# -- the kernel ladder's labels ------------------------------------------------
+# The one table that maps the JAX package's rung, route and reason labels to
+# the port's: they name what serves on each package's device. Every other
+# label value is the same in both packages.
+NAME_MAP = {
+    "rung": {"pallas": "cuda", "xla": "torch"},
+    "route": {"pallas": "cuda", "pallas_affinity": "cuda_affinity",
+              "xla_scan": "torch_scan", "xla_runs": "torch_runs",
+              "xla_single": "torch_single"},
+    "reason": {"not_tpu": "not_cuda", "vmem": "smem"},
+}
+
+
+def port_label(key: str, value: str) -> str:
+    """A JAX package label value under the name map."""
+    return NAME_MAP.get(key, {}).get(value, value)
+
+
+def port_series(counter) -> dict:
+    """A JAX package metric's series {labels: value} under the name map."""
+    return {
+        tuple((k, port_label(k, v)) for k, v in labels): value
+        for labels, value in counter.values.items()
+    }
+
+
+def port_exposition_line(line: str) -> str:
+    """One exposition line of the JAX package under the name map:
+    ``rung="pallas"`` → ``rung="cuda"`` and so on."""
+    for key, table in NAME_MAP.items():
+        for jax_value, port_value in table.items():
+            line = line.replace(f'{key}="{jax_value}"', f'{key}="{port_value}"')
+    return line
+
+
+def series(counter) -> dict:
+    """A metric's series {labels: value}, for comparing with port_series."""
+    return {tuple(labels): value for labels, value in counter.values.items()}
+
+
+def scan_smem(planes, max_nodes):
+    """csrc/ffd_scan.cu's smem_bytes: the carry [NP, M], the block
+    summaries [NP, ceil(M/32)], two staged request blocks [2, 32, NP], the
+    guards [NP] and two rounds' hit slots [2, 8], in 4-byte words."""
+    return 4 * (planes * max_nodes + planes * -(-max_nodes // 32) + 64 * planes + planes + 16)
+
+
+def aff_smem(R, TP, S, max_nodes):
+    """A stand-in for K3's shared memory: its carry grows with R, the term
+    planes and the spread terms over the nodes."""
+    return 4 * (R + 2 * TP + S) * max_nodes
