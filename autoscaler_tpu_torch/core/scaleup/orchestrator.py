@@ -19,10 +19,11 @@ which takes its operands from ``operand_arena`` (a
 dispatches to ``observatory`` (a ``perf.PerfObservatory``). ``metrics=``
 feeds ``created_node_groups_total`` and the estimator's route, rung and
 breaker series; ``estimator_explain`` carries the estimator's constraint
-attribution (``last_explain``). Not here yet, and refused with
-``NotImplementedError`` naming the ROADMAP item, never silently ignored:
-the live priority ConfigMap (queue 1 item 2, the cluster bindings) and the
-preemption churn filter (item 3, preemption).
+attribution (``last_explain``). The expander chain takes the JAX package's
+arguments: the live priority ConfigMap (``priorities_fetch``), the
+priority file and the provider's pricing model. Not here yet, and refused
+with ``NotImplementedError`` naming the ROADMAP item, never silently
+ignored: the preemption churn filter (item 3, preemption).
 """
 from __future__ import annotations
 
@@ -94,17 +95,11 @@ class ScaleUpOrchestrator:
         operand_arena=None,
         device=None,
     ):
-        unported = {
-            "priorities_fetch": (priorities_fetch is not None, "item 2, the cluster bindings"),
-            "preemption_churn_weight > 0": (
-                options.preemption_churn_weight > 0, "item 3, preemption"
-            ),
-        }
-        for name, (asked, item) in unported.items():
-            if asked:
-                raise NotImplementedError(
-                    f"{name}: not ported yet (ROADMAP queue 1 {item})"
-                )
+        if options.preemption_churn_weight > 0:
+            raise NotImplementedError(
+                "preemption_churn_weight > 0: not ported yet "
+                "(ROADMAP queue 1 item 3, preemption)"
+            )
         self.provider = provider
         self.options = options
         self.csr = csr
@@ -128,6 +123,17 @@ class ScaleUpOrchestrator:
         self.expander = expander or build_strategy(
             [n.strip() for n in options.expander.split(",") if n.strip()],
             seed=options.expander_random_seed,
+            priorities=options.expander_priorities,
+            priorities_path=options.priority_config_file or None,
+            priorities_fetch=priorities_fetch,
+            grpc_target=options.grpc_expander_url or None,
+            rpc_deadline_s=options.rpc_default_deadline_s,
+            rpc_failover_targets=options.rpc_addresses,
+            rpc_hedge=options.rpc_hedge,
+            # the price filter scores against the provider's pricing model
+            # (expander/price/price.go); absent model → build_strategy
+            # rejects the 'price' entry loudly
+            pricing=provider.pricing(),
         )
         self.resource_manager = ScaleUpResourceManager(provider.get_resource_limiter())
         self.balancing_processor = balancing_processor

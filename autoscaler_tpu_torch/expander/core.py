@@ -1,11 +1,11 @@
 """Expander framework: choose which expansion option to act on (the port of
-``autoscaler_tpu/expander/core.py``, random / most-pods / least-waste).
+``autoscaler_tpu/expander/core.py``: random, most-pods, least-waste, price,
+priority and grpc-ref).
 
 Reference: cluster-autoscaler/expander/expander.go — Option :44, Strategy
 :52, Filter :57; chain composition expander/factory/chain.go:25 (filters
 in order, the final strategy picks one). ``Option.node_group`` is any
-object with ``id()`` (and ``template_node_info()`` for least-waste); the
-port has no cloud-provider layer yet.
+object with ``id()`` (and ``template_node_info()`` for least-waste).
 """
 from __future__ import annotations
 
@@ -18,8 +18,17 @@ from autoscaler_tpu_torch.kube.objects import Pod
 RANDOM = "random"
 MOST_PODS = "most-pods"
 LEAST_WASTE = "least-waste"
-# expanders of the JAX package that later slices port
-NOT_PORTED = ("price", "priority", "grpc", "grpc-ref", "preempt-churn")
+PRICE = "price"
+PRIORITY = "priority"
+GRPC = "grpc"
+GRPC_REF = "grpc-ref"  # reference expander.proto wire format
+PREEMPT_CHURN = "preempt-churn"
+# expanders of the JAX package that later slices port, with their item
+NOT_PORTED = {
+    GRPC: "ROADMAP queue 1 item 4, the serving paths: its client is the "
+          "simulation sidecar's",
+    PREEMPT_CHURN: "ROADMAP queue 1 item 3, preemption",
+}
 
 
 @dataclass
@@ -177,7 +186,7 @@ class ChainStrategy(Strategy):
         return publish(self.fallback.best_option(survivors))
 
 
-def build_strategy(names: Sequence[str], seed: Optional[int] = None) -> Strategy:
+def build_strategy(names: Sequence[str], seed: Optional[int] = None, **kwargs) -> Strategy:
     """Build a chained strategy from expander names, as the reference's
     expander factory does from the --expander flag (factory/chain.go)."""
     filters: List[Filter] = []
@@ -188,9 +197,50 @@ def build_strategy(names: Sequence[str], seed: Optional[int] = None) -> Strategy
             filters.append(MostPodsFilter())
         elif name == LEAST_WASTE:
             filters.append(LeastWasteFilter())
+        elif name == PRICE:
+            from autoscaler_tpu_torch.expander.price import PriceFilter
+
+            if kwargs.get("pricing") is None:
+                raise ValueError(
+                    "expander 'price' needs a provider pricing model"
+                )
+            filters.append(PriceFilter(kwargs["pricing"]))
+        elif name == PRIORITY:
+            if kwargs.get("priorities_fetch"):
+                # live ConfigMap read per decision, the reference's actual
+                # mechanism (expander/priority/priority.go)
+                from autoscaler_tpu_torch.expander.priority import ConfigMapPriorityFilter
+
+                filters.append(
+                    ConfigMapPriorityFilter(
+                        kwargs["priorities_fetch"],
+                        fallback=kwargs.get("priorities"),
+                    )
+                )
+            elif kwargs.get("priorities_path"):
+                from autoscaler_tpu_torch.expander.priority import FileWatchingPriorityFilter
+
+                filters.append(
+                    FileWatchingPriorityFilter(
+                        kwargs["priorities_path"],
+                        fallback=kwargs.get("priorities"),
+                    )
+                )
+            else:
+                from autoscaler_tpu_torch.expander.priority import PriorityFilter
+
+                filters.append(PriorityFilter(kwargs.get("priorities") or {}))
+        elif name == GRPC_REF:
+            from autoscaler_tpu_torch.expander.grpc_ import RefGRPCFilter
+
+            if not kwargs.get("grpc_target"):
+                raise ValueError(
+                    "expander 'grpc-ref' needs a target (--grpc-expander-url)"
+                )
+            filters.append(RefGRPCFilter(kwargs["grpc_target"]))
         elif name in NOT_PORTED:
             raise NotImplementedError(
-                f"expander {name!r} is not ported yet (ROADMAP queue 1)"
+                f"expander {name!r} is not ported yet ({NOT_PORTED[name]})"
             )
         else:
             raise ValueError(f"unknown expander {name!r}")

@@ -71,6 +71,11 @@ class Resources:
         return (self.cpu_m, self.memory, self.ephemeral, self.gpu, self.tpu, self.pods)
 
     @staticmethod
+    def from_tuple(t) -> "Resources":
+        """The inverse of ``as_tuple`` (the gRPC providers' wire vectors)."""
+        return Resources(*[float(x) for x in t])
+
+    @staticmethod
     def _merge_extended(a, b, sign: float) -> Tuple[Tuple[str, float], ...]:
         if not a and not b:
             return ()

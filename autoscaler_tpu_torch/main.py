@@ -3,21 +3,25 @@ the reconcile loop.
 
 Reference: cluster-autoscaler/main.go — flag surface :92-227,
 createAutoscalingOptions :229-337, metrics/health-check/snapshotz HTTP
-server :508-523, the scan-interval loop :471-489. Leader election
-(:525-573) is not ported: ``--leader-elect`` exits 2 (below).
+server :508-523, the scan-interval loop :471-489. Leader election (:525-573)
+runs under --leader-elect: a coordination.k8s.io Lease elects one active
+replica (utils/leaderelection.LeaderElector + KubeLease); the process is
+stateless so failover needs no handover — a follower simply waits for the
+lease and rebuilds its world from the next LIST.
 
 Usage:
     python -m autoscaler_tpu_torch.main --provider=test --scan-interval=10 \
         --expander=least-waste --max-nodes-total=100 --address=:8085
 
-The port of ``autoscaler_tpu/main.py``: the same flags and options, plus
-``--device`` (default: the first CUDA card; ``cpu`` runs the plain versions
-on the host), which takes the place of the JAX package's CPU pin. The loop
-runs the port's ``StaticAutoscaler`` on ``--provider=test`` with the
-in-memory ``FakeClusterAPI``. Not ported yet, and refused with exit code 2
-and a message naming the ROADMAP item: the gce, externalgrpc,
-externalgrpc-ref and clusterapi providers, ``--kube-api``, ``--kubeconfig``
-and ``--leader-elect`` (queue 1, the serving paths item). ``/perfz``
+The port of ``autoscaler_tpu/main.py``: the same flags, options, bindings
+and fail-closed exits, plus ``--device`` (default: the first CUDA card;
+``cpu`` runs the plain versions on the host), which takes the place of the
+JAX package's CPU pin. The providers are test, gce, clusterapi,
+externalgrpc and externalgrpc-ref; the cluster is the in-memory
+``FakeClusterAPI`` or a Kubernetes API (``--kube-api``, ``--kubeconfig``)
+through ``kube/client.KubeClusterAPI``. ``grpc``, ``google.protobuf`` and
+``yaml`` are imported only in the branches that need them (externalgrpc,
+externalgrpc-ref, ``--cloud-config``, ``--kubeconfig``). ``/perfz``
 serves the perf observatory's per-tick records (``--perf-enabled``), with
 the cost model behind ``--perf-cost-model``; ``/health-check``, ``/status``
 and the status ConfigMap report the estimator's tripped kernel rungs.
@@ -958,14 +962,8 @@ def run_loop(
         time.sleep(max(scan_interval_s - elapsed, 0.0))
 
 
-# the bindings main() refuses, with the ROADMAP item that brings each
-UNPORTED_PROVIDERS = ("gce", "externalgrpc", "externalgrpc-ref", "clusterapi")
-_SERVING_ITEM = "ROADMAP queue 1, the serving paths item"
-
-
 def main(argv=None) -> int:
-    parser = build_arg_parser()
-    args = parser.parse_args(argv)
+    args = build_arg_parser().parse_args(argv)
     opts = options_from_args(args)
     from autoscaler_tpu_torch.utils import klogx
 
@@ -979,29 +977,173 @@ def main(argv=None) -> int:
               "kernels build into build/kernels/ of the checkout at first "
               "use", file=sys.stderr)
 
-    unported = [
-        flag for flag, on in (
-            ("--kube-api", bool(args.kube_api)),
-            ("--kubeconfig", bool(args.kubeconfig)),
-            ("--leader-elect", args.leader_elect),
-            (f"--provider={opts.cloud_provider}",
-             opts.cloud_provider in UNPORTED_PROVIDERS),
-        ) if on
-    ]
-    if unported:
-        print(f"{', '.join(unported)}: not ported yet ({_SERVING_ITEM})",
+    from autoscaler_tpu_torch.core.static_autoscaler import StaticAutoscaler
+    from autoscaler_tpu_torch.debugging import DebuggingSnapshotter
+
+    if args.kube_api and args.kubeconfig:
+        # pure argv validation comes before any cloud I/O
+        print("--kube-api and --kubeconfig are mutually exclusive",
               file=sys.stderr)
         return 2
-    if opts.cloud_provider != "test":
+    if args.leader_elect and not (args.kube_api or args.kubeconfig):
+        print("--leader-elect requires a control-plane binding "
+              "(--kube-api or --kubeconfig)", file=sys.stderr)
+        return 2
+
+    if opts.cloud_provider == "test":
+        from autoscaler_tpu_torch.cloudprovider.test_provider import TestCloudProvider
+
+        provider = TestCloudProvider()
+    elif opts.cloud_provider == "gce":
+        from autoscaler_tpu_torch.cloudprovider.gce import build_gce_provider
+        from autoscaler_tpu_torch.cloudprovider.gce_rest import (
+            DEFAULT_BASE_URL,
+            RestGceApi,
+        )
+
+        if args.gce_token_file:
+            token_path = args.gce_token_file
+
+            def token_fn() -> str:
+                # re-read per request so an external refresher (sidecar
+                # writing a fresh token) just works
+                with open(token_path) as f:
+                    return f.read().strip()
+        else:
+            print(
+                "gce provider needs --gce-token-file (metadata-server "
+                "fetch is the deploy site's refresher)",
+                file=sys.stderr,
+            )
+            return 2
+        if opts.node_group_auto_discovery and not args.gce_project:
+            print(
+                "--node-group-auto-discovery needs --gce-project (the "
+                "aggregated MIG listing is project-scoped; without it "
+                "discovery silently finds nothing)",
+                file=sys.stderr,
+            )
+            return 2
+        gce_api = RestGceApi(
+            token_fn,
+            base_url=args.gce_api_url or DEFAULT_BASE_URL,
+            user_agent=opts.user_agent,
+            project=args.gce_project or None,
+        )
+        try:
+            provider = build_gce_provider(
+                args.nodes, gce_api,
+                auto_discovery=opts.node_group_auto_discovery,
+                concurrent_refreshes=args.gce_concurrent_refreshes,
+            )
+        except ValueError as e:  # malformed --nodes/discovery spec
+            print(str(e), file=sys.stderr)
+            return 2
+        if not (args.kube_api or args.kubeconfig):
+            # pairing real MIG mutations with the empty in-memory fake would
+            # mark every healthy instance unregistered and, after
+            # max-node-provision-time, DELETE real VMs — fail closed
+            print(
+                "--provider=gce requires --kube-api (in-cluster or URL): "
+                "without a real control-plane binding every MIG instance "
+                "looks unregistered and would be cleaned up",
+                file=sys.stderr,
+            )
+            return 2
+    elif opts.cloud_provider in ("externalgrpc", "externalgrpc-ref"):
+        # endpoint from the reference-shaped --cloud-config ({address: ...})
+        address = ""
+        if args.cloud_config:
+            import yaml
+
+            try:
+                with open(args.cloud_config) as f:
+                    cfg = yaml.safe_load(f) or {}
+            except (OSError, yaml.YAMLError) as e:
+                print(f"--cloud-config unreadable: {e}", file=sys.stderr)
+                return 2
+            address = str(cfg.get("address", "") or "") if isinstance(
+                cfg, dict
+            ) else ""
+        if not address:
+            print(
+                f"--provider={opts.cloud_provider} needs --cloud-config with an "
+                "`address: host:port` entry (reference externalgrpc "
+                "README.md contract)",
+                file=sys.stderr,
+            )
+            return 2
+        if opts.cloud_provider == "externalgrpc":
+            from autoscaler_tpu_torch.cloudprovider.external_grpc import (
+                ExternalGrpcCloudProvider,
+            )
+
+            provider = ExternalGrpcCloudProvider(address)
+        else:
+            from autoscaler_tpu_torch.rpc.refcompat import RefProtocolCloudProvider
+
+            provider = RefProtocolCloudProvider(address)
+    elif opts.cloud_provider == "clusterapi":
+        # the management cluster IS the cloud: scale MachineDeployments/
+        # MachineSets through the same control plane the autoscaler watches
+        # (reference cloudprovider/clusterapi; annotation-driven discovery)
+        if not (args.kube_api or args.kubeconfig):
+            print(
+                "--provider=clusterapi requires a management-cluster "
+                "binding (--kube-api or --kubeconfig)",
+                file=sys.stderr,
+            )
+            return 2
+        from autoscaler_tpu_torch.cloudprovider.clusterapi import (
+            build_clusterapi_provider,
+        )
+        from autoscaler_tpu_torch.kube.client import KubeRestClient
+
+        # same construction rules (incl. in-cluster + qps/burst throttling
+        # + clean kubeconfig failure) as the kube-client block below
+        if args.kubeconfig:
+            try:
+                capi_rest = KubeRestClient.from_kubeconfig(
+                    args.kubeconfig, user_agent=opts.user_agent,
+                    qps=args.kube_client_qps, burst=args.kube_client_burst,
+                    get_retries=args.kube_client_get_retries,
+                )
+            except (OSError, ValueError) as e:
+                print(f"--kubeconfig {args.kubeconfig}: {e}", file=sys.stderr)
+                return 2
+        elif args.kube_api == "in-cluster":
+            capi_rest = KubeRestClient.in_cluster(
+                user_agent=opts.user_agent,
+                qps=args.kube_client_qps, burst=args.kube_client_burst,
+                get_retries=args.kube_client_get_retries,
+            )
+        else:
+            capi_rest = KubeRestClient(
+                args.kube_api, user_agent=opts.user_agent,
+                qps=args.kube_client_qps, burst=args.kube_client_burst,
+                get_retries=args.kube_client_get_retries,
+            )
+        try:
+            provider = build_clusterapi_provider(
+                capi_rest, auto_discovery=opts.node_group_auto_discovery
+            )
+        except ValueError as e:
+            print(f"--node-group-auto-discovery: {e}", file=sys.stderr)
+            return 2
+    else:
         print(
             f"unknown cloud provider {opts.cloud_provider!r} (available: test, "
             "gce, externalgrpc, externalgrpc-ref, clusterapi)",
             file=sys.stderr,
         )
         return 2
-    if args.expander_priority_config_map:
-        # fail closed, like the JAX package: without a control-plane
-        # binding the ConfigMap can never be read
+
+    if args.expander_priority_config_map and not (
+        args.kube_api or args.kubeconfig
+    ):
+        # fail closed, like --provider=gce: without a control-plane binding
+        # the ConfigMap can never be read and the priority expander would
+        # silently behave as unconfigured
         print(
             "--expander-priority-config-map requires --kube-api "
             "(the ConfigMap is read from the live control plane); use "
@@ -1010,13 +1152,39 @@ def main(argv=None) -> int:
         )
         return 2
 
-    from autoscaler_tpu_torch.cloudprovider.test_provider import TestCloudProvider
-    from autoscaler_tpu_torch.core.static_autoscaler import StaticAutoscaler
-    from autoscaler_tpu_torch.debugging import DebuggingSnapshotter
-    from autoscaler_tpu_torch.kube.api import FakeClusterAPI
+    if args.kube_api or args.kubeconfig:
+        from autoscaler_tpu_torch.kube.client import KubeClusterAPI, KubeRestClient
 
-    provider = TestCloudProvider()
-    api = FakeClusterAPI()
+        if args.kubeconfig:
+            try:
+                client = KubeRestClient.from_kubeconfig(
+                    args.kubeconfig, user_agent=opts.user_agent,
+                    qps=args.kube_client_qps, burst=args.kube_client_burst,
+                    get_retries=args.kube_client_get_retries,
+                )
+            except (OSError, ValueError) as e:
+                print(f"--kubeconfig {args.kubeconfig}: {e}", file=sys.stderr)
+                return 2
+        elif args.kube_api == "in-cluster":
+            client = KubeRestClient.in_cluster(
+                user_agent=opts.user_agent,
+                qps=args.kube_client_qps, burst=args.kube_client_burst,
+                get_retries=args.kube_client_get_retries,
+            )
+        else:
+            client = KubeRestClient(
+                args.kube_api, user_agent=opts.user_agent,
+                qps=args.kube_client_qps, burst=args.kube_client_burst,
+                get_retries=args.kube_client_get_retries,
+            )
+        api = KubeClusterAPI(
+            client, watch=True,
+            record_duplicated_events=args.record_duplicated_events,
+        )
+    else:
+        from autoscaler_tpu_torch.kube.api import FakeClusterAPI
+
+        api = FakeClusterAPI()
     if not args.parallel_drain:
         # accepted for reference-command-line compatibility only: the
         # planner here IS the parallel-drain path; there is no legacy
@@ -1039,19 +1207,49 @@ def main(argv=None) -> int:
     )
     watchdog = LoopWatchdog(soft_deadline)
     try:
-        clean = run_loop(
-            autoscaler, opts.scan_interval_s, args.max_iterations,
-            max_consecutive_failures=opts.max_consecutive_run_once_failures,
-            watchdog=watchdog,
-        )
-        if not clean:
-            # abnormal exit so supervisors restart the replica
-            return 1
+        if args.leader_elect:
+            from autoscaler_tpu_torch.kube.client import KubeLease
+            from autoscaler_tpu_torch.utils.leaderelection import LeaderElector
+
+            elector = LeaderElector(
+                KubeLease(client, args.leader_elect_lease_name,
+                          opts.config_namespace)
+            )
+            print(f"waiting for leadership as {elector.identity}")
+            outcome = {"clean": True}
+
+            def lead(still_leader):
+                outcome["clean"] = run_loop(
+                    autoscaler, opts.scan_interval_s, args.max_iterations,
+                    still_leader=still_leader,
+                    max_consecutive_failures=(
+                        opts.max_consecutive_run_once_failures
+                    ),
+                    watchdog=watchdog,
+                )
+
+            elector.run(lead)
+            if not outcome["clean"]:
+                # abnormal exit so supervisors restart the replica
+                # (main.go:568 OnStoppedLeading is a Fatalf)
+                return 1
+        else:
+            clean = run_loop(
+                autoscaler, opts.scan_interval_s, args.max_iterations,
+                max_consecutive_failures=opts.max_consecutive_run_once_failures,
+                watchdog=watchdog,
+            )
+            if not clean:
+                # abnormal exit so supervisors restart the replica
+                return 1
     except KeyboardInterrupt:
         pass
     finally:
         watchdog.stop()
         server.stop()
+        close = getattr(api, "close", None)
+        if close is not None:  # stop KubeClusterAPI watch threads
+            close()
     return 0
 
 

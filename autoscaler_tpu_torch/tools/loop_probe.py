@@ -14,7 +14,8 @@ pending, and the burst's 100 templates (each with the world's zone key
 beside "zone") are node groups of min 0, max 1000 and target 0. One
 ``StaticAutoscaler`` runs on a ``FakeClusterAPI`` and a
 ``TestCloudProvider`` with ``AutoscalingOptions()``, a journal probe every
-tick and a seeded expander (``LOOP_OPTIONS``), at ``LOOP_TICKS``:
+tick and the expander chain priority,least-waste with seeded ties
+(``LOOP_OPTIONS``), at ``LOOP_TICKS``:
 
 - tick 1 (t = 0 s): filter-out on the freed capacity, then ``scale_up``;
   the scale-down half runs its update in cooldown;
@@ -75,9 +76,12 @@ from autoscaler_tpu_torch.utils.workload import (
 
 LOOP_TICKS = (0.0, 601.0, 1202.0)  # past the 600 s add delay and unneeded time
 ARRIVALS = 1000                    # tick 3's new pending pods (a tenth at 4l)
-# AutoscalingOptions() but for the journal probe every tick and a seed for
-# the default (random) expander, so that two runs choose alike
-LOOP_OPTIONS = {"journal_probe_interval": 1, "expander_random_seed": 0}
+# AutoscalingOptions() but for the journal probe every tick and the
+# expander chain priority,least-waste (one priority tier that every group
+# matches, as the bound loop's live ConfigMap has it) with a seed for its
+# random tie-break, so that two runs choose alike
+LOOP_OPTIONS = {"journal_probe_interval": 1, "expander": "priority,least-waste",
+                "expander_priorities": {10: [".*"]}, "expander_random_seed": 0}
 # the tick's phases as the tracer's span names, in the order a tick runs them
 SPLIT = (
     ("poll", metrics_mod.POLL),
@@ -448,6 +452,7 @@ def run_loop_ticks(nodes, pods, burst, groups, device=None, timed=False,
             result = sa.run_once(now_ts=now)
             entry = {"result": result, "churn": churned,
                      "state": tick_state(sa, api, provider, result),
+                     "unremovable": len(sa.scale_down_planner.last_unremovable()),
                      "probe": probes[-1] if probes else None}
             if timer is not None:
                 entry["split"], entry["journal"] = span_split(sa), timer.take()

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port's main paths, the scale-up estimate with and
 without dynamic inter-pod affinity and hard topology spread, the cluster
-snapshot's predicate fit, and the scale-up and scale-down halves of a
-reconcile tick, on one CUDA card through its hand-written kernels, and
-holds every kernel against its plain PyTorch version.
+snapshot's predicate fit, the scale-up and scale-down halves of a
+reconcile tick, and the reconcile loop bound to a Kubernetes API and a
+cloud API over HTTP, on one CUDA card through its hand-written kernels,
+and holds every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -112,7 +113,31 @@ Phases (any failure raises and exits non-zero):
       with one perf record a tick;
    q. ``python -m autoscaler_tpu_torch.main --provider=test
       --max-iterations=2 --scan-interval=0 --address=:0`` in a subprocess on
-      the card exits 0.
+      the card exits 0;
+   r. the bound reconcile loop (``tools/bound_loop.run_bound_ticks``): (o)'s
+      world served as JSON by the fake Kubernetes API of
+      ``tools/binding_probe`` (a child process), every group a
+      MachineDeployment with its size and scale-from-zero annotations, every
+      node annotated with its Machine; ``KubeRestClient`` →
+      ``KubeClusterAPI(watch=True)`` → ``build_clusterapi_provider`` → a
+      ``StaticAutoscaler`` on the card, expander ``priority,least-waste``
+      on a live priority ConfigMap, under a ``LeaderElector`` on a
+      ``KubeLease``; three ticks once the watch caches are synced, (o)'s
+      churn pushed as watch events between them. Each tick decides as
+      (o)'s did (the scale-up by group, the nodes deleted, the unneeded and
+      unremovable counts), K2, K3, K4 and its rows entry launch, and the
+      fake API saw the ``/scale`` PUTs, taints, evictions and node DELETEs
+      the decisions imply, one status ConfigMap write a tick and one Lease
+      holder; the first list's split (HTTP read, ``json.loads``,
+      ``convert``), each tick's lists, watch apply and host split are
+      printed;
+   s. ``python -m autoscaler_tpu_torch.main --provider=gce --kube-api=...
+      --leader-elect --expander=priority,price
+      --expander-priority-config-map=...`` in a subprocess on the card at
+      (4l)'s size, against the fake kube and Compute APIs (one MIG a node
+      shape, five burst MIGs, one a ct5lp TPU pool): it exits 0, took the
+      Lease, resized a MIG, wrote the status ConfigMap, and its estimate and
+      journal probes launched kernels (counted in the subprocess).
    Every kernel of the paths must have launched;
 4. each kernel at its headline shape against its plain version on the same
    card tensors, exactly: K1/K2 on all 500 groups, K3 on its three
@@ -155,7 +180,12 @@ Phases (any failure raises and exits non-zero):
    (o) (K2 and K3 in its estimates, K4 and its rows entry in its journal
    probes and the debugger's capture), captured with copies of its
    operands and outputs, against its plain version on those operands,
-   every field exact (4m);
+   every field exact (4m); (r)'s sequence at (4l)'s size and (s)'s gce
+   world in this process, each on the card and again on the CPU against
+   fresh fake servers: every RunOnceResult, target size and recorded
+   write equal (the Lease's times and the Machines' deletion marks
+   canonicalised), and the gce world's resize and deleteInstances
+   requests equal (4n);
 5. the estimator's services: (a) each of (o)'s perf records (residency
    pools, the arena's delta rows, dispatches by route) and the ladder's
    proof over every path so far: no fault attempt, no breaker transition;
@@ -417,7 +447,13 @@ def main() -> int:
     from autoscaler_tpu_torch.snapshot.tensors import bucket_size
     from autoscaler_tpu_torch.main import ObservabilityServer
     from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
-    from autoscaler_tpu_torch.tools import ladder_probe, loop_probe, scaledown_probe, tick_probe
+    from autoscaler_tpu_torch.tools import (
+        bound_loop,
+        ladder_probe,
+        loop_probe,
+        scaledown_probe,
+        tick_probe,
+    )
     from autoscaler_tpu_torch.utils.test_utils import (
         GB,
         MB,
@@ -1006,6 +1042,64 @@ def main() -> int:
           f"{proc.stdout.strip()[-200:]!r}", flush=True)
     check(proc.returncode == 0 and "device cuda:0" in proc.stdout,
           f"main: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    # the bound reconcile loop (3r): 3o's world served over HTTP by the fake
+    # Kubernetes API of tools/binding_probe (a child process), the kube
+    # client's watch caches, the clusterapi provider and a live priority
+    # ConfigMap, three ticks under Lease election with 3o's churn pushed as
+    # watch events; each tick must decide as 3o's did
+    errors_before = sum(card_metrics.errors_total.values.values())
+    bound, counts, t_bound = run_path("bound loop 3r (3 ticks over HTTP)", lambda: (
+        bound_loop.run_bound_ticks(loop_nodes, loop_pods, burst, tick_templates, None,
+                                   timed=True, metrics=card_metrics)))
+    first = bound["first"]
+    print(f"# bound 3r: world served in {bound['load_s']:.3f} s; first list of "
+          f"{first['items']} pods, {first['bytes']} bytes: HTTP read {first['http_read_s']:.3f} s, "
+          f"json.loads {first['json_loads_s']:.3f} s, convert (tick 1's list_pods) "
+          f"{first['convert_s']:.3f} s; "
+          f"watch caches synced in {bound['synced_s']:.3f} s", flush=True)
+    for k, (entry, ref) in enumerate(zip(bound["ticks"], loop_card["ticks"])):
+        print(bound_loop.bound_line(str(k + 1), entry), flush=True)
+        want = {**bound_loop.decisions(ref["result"]), "unremovable": ref["unremovable"]}
+        got = {**entry["decisions"], "unremovable": entry["unremovable"]}
+        check(got == want, f"bound loop tick {k + 1}: decided {got}, 3o decided {want}")
+        check(entry["probe"]["checked"] and not entry["probe"]["drift"],
+              f"bound loop tick {k + 1}: the journal probe found drift {entry['probe']}")
+        problems = bound_loop.write_problems(entry)
+        check(not problems, f"bound loop tick {k + 1}: writes do not match the decisions: "
+              f"{problems}")
+    holders = bound_loop.lease_holders(bound["writes"])
+    check(holders == {bound_loop.IDENTITY}, f"bound loop: Lease holders {holders}")
+    check(counts["ffd_scan_swar"] >= 1 and counts.get("route:cuda_affinity:ok") == 1
+          and counts["ffd_scan_aff"] == 1 and counts["fit_reduce"] >= len(bound["ticks"])
+          and counts["fit_reduce_rows"] >= 1,
+          f"bound loop: not K2, K3, K4 and its rows entry: {counts}")
+    check(sum(card_metrics.errors_total.values.values()) == errors_before,
+          "bound loop: errors_total counted")
+    print(f"# bound 3r: {t_bound:.3f} s host clock, {len(bound['writes'])} writes, the "
+          f"Lease held by {holders}; each tick decided as 3o's did", flush=True)
+    del bound
+    # the port's process entry with the gce provider, on the card, against
+    # the fake kube and Compute APIs at 4l's size (3s)
+    t0 = time.perf_counter()
+    tenth = loop_probe.loop_world(tenth=True)
+    gce = bound_loop.run_gce_main(*tenth[:3], root)
+    resizes = [path for m, path, _ in gce["compute_writes"] if "/resize?" in path]
+    gce_status = [path for m, path, _ in gce["kube_writes"]
+                  if path.endswith("/configmaps/cluster-autoscaler-status")]
+    gce_leases = bound_loop.lease_holders(gce["kube_writes"])
+    gce_launched = gce["launches"]
+    for name in launches:
+        launches[name] += gce_launched.get(name, 0)
+    print(f"# main 3s (gce): exit {gce['rc']}, {gce['seconds']:.3f} s; resizes {resizes}; "
+          f"status writes {len(gce_status)}; Lease taken by {gce_leases}; launches "
+          f"{gce_launched}; {time.perf_counter() - t0:.3f} s host clock", flush=True)
+    check(gce["rc"] == 0 and "device cuda:0" in gce["stdout"],
+          f"main 3s: exit {gce['rc']}: {gce['stderr'][-2000:]}")
+    check(resizes and len(gce_status) >= 2 and len(gce_leases) == 1 and None not in gce_leases,
+          "main 3s: no resize, status ConfigMap or Lease")
+    check(gce_launched.get("ffd_scan_swar", 0) + gce_launched.get("ffd_scan_f32", 0) >= 1
+          and gce_launched.get("fit_reduce", 0) >= 2,
+          f"main 3s: its estimate or journal probes launched no kernel: {gce_launched}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main paths")
     check(
@@ -1674,6 +1768,41 @@ def main() -> int:
           flush=True)
     del held, loop_capture
     phase("4m the reconcile loop's launches against their plain versions", t0)
+
+    # 3r's sequence at 4l's size, and 3s's gce world in this process, each
+    # on the card and again on the CPU against fresh fake servers: every
+    # RunOnceResult, target size and recorded write equal (4n)
+    t0 = time.perf_counter()
+    watch.reset()
+    bound_card = bound_loop.run_bound_ticks(*tenth, dev, arrive=arrive, replayable=True,
+                                            metrics=card_metrics)
+    gce_card = bound_loop.run_gce_in_process(*tenth[:3], dev)
+    t_card = time.perf_counter() - t0
+    check(not watch.problems(), f"bound loop 4n: the kernel ladder {watch.problems()}")
+    bound_cpu = bound_loop.run_bound_ticks(*tenth, "cpu", arrive=arrive, replayable=True)
+    gce_cpu = bound_loop.run_gce_in_process(*tenth[:3], "cpu")
+    diffs = []
+    for k, (a, b) in enumerate(zip(bound_card["ticks"], bound_cpu["ticks"])):
+        diffs.append([name for name, x, y in (
+            ("result", loop_probe.result_canon(a["result"]), loop_probe.result_canon(b["result"])),
+            ("targets", a["targets"], b["targets"]),
+            ("writes", bound_loop.write_canon(a["writes"]), bound_loop.write_canon(b["writes"])),
+        ) if x != y])
+    n_writes = sum(len(e["writes"]) for e in bound_cpu["ticks"])
+    gce_same = (gce_card["rc"] == gce_cpu["rc"] == 0 and bound_loop.compute_canon(
+        gce_card["compute_writes"]) == bound_loop.compute_canon(gce_cpu["compute_writes"]))
+    print(f"# bound loop 4n: {len(tenth[0])} nodes, {len(tenth[1])} pods, {len(tenth[2])} "
+          f"burst; card against CPU: {len(diffs)} ticks, {n_writes} writes; differences "
+          f"{diffs}; gce in process: {len(gce_cpu['compute_writes'])} compute writes, equal "
+          f"{gce_same}; card {t_card:.3f} s, CPU {time.perf_counter() - t0 - t_card:.3f} s "
+          f"host clock", flush=True)
+    check(len(diffs) == 3 and not any(diffs), f"bound loop 4n: the card differs: {diffs}")
+    check(not any(e["decisions"]["errors"] for e in bound_card["ticks"] + bound_cpu["ticks"]),
+          "bound loop 4n: a tick failed")
+    check(gce_same and any("/resize?" in path for _, path, _ in gce_cpu["compute_writes"]),
+          "bound loop 4n: the gce world's compute writes differ, or no resize")
+    del bound_card, bound_cpu, gce_card, gce_cpu
+    phase("4n the bindings on the card and the CPU", t0)
 
     # 5a: what 3o's ticks left in the perf observatory (one record a tick,
     # /perfz's body) and the ladder's proof: since the process started, no

@@ -565,7 +565,10 @@ def test_estimate_single_template_dynamic(cluster):
 
 
 def test_unported_expanders_raise():
-    with pytest.raises(NotImplementedError):
+    for name in ("grpc", "preempt-churn"):
+        with pytest.raises(NotImplementedError):
+            texp.build_strategy([name])
+    with pytest.raises(ValueError, match="pricing model"):
         texp.build_strategy(["price"])
     with pytest.raises(ValueError):
         texp.build_strategy(["nope"])

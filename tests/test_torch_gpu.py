@@ -1081,3 +1081,36 @@ def test_ladder_fault_walk_on_card(cuda):
     attempts = metrics.estimator_kernel_rung_attempts_total
     assert attempts.get(rung="cuda", outcome="fault") == 3
     assert attempts.get(rung="cuda", outcome="skipped") == 1
+
+
+def test_bound_tick_on_card_equals_cpu(cuda, monkeypatch):
+    """tools/bound_loop's ticks over HTTP (the fake Kubernetes API in a
+    child process, the watch caches, the clusterapi provider, Lease
+    election) on a small scale-in world, on the card and again on the CPU:
+    K2 and K4 launch on the card (the dense-mask limit lowered so that the
+    small world packs factored and the journal's probe takes K4), and every
+    tick's RunOnceResult, target sizes and recorded writes equal the
+    CPU's."""
+    from autoscaler_tpu_torch.snapshot import incremental, packer
+    from autoscaler_tpu_torch.tools import bound_loop, loop_probe
+    from autoscaler_tpu_torch.utils.workload import build_snapshot_world
+
+    # the incremental packer holds its own binding of the limit
+    for mod in (packer, incremental):
+        monkeypatch.setattr(mod, "DENSE_MASK_CELL_LIMIT", 1 << 10)
+
+    nodes, pods = loop_probe.scale_in_listing(*build_snapshot_world(N=300, P=2000, port_nodes=100))
+    templates, burst = loop_probe.burst_operands()
+    groups = loop_probe.zoned_templates(templates)
+    before = {**ffd_scan.LAUNCHES, **fit_reduce.LAUNCHES}
+    card = bound_loop.run_bound_ticks(nodes, pods, burst[:600], groups, cuda, arrive=100,
+                                      replayable=True)
+    launched = {k: v - before[k] for k, v in {**ffd_scan.LAUNCHES, **fit_reduce.LAUNCHES}.items()}
+    cpu = bound_loop.run_bound_ticks(nodes, pods, burst[:600], groups, "cpu", arrive=100,
+                                     replayable=True)
+    assert launched["ffd_scan_swar"] >= 1 and launched["fit_reduce"] >= 3, launched
+    for a, b in zip(card["ticks"], cpu["ticks"]):
+        assert loop_probe.result_canon(a["result"]) == loop_probe.result_canon(b["result"])
+        assert a["targets"] == b["targets"] and not a["decisions"]["errors"]
+        assert bound_loop.write_canon(a["writes"]) == bound_loop.write_canon(b["writes"])
+    assert card["autoscaler"]._packer.device.type == "cuda"

@@ -4,8 +4,8 @@ alone, equal options from the same command lines, the crash-only loop of
 tests/test_resilience.py::TestCrashOnlyRunLoop and
 tests/test_observability.py::TestCLI, every endpoint of the
 observability server against the JAX server on twin autoscalers, and
-``main()`` itself: a bounded run on the CPU, and exit code 2 for each
-binding the port does not have yet."""
+``main()`` itself: a bounded run on the CPU, and the JAX package's
+fail-closed exit for each binding without what it needs."""
 import dataclasses
 import json
 import urllib.error
@@ -200,14 +200,30 @@ def test_main_notes_that_the_compile_cache_has_no_effect(capsys, flag):
     assert "has no effect" not in capsys.readouterr().err
 
 
+def outcome(main, argv, capsys):
+    """(exit code or the exception's type, stderr) of one main() call."""
+    try:
+        code = main(argv)
+    except Exception as e:  # noqa: BLE001 - compared across packages
+        code = type(e).__name__
+    return code, capsys.readouterr().err
+
+
 @pytest.mark.parametrize("argv", [
     ["--provider=gce"], ["--provider=externalgrpc"], ["--provider=externalgrpc-ref"],
     ["--provider=clusterapi"], ["--kube-api=in-cluster"], ["--kubeconfig=/nonexistent"],
     ["--leader-elect=true"],
 ])
 def test_unported_bindings_exit_2(argv, capsys):
-    assert tmain.main(argv + ["--device=cpu"]) == 2
-    assert "not ported yet (ROADMAP" in capsys.readouterr().err
+    """Each binding without what it needs fails closed as the JAX package's
+    main() does: the same exit code (2, or the same exception where the JAX
+    package raises, as for in-cluster credentials off a cluster) and the
+    same message."""
+    ref = outcome(jmain.main, argv, capsys)
+    out = outcome(tmain.main, argv + ["--device=cpu"], capsys)
+    assert out == ref
+    assert ref[0] == (2 if argv != ["--kube-api=in-cluster"] else "FileNotFoundError")
+    assert "not ported yet" not in out[1]
 
 
 def test_unknown_provider_exits_2(capsys):
@@ -229,3 +245,160 @@ def test_perfz_gated_like_tracez():
         finally:
             server.stop()
     assert answers[0] == answers[1] and answers[1][0] == 404
+
+
+# -- the bindings ---------------------------------------------------------------------------------------
+def _kube_fixture():
+    from test_kube_client import FakeApiServer, node_json, pod_json
+
+    s = FakeApiServer()
+    s.nodes["n1"] = node_json("n1", cpu="2", mem="4Gi", provider_id="test:///n1")
+    for i in range(3):
+        s.pods[f"default/p{i}"] = pod_json(f"p{i}", cpu="1500m", mem="1Gi")
+    s.configmaps["cluster-autoscaler-priority-expander"] = {
+        "metadata": {"name": "cluster-autoscaler-priority-expander"},
+        "data": {"priorities": json.dumps({"10": [".*"]})}}
+    return s
+
+
+def _write_paths(writes):
+    """(method, path) of a write log, the Lease's renewals left out (their
+    number follows the wall clock)."""
+    return sorted({(w[0], w[1].split("?")[0]) for w in writes if "/leases" not in w[1]})
+
+
+BASE = ["--max-iterations=2", "--scan-interval=0", "--address=127.0.0.1:0"]
+
+
+def _run_binding(main, kind, tmp_path, extra):
+    """One main() run of binding ``kind`` against fresh fakes: → (exit
+    code, the kube fake's write paths, the cloud fake's)."""
+    from autoscaler_tpu_torch.tools import binding_probe as bp
+
+    if kind in ("kube-api", "kubeconfig", "priority-configmap"):
+        kube = _kube_fixture()
+        try:
+            argv = BASE + ["--provider=test", "--leader-elect=true"]
+            if kind == "kubeconfig":
+                import yaml
+
+                path = tmp_path / f"kc-{id(main)}"
+                path.write_text(yaml.safe_dump({
+                    "current-context": "dev",
+                    "contexts": [{"name": "dev", "context": {"cluster": "c", "user": "u"}}],
+                    "clusters": [{"name": "c", "cluster": {"server": kube.url}}],
+                    "users": [{"name": "u", "user": {"token": "t"}}]}))
+                argv.append(f"--kubeconfig={path}")
+            else:
+                argv.append(f"--kube-api={kube.url}")
+            if kind == "priority-configmap":
+                argv += ["--expander=priority,least-waste",
+                         "--expander-priority-config-map=cluster-autoscaler-priority-expander"]
+            return main(argv + extra), _write_paths(kube.writes), []
+        finally:
+            kube.close()
+    if kind == "gce":
+        from test_gce_rest import MIG, PROJECT, ZONE, FakeComputeServer
+
+        compute, kube = FakeComputeServer(), _kube_fixture()
+        token = tmp_path / "token"
+        token.write_text("tok")
+        try:
+            rc = main(BASE + ["--provider=gce", f"--gce-api-url={compute.url}",
+                              f"--gce-token-file={token}", f"--kube-api={kube.url}",
+                              "--expander=price",
+                              f"--nodes=0:10:projects/{PROJECT}/zones/{ZONE}/instanceGroups/{MIG}"]
+                      + extra)
+            return rc, _write_paths(kube.writes), sorted({(m, p) for m, p, _, _ in compute.requests
+                                                          if m == "POST"})
+        finally:
+            compute.close()
+            kube.close()
+    if kind == "clusterapi":
+        from autoscaler_tpu_torch.utils.test_utils import build_test_node, build_test_pod
+
+        with bp.FakeServers.start() as servers:
+            tmpl = build_test_node("t", cpu_m=4000)
+            servers.load("machinedeployments", [bp.machine_deployment_json(
+                "default", "workers", 0, 5, 0, tmpl)])
+            servers.load("pods", [bp.pod_json(build_test_pod(f"p{i}", cpu_m=1500))
+                                  for i in range(3)])
+            rc = main(BASE + ["--provider=clusterapi", f"--kube-api={servers.kube_url}",
+                              "--leader-elect=true"] + extra)
+            return rc, _write_paths(servers.writes()), []
+    # externalgrpc and externalgrpc-ref: the JAX package's server for both
+    import autoscaler_tpu.cloudprovider.external_grpc as jext
+    import autoscaler_tpu.rpc.refcompat as jref
+    from autoscaler_tpu.cloudprovider.test_provider import TestCloudProvider
+    from autoscaler_tpu.utils.test_utils import build_test_node
+
+    backing = TestCloudProvider()
+    backing.add_node_group("pool", 0, 5, 0, build_test_node("t", cpu_m=4000))
+    serve = jext.serve_cloud_provider if kind == "externalgrpc" else jref.serve_ref_provider
+    server, port = serve(backing)
+    cfg = tmp_path / "cloud.yaml"
+    cfg.write_text(f"address: 127.0.0.1:{port}\n")
+    kube = _kube_fixture()
+    try:
+        rc = main(BASE + [f"--provider={kind}", f"--cloud-config={cfg}",
+                          f"--kube-api={kube.url}"] + extra)
+        return rc, _write_paths(kube.writes), [("target", backing._groups["pool"].target_size())]
+    finally:
+        server.stop(None)
+        kube.close()
+
+
+@pytest.mark.parametrize("kind", ["kube-api", "kubeconfig", "priority-configmap", "gce",
+                                  "clusterapi", "externalgrpc", "externalgrpc-ref"])
+def test_main_runs_each_binding_as_jax(kind, tmp_path, capsys):
+    """main() with each binding against fresh fakes, two iterations: the
+    port exits as the JAX package does, and the fakes saw the same writes
+    (a scale-up among them)."""
+    ref = _run_binding(jmain.main, kind, tmp_path, [])
+    out = _run_binding(tmain.main, kind, tmp_path, ["--device=cpu"])
+    capsys.readouterr()
+    assert out == ref and ref[0] == 0
+    assert any("cluster-autoscaler-status" in p for _, p in ref[1])
+
+
+FAIL_CLOSED = {
+    "kube-api-and-kubeconfig": ["--kube-api=http://127.0.0.1:1", "--kubeconfig=/x"],
+    "leader-elect-unbound": ["--leader-elect=true"],
+    "gce-no-token": ["--provider=gce", "--gce-api-url=COMPUTE"],
+    "gce-no-kube": ["--provider=gce", "--gce-api-url=COMPUTE", "--gce-token-file=TOKEN",
+                    "--nodes=0:10:projects/proj/zones/us-central2-b/instanceGroups/tpu-pool"],
+    "gce-discovery-no-project": ["--provider=gce", "--gce-api-url=COMPUTE",
+                                 "--gce-token-file=TOKEN",
+                                 "--node-group-auto-discovery=mig:namePrefix=x"],
+    "gce-bad-nodes": ["--provider=gce", "--gce-api-url=COMPUTE", "--gce-token-file=TOKEN",
+                      "--nodes=bogus"],
+    "externalgrpc-no-address": ["--provider=externalgrpc"],
+    "externalgrpc-config-no-address": ["--provider=externalgrpc", "--cloud-config=EMPTY"],
+    "externalgrpc-ref-unreadable": ["--provider=externalgrpc-ref", "--cloud-config=/nonexistent"],
+    "clusterapi-unbound": ["--provider=clusterapi"],
+    "clusterapi-bad-discovery": ["--provider=clusterapi", "--kube-api=http://127.0.0.1:1",
+                                 "--node-group-auto-discovery=aws:x=y"],
+    "priority-configmap-unbound": ["--expander-priority-config-map=m"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(FAIL_CLOSED))
+def test_bindings_fail_closed_as_jax(case, tmp_path, capsys):
+    """Each binding without what it needs exits as the JAX package's main()
+    does, with the same message. The gce cases talk to a local recorded
+    compute server (the provider lists its MIGs before the kube check)."""
+    from test_gce_rest import FakeComputeServer
+
+    token, empty = tmp_path / "token", tmp_path / "empty.yaml"
+    token.write_text("t")
+    empty.write_text("other: 1\n")
+    compute = FakeComputeServer()
+    try:
+        argv = [a.replace("TOKEN", str(token)).replace("EMPTY", str(empty))
+                .replace("COMPUTE", compute.url) for a in FAIL_CLOSED[case]]
+        ref = outcome(jmain.main, argv + BASE, capsys)
+        out = outcome(tmain.main, argv + BASE + ["--device=cpu"], capsys)
+    finally:
+        compute.close()
+    assert out == ref
+    assert ref[0] == 2 and ref[1]

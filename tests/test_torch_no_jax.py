@@ -454,3 +454,57 @@ def test_loop_entry_points_raise_without_a_card(monkeypatch):
         main.main(["--max-iterations=1", "--address=127.0.0.1:0"])
     with pytest.raises(RuntimeError, match="CUDA"):
         tensors_from_fields({"pod_valid": [True]})
+
+
+# the cluster bindings: the kube client, the providers, the expanders that
+# need a binding, NAP and the gRPC wire modules, each at its JAX
+# counterpart's path; the probe and the bound loop of the tools
+BINDING_MODULES = (
+    "utils/http.py", "utils/cache.py", "utils/leaderelection.py", "kube/convert.py",
+    "kube/client.py", "expander/price.py", "expander/priority.py", "cloudprovider/gce.py",
+    "cloudprovider/gce_rest.py", "cloudprovider/clusterapi.py", "processors/nodegroups.py",
+    "rpc/autoscaler_pb2.py", "cloudprovider/external_grpc.py", "rpc/refcompat.py",
+    "expander/grpc_.py",
+)
+
+
+def test_binding_modules_are_ported():
+    for rel in BINDING_MODULES:
+        assert (PORT / rel).is_file(), rel
+        assert (REPO / "autoscaler_tpu" / rel).is_file(), rel
+        assert f"autoscaler_tpu_torch/{rel}" in PORT_FILES
+    for rel in ("tools/binding_probe.py", "tools/bound_loop.py"):
+        assert f"autoscaler_tpu_torch/{rel}" in PORT_FILES
+
+
+# the modules a card's machine lacks: grpc, protobuf and yaml are imported
+# only in the branches that need them
+_BINDINGS_BLOCKED = r"""
+import sys
+for name in ("jax", "jaxlib", "grpc", "google.protobuf", "yaml"):
+    sys.modules[name] = None
+import autoscaler_tpu_torch.main
+from autoscaler_tpu_torch.tools import bound_loop, loop_probe
+from autoscaler_tpu_torch.utils.workload import build_snapshot_world
+nodes, pods = loop_probe.scale_in_listing(*build_snapshot_world(N=60, P=400, port_nodes=20))
+templates, burst = loop_probe.burst_operands()
+out = bound_loop.run_gce_in_process(nodes, pods, burst[:100], "cpu", iterations=1)
+loaded = [m for m, mod in sys.modules.items() if mod is not None and (
+    m == "autoscaler_tpu" or m.startswith(("autoscaler_tpu.", "grpc", "google.protobuf", "yaml")))]
+assert not loaded, loaded
+resizes = [p for _, p, _ in out["compute_writes"] if "/resize?" in p]
+print("OK", out["rc"], len(resizes), len(bound_loop.lease_holders(out["kube_writes"])))
+"""
+
+
+def test_gce_tick_runs_without_grpc_protobuf_or_yaml():
+    """As on the card's machine: with grpc, protobuf and yaml (and jax)
+    blocked, ``autoscaler_tpu_torch.main`` imports and one gce-and-kube
+    tick runs on the CPU against tools/binding_probe's fakes."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", _BINDINGS_BLOCKED], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1].split() == ["OK", "0", "1", "1"], proc.stdout

@@ -369,7 +369,8 @@ def test_orchestrator_estimates_on_its_device():
 
 
 @pytest.mark.parametrize("unported", [
-    {"priorities_fetch": lambda: {}}, {"preemption_churn_weight": 0.5},
+    {"preemption_churn_weight": 1.0, "priorities_fetch": lambda: {}},
+    {"preemption_churn_weight": 0.5},
 ])
 def test_unported_options_raise(unported):
     provider = make_provider(TORCH, [("g", 0, 5, 0, 1000, 2 * GB)])
@@ -407,13 +408,30 @@ def test_orchestrator_threads_the_observatory_and_ladder(with_metrics):
         assert metrics.estimator_kernel_route_total.get(route="torch_scan", reason="not_cuda") == 1
 
 
-@pytest.mark.parametrize("name", ["price", "priority", "grpc"])
+@pytest.mark.parametrize("name", ["grpc", "preempt-churn"])
 def test_unported_expanders_raise(name):
     provider = make_provider(TORCH, [("g", 0, 5, 0, 1000, 2 * GB)])
     opts = topts.AutoscalingOptions(expander=name)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not ported.*ROADMAP queue 1 item"):
         torch_orch.ScaleUpOrchestrator(provider, opts, treg.ClusterStateRegistry(provider, opts),
                                        device="cpu")
+
+
+@pytest.mark.parametrize("name", ["price", "priority"])
+def test_bound_expanders_build_as_in_jax(name):
+    """price scores against the provider's pricing model and priority reads
+    the live ConfigMap through ``priorities_fetch``, as in the JAX package."""
+    built = []
+    for k, orch_mod, opts_mod, reg in ((JAX, jorch, jopts, jreg),
+                                      (TORCH, torch_orch, topts, treg)):
+        provider = make_provider(k, [("g", 0, 5, 0, 1000, 2 * GB)])
+        opts = opts_mod.AutoscalingOptions(expander=name)
+        kw = {"device": "cpu"} if k is TORCH else {}
+        orch = orch_mod.ScaleUpOrchestrator(provider, opts, reg.ClusterStateRegistry(provider, opts),
+                                            priorities_fetch=lambda: {"10": ["g"]}, **kw)
+        built.append([type(f).__name__ for f in orch.expander.filters])
+    assert built[0] == built[1] == [{"price": "PriceFilter",
+                                     "priority": "ConfigMapPriorityFilter"}[name]]
 
 
 def test_orchestrator_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
