@@ -21,9 +21,8 @@ feeds ``created_node_groups_total`` and the estimator's route, rung and
 breaker series; ``estimator_explain`` carries the estimator's constraint
 attribution (``last_explain``). The expander chain takes the JAX package's
 arguments: the live priority ConfigMap (``priorities_fetch``), the
-priority file and the provider's pricing model. Not here yet, and refused
-with ``NotImplementedError`` naming the ROADMAP item, never silently
-ignored: the preemption churn filter (item 3, preemption).
+priority file and the provider's pricing model, and the preemption churn
+filter leads it when ``--preemption-churn-weight`` is above 0.
 """
 from __future__ import annotations
 
@@ -41,7 +40,13 @@ from autoscaler_tpu_torch.core.scaleup.resource_manager import ScaleUpResourceMa
 from autoscaler_tpu_torch.estimator.binpacking import BinpackingNodeEstimator
 from autoscaler_tpu_torch.estimator.ladder import KernelLadder
 from autoscaler_tpu_torch.estimator.limiter import ThresholdBasedEstimationLimiter
-from autoscaler_tpu_torch.expander.core import Option, Strategy, build_strategy
+from autoscaler_tpu_torch.expander.core import (
+    ChainStrategy,
+    Option,
+    PreemptionChurnFilter,
+    Strategy,
+    build_strategy,
+)
 from autoscaler_tpu_torch.kube.objects import Node, Pod
 from autoscaler_tpu_torch.utils.errors import to_autoscaler_error
 
@@ -95,11 +100,6 @@ class ScaleUpOrchestrator:
         operand_arena=None,
         device=None,
     ):
-        if options.preemption_churn_weight > 0:
-            raise NotImplementedError(
-                "preemption_churn_weight > 0: not ported yet "
-                "(ROADMAP queue 1 item 3, preemption)"
-            )
         self.provider = provider
         self.options = options
         self.csr = csr
@@ -135,6 +135,16 @@ class ScaleUpOrchestrator:
             # rejects the 'price' entry loudly
             pricing=provider.pricing(),
         )
+        # eviction-churn penalty column (--preemption-churn-weight): leads
+        # the chain so churn-heavy options are pruned before the tie-break
+        # filters; run_once rebinds it to each tick's PreemptionPlan via the
+        # scale_up preemption_churn seam. Weight 0 (default) builds nothing
+        # — the option table stays byte-identical to pre-preemption ledgers.
+        self.churn_filter = None
+        if options.preemption_churn_weight > 0:
+            self.churn_filter = PreemptionChurnFilter(options.preemption_churn_weight)
+            if isinstance(self.expander, ChainStrategy):
+                self.expander.filters.insert(0, self.churn_filter)
         self.resource_manager = ScaleUpResourceManager(provider.get_resource_limiter())
         self.balancing_processor = balancing_processor
         # TemplateNodeInfoProvider (processors/nodeinfos.py): prefer a
@@ -161,9 +171,12 @@ class ScaleUpOrchestrator:
     ) -> ScaleUpResult:
         if not pending_pods:
             return ScaleUpResult()
-        # preemption_churn feeds the churn filter, which is built only for
-        # a weight above 0 (not ported: __init__ raises), so here, as in
-        # the JAX package at weight 0, it is read by nothing
+        # rebind the churn column to this tick's preemption plan (a
+        # callable: covered pod keys → evictions left standing); None —
+        # preemption off or nothing planned — disengages the filter so the
+        # scoring table carries no churn column at all
+        if self.churn_filter is not None:
+            self.churn_filter.churn_of = preemption_churn
 
         # Re-read the limiter every pass: providers may fetch it remotely
         # (external gRPC) and a limiter captured once at construction would

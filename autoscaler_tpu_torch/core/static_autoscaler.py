@@ -26,10 +26,12 @@ observatory (``self.observatory``, served by ``/perfz``): the residency of
 the packer, the arena and the operand arena, the arena's per-tick stats,
 and every dispatch of the tick, under a ``perfRecord`` span.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item, never skipped silently: ``preemption_enabled`` (queue 1, the
-preemption kernel item) and ``jax_profiler_dir`` (the profiling item:
-``trace/device.py``).
+With ``preemption_enabled`` the tick plans priority-aware evictions on the
+snapshot (``preempt/``, the estimator's ``torch_preempt`` route) before
+scale-up and evicts, after it, the victims of the admitted pods whose
+capacity the scale-up does not bring. Not ported yet, and refused with
+``NotImplementedError`` naming the ROADMAP item, never skipped silently:
+``jax_profiler_dir`` (the profiling item: ``trace/device.py``).
 """
 from __future__ import annotations
 
@@ -46,16 +48,18 @@ from autoscaler_tpu_torch.core.scaledown.planner import ScaleDownPlanner
 from autoscaler_tpu_torch.core.scaleup.orchestrator import ScaleUpOrchestrator, ScaleUpResult
 from autoscaler_tpu_torch.device import resolve_device
 from autoscaler_tpu_torch.explain.reasons import (
+    EVICTION_PREEMPTED_BY,
     REASON_EXPENDABLE_BELOW_CUTOFF,
     REASON_NAMES,
     REASON_NOT_CHOSEN,
     REASON_NO_VIABLE_GROUP,
     SkipReason,
 )
-from autoscaler_tpu_torch.kube.api import ClusterAPI
+from autoscaler_tpu_torch.kube.api import ClusterAPI, EvictionError
 from autoscaler_tpu_torch.kube.objects import Node, Pod, Resources
 from autoscaler_tpu_torch.metrics import metrics as metrics_mod
 from autoscaler_tpu_torch.metrics.healthcheck import HealthCheck
+from autoscaler_tpu_torch.preempt import PreemptionEngine
 from autoscaler_tpu_torch.perf import (
     POOL_ARENA,
     POOL_SNAPSHOT,
@@ -81,8 +85,9 @@ class RunOnceResult:
     removed_unregistered: int = 0
     # pending pods dropped below --expendable-pods-priority-cutoff this tick
     pending_expendable: int = 0
-    # preemption engine (--preemption-enabled, not ported: always 0 and
-    # empty here; the fields keep the JAX package's result shape)
+    # preemption engine (--preemption-enabled): pending pods the eviction-
+    # packing pass admitted onto the existing cluster, and the victims it
+    # actually evicted (sorted pod keys — ledger/driver consumers)
     preempt_admitted: int = 0
     preempted_pods: List[str] = field(default_factory=list)
     errors: List[str] = field(default_factory=list)
@@ -190,6 +195,19 @@ class StaticAutoscaler:
                 else None
             ),
         )
+        # preemption engine (--preemption-enabled): plans priority-aware
+        # evictions against each tick's snapshot through the estimator's
+        # kernel ladder (preempt/). Built only when enabled
+        # AND the orchestrator exposes its estimator — a custom
+        # orchestrator without one silently gets no engine (decisions then
+        # match preemption-off byte-for-byte).
+        self.preempt_engine = None
+        if self.options.preemption_enabled:
+            est = getattr(self.scale_up_orchestrator, "estimator", None)
+            if est is not None:
+                self.preempt_engine = PreemptionEngine(
+                    est, metrics=self.metrics
+                )
         self.scale_down_planner = scale_down_planner or ScaleDownPlanner(
             provider, self.options, set_processor=self.processors.scale_down_set
         )
@@ -637,6 +655,40 @@ class StaticAutoscaler:
             ),
         )
 
+        # 5b. preemption planning (--preemption-enabled): which pending pods
+        # the EXISTING cluster could admit by displacing strictly-lower-
+        # priority residents (preempt/ via ops/preempt.py).
+        # Planned before scale-up so the expander can penalize options that
+        # leave evictions standing; actuated after it so pods whose
+        # capacity is already coming evict nobody.
+        preempt_plan = None
+        preempt_doc = None
+        if self.preempt_engine is not None and pending:
+            preempt_plan = self.preempt_engine.plan(
+                snapshot, eligible={p.key() for p in pending}
+            )
+            # journal the eligible set: `journal replay` re-runs this exact
+            # pass on reconstructed state, and eligibility is a function of
+            # Pod objects the state tensors do not carry
+            self.journal.note(
+                "preempt_eligible", sorted(p.key() for p in pending)
+            )
+            preempt_doc = {
+                "route": preempt_plan.route,
+                "admitted": preempt_plan.admitted,
+                "evictions": [
+                    {
+                        "pod": victim,
+                        "reason": EVICTION_PREEMPTED_BY,
+                        "by": preempt_plan.victims[victim],
+                        "node": preempt_plan.victim_pods[victim].node_name,
+                    }
+                    for victim in sorted(preempt_plan.victims)
+                ],
+            }
+            self.explainer.note("preemption", dict(preempt_doc))
+            result.preempt_admitted = len(preempt_plan.admitted)
+
         # 6. scale-up (:560-580)
         if pending:
             with trace.span(metrics_mod.SCALE_UP) as sp_up:
@@ -649,6 +701,12 @@ class StaticAutoscaler:
                     # --force-ds additionally charges suitable-but-not-yet-
                     # running DaemonSets (simulator/nodes.go:56)
                     pending_daemonsets=pending_ds(),
+                    # eviction-churn score column (expander/core.py): how
+                    # many planned evictions an option leaves standing
+                    preemption_churn=(
+                        preempt_plan.churn if preempt_plan is not None
+                        else None
+                    ),
                 )
                 self._note_scale_up_explain(up, base_pods=expendable_doc)
                 sp_up.set_attrs(
@@ -666,6 +724,49 @@ class StaticAutoscaler:
         min_size_ups = self.scale_up_orchestrator.scale_up_to_node_group_min_size(now_ts)
         if min_size_ups:
             self.last_scale_up_ts = now_ts
+
+        # 6b. actuate planned evictions — only for admitted pods whose
+        # capacity is NOT already coming from this tick's scale-up
+        # (pods_triggered): preemption bridges the gap for the rest.
+        # Victims evicted in sorted order (replay determinism); a typed
+        # eviction failure is recorded and the loop continues — the victim
+        # stays resident and next tick replans.
+        if preempt_plan is not None and preempt_plan.victims:
+            covered = set()
+            if result.scale_up is not None:
+                covered = {
+                    p.key() for p in result.scale_up.pods_triggered
+                }
+            evicted: List[str] = []
+            evict_failed: List[str] = []
+            for victim in sorted(preempt_plan.victims):
+                if preempt_plan.victims[victim] in covered:
+                    continue
+                try:
+                    self.api.evict_pod(preempt_plan.victim_pods[victim])
+                except EvictionError as e:
+                    result.errors.append(
+                        f"preemption eviction of {victim} failed: {e}"
+                    )
+                    evict_failed.append(victim)
+                else:
+                    evicted.append(victim)
+            if evicted:
+                self.metrics.preempted_pods_total.inc(len(evicted))
+                self.metrics.evicted_pods_total.inc(len(evicted))
+                self.metrics.last_activity.set(
+                    now_ts, activity=metrics_mod.PREEMPT_PLAN
+                )
+            result.preempted_pods = evicted
+            preempt_doc = dict(preempt_doc)
+            preempt_doc["evicted"] = evicted
+            self.explainer.note("preemption", preempt_doc)
+            # journal the actuation context: the evicted list is victims
+            # minus scale-up-covered evictors minus API failures — the
+            # coverage set and the failures are environment/decision state
+            # `journal replay` cannot re-derive from tensors alone
+            self.journal.note("preempt_covered", sorted(covered))
+            self.journal.note("preempt_evict_failed", evict_failed)
 
         # 7. scale-down branch (:582-691)
         if self.options.node_autoprovisioning_enabled:
@@ -1027,8 +1128,6 @@ def _refuse_unported(options: AutoscalingOptions) -> None:
     asked = [
         (name, item)
         for name, on, item in (
-            ("preemption_enabled", options.preemption_enabled,
-             "queue 1, the preemption kernel item"),
             ("jax_profiler_dir", bool(options.jax_profiler_dir),
              "queue 1, the profiling item: trace/device.py"),
         )

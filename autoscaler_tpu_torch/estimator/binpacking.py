@@ -77,8 +77,16 @@ route's operands and verdict, then two small host fetches; when that pass
 fails, the serial oracle twin (``reference_impl.
 attribute_unschedulable_reference``) answers from the numpy operands.
 
+``estimate_preemption`` packs a snapshot's pending pods onto its existing
+nodes, evicting lower-priority residents where they fit nowhere
+(``ops/preempt.ffd_binpack_preempt``, route ``torch_preempt``). No hand
+kernel serves it: the cuda rung takes the automatic ``unsupported`` skip,
+and on a CUDA device the torch rung is the card's rung, strict as the
+cuda rung is for the scans; off the card the Python oracle is its host
+twin.
+
 Not here yet: the fleet client (``fleet_client=`` raises; ROADMAP queue 1
-item 4) and the preemption estimate (item 3).
+item 4).
 """
 from __future__ import annotations
 
@@ -103,6 +111,7 @@ from autoscaler_tpu_torch.estimator.ladder import (
 from autoscaler_tpu_torch.estimator.limiter import ThresholdBasedEstimationLimiter
 from autoscaler_tpu_torch.estimator.reference_impl import (
     attribute_unschedulable_reference,
+    ffd_binpack_preempt_reference,
     ffd_binpack_reference,
     ffd_binpack_reference_affinity,
 )
@@ -119,6 +128,7 @@ from autoscaler_tpu_torch.ops.binpack import (
     ffd_binpack_groups_runs,
     ffd_binpack_groups_runs_affinity,
 )
+from autoscaler_tpu_torch.ops.preempt import SchedRows, ffd_binpack_preempt
 from autoscaler_tpu_torch.ops.telemetry import kernel_observer
 from autoscaler_tpu_torch.perf import PerfObservatory, default_peak_flops
 from autoscaler_tpu_torch.snapshot.affinity import (
@@ -532,6 +542,91 @@ class BinpackingNodeEstimator:
         on a card it is released unresolved."""
         return ("dedup", "", self.device.type != "cuda")
 
+    def estimate_preemption(
+        self,
+        tensors,
+        pod_evictable: np.ndarray,
+        pod_valid: Optional[np.ndarray] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, str]:
+        """Priority-aware eviction packing of a snapshot's pending pods onto
+        its EXISTING nodes (``ops/preempt.ffd_binpack_preempt``) →
+        (scheduled [P] bool, placed_node [P] i32, victim_of [P] i32, route).
+
+        ``tensors`` is a SnapshotTensors carrying the preemption channels
+        (pod_priority/pod_preempt); ``pod_evictable`` is the host-side
+        victim-eligibility mask (preempt/policy.py). The dispatch walks the
+        ladder: the cuda rung has no twin (the automatic ``unsupported``
+        skip), the torch loop serves on the estimator's device (route
+        ``torch_preempt``; on a card its faults raise), and the serial
+        oracle is the Python rung. The loop reads the predicate mask a
+        chunk of rows at a time (``SchedRows``): the dense [P, N] mask is
+        never built on the device. The serving route is returned so the
+        decision record carries each eviction's provenance.
+
+        ``pod_valid`` optionally overrides the snapshot's validity rows —
+        the engine masks out pending rows the control loop already settled
+        elsewhere (expendable drops, filter-out-schedulable absorptions)
+        without repacking the snapshot."""
+        prio = tensors.pod_priority
+        preempt = tensors.pod_preempt
+        if prio is None or preempt is None:
+            # snapshot packed without the channels: a priority-flat world,
+            # nothing may evict
+            P = tensors.num_pods
+            prio = torch.zeros((P,), dtype=torch.int32, device=tensors.device)
+            preempt = torch.zeros((P,), dtype=torch.bool, device=tensors.device)
+        evictable = np.asarray(pod_evictable, bool)
+        if pod_valid is None:
+            valid = tensors.pod_valid
+        else:
+            valid = self._tensor(np.asarray(pod_valid, bool))
+        served = {}
+
+        def mark(label, fn):
+            def run():
+                out = fn()
+                served["route"] = label
+                return out
+            return run
+
+        def torch_fn():
+            res = ffd_binpack_preempt(
+                tensors.pod_req, valid, tensors.pod_node, prio, preempt,
+                self._tensor(evictable), tensors.node_alloc, tensors.node_used,
+                tensors.node_valid, SchedRows(tensors),
+            )
+            return tuple(x.cpu().numpy() for x in res)
+
+        def python_fn():
+            def host(t):
+                return t.cpu().numpy()
+
+            return ffd_binpack_preempt_reference(
+                host(tensors.pod_req), host(valid), host(tensors.pod_node),
+                host(prio), host(preempt), evictable,
+                host(tensors.node_alloc), host(tensors.node_used),
+                host(tensors.node_valid), host(tensors.dense_sched()),
+            )
+
+        with trace.span(
+            metrics_mod.PREEMPT_PLAN, metrics=self.metrics,
+            pods=tensors.num_pods, nodes=tensors.num_nodes,
+        ):
+            scheduled, placed, victim_of = self._walk_ladder(
+                [
+                    (RUNG_CUDA, "cuda_preempt", None, None),
+                    (RUNG_TORCH, "torch_preempt", None,
+                     mark("torch_preempt", torch_fn)),
+                    (RUNG_PYTHON, "python_preempt_ref", None,
+                     mark("python_preempt_ref", python_fn)),
+                ],
+                initial_reason="preempt",
+                forced=("python_preempt_ref",
+                        mark("python_preempt_ref", python_fn)),
+                card_rung=RUNG_TORCH,
+            )
+        return scheduled, placed, victim_of, served.get("route", "unknown")
+
     def _estimate_many_inner(self, pods, templates, headrooms, pod_groups, cluster):
         names = sorted(templates)
         # computed once and threaded through: the component build is
@@ -933,7 +1028,8 @@ class BinpackingNodeEstimator:
                 route, reason, f": {detail}" if detail else "",
             )
 
-    def _walk_ladder(self, steps, initial_reason: str = "ok", forced=None):
+    def _walk_ladder(self, steps, initial_reason: str = "ok", forced=None,
+                     card_rung: str = RUNG_CUDA):
         """Walk one dispatch down the kernel ladder.
 
         ``steps`` is an ordered list of ``(rung, route_label, gate, fn)``:
@@ -945,10 +1041,11 @@ class BinpackingNodeEstimator:
         serving rung's route metric carries the most recent skip or failure
         reason, so cuda→torch→native transitions are visible per dispatch.
 
-        On a CUDA device the cuda rung of a kernel dispatch (``fn`` not
-        None: not the dedup pseudo-step) is strict: its faults are recorded
-        and raised, and an open breaker raises, so a broken kernel fails the
-        tick instead of being served by the torch loop or the host rungs.
+        On a CUDA device ``card_rung`` (the cuda rung, or the torch rung of
+        a dispatch no hand kernel serves) is strict when it has a ``fn``
+        (not the dedup pseudo-step): its faults are recorded and raised,
+        and an open breaker raises, so a broken card rung fails the tick
+        instead of being served below it or on the host.
 
         ``forced`` = (label, fn) runs off a CUDA device when every rung was
         skipped or failed (e.g. a topology-spread dispatch, which no host
@@ -960,7 +1057,7 @@ class BinpackingNodeEstimator:
         on_card = self.device.type == "cuda"
         reason, detail = initial_reason, ""
         for rung, label, gate, fn in steps:
-            strict = on_card and rung == RUNG_CUDA and fn is not None
+            strict = on_card and rung == card_rung and fn is not None
             then = "raising" if strict else "descending the ladder"
             with trace.span(
                 metrics_mod.DEVICE_DISPATCH, metrics=self.metrics, rung=rung
@@ -972,8 +1069,8 @@ class BinpackingNodeEstimator:
                     if strict:
                         raise AutoscalerError(
                             ErrorType.INTERNAL,
-                            "the cuda rung's breaker is open after kernel faults; "
-                            "on a CUDA device the kernels have no fallback",
+                            f"the {rung} rung's breaker is open after kernel faults; "
+                            "on a CUDA device the card's rung has no fallback",
                         )
                     continue
                 if engaged is not None:  # an injected device-fault kind

@@ -13,9 +13,9 @@ plain numpy, serving two jobs:
 
 The port's copy of ``autoscaler_tpu/estimator/reference_impl.py`` (numpy
 only): the FFD order spec, the serial oracle and its affinity form (the
-estimator's Python rung) and the attribution's oracle twin (its fallback).
-The scenario, preemption and row-delta oracles come with the modules that
-use them.
+estimator's Python rung), the attribution's oracle twin (its fallback)
+and the preemption oracle (the preemption estimate's Python rung). The
+scenario and row-delta oracles come with the modules that use them.
 """
 from __future__ import annotations
 
@@ -223,3 +223,114 @@ def attribute_unschedulable_reference(
             else:
                 out[g, p] = REASON_NODE_CAP
     return out
+
+
+def preempt_order(
+    pod_req: np.ndarray, pod_prio: np.ndarray, cap_row: np.ndarray
+) -> np.ndarray:
+    """Stable (priority desc, ffd score desc, index asc) pod order — the ONE
+    preemption packing order spec shared by ops/preempt.ffd_binpack_preempt
+    and this oracle. Reuses ffd_order (the shared FFD score spec) for the
+    secondary key; cap_row is the elementwise max allocatable over valid
+    nodes (heterogeneous nodes have no single template row, and any fixed
+    positive weights give a deterministic order — both twins compute the
+    same max, which is exact in f32)."""
+    sorder = ffd_order(pod_req, cap_row)
+    return sorder[np.argsort(-pod_prio.astype(np.int64)[sorder], kind="stable")]
+
+
+def ffd_binpack_preempt_reference(
+    pod_req: np.ndarray,       # [P, R] — ALL pods (pending + resident)
+    pod_valid: np.ndarray,     # [P] bool
+    pod_node: np.ndarray,      # [P] i32 — node row a resident sits on, -1 pending
+    pod_prio: np.ndarray,      # [P] i32
+    pod_can_preempt: np.ndarray,  # [P] bool — pending: may evict (policy != Never)
+    pod_evictable: np.ndarray,    # [P] bool — resident: may be chosen as victim
+    node_alloc: np.ndarray,    # [N, R]
+    node_used: np.ndarray,     # [N, R] — includes the residents' requests
+    node_valid: np.ndarray,    # [N] bool
+    sched_mask: np.ndarray,    # [P, N] bool — non-resource predicate verdicts
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Serial oracle twin of ops/preempt.ffd_binpack_preempt.
+
+    Packs pending pods (pod_node < 0) over the EXISTING nodes in priority-
+    then-FFD order; a pod that fits nowhere directly may evict strictly-
+    lower-priority residents. Victim selection is the closed spec both twins
+    implement: per node, candidates are taken greedily in global (priority
+    asc, index asc) order until the pod fits — the minimal such prefix —
+    and the node is chosen by lexicographic (victim count, aggregate victim
+    priority, node index). Pods admitted this pass occupy capacity but are
+    never victims. Returns (scheduled [P] bool, placed_node [P] i32,
+    victim_of [P] i32 — the evictor's pod row, -1 if not evicted)."""
+    P, _R = pod_req.shape
+    N = node_alloc.shape[0]
+    used = node_used.astype(np.float64).copy()
+    alive = pod_valid & (pod_node >= 0)
+    pending = pod_valid & (pod_node < 0)
+    scheduled = np.zeros(P, bool)
+    placed_node = np.full(P, -1, np.int32)
+    victim_of = np.full(P, -1, np.int32)
+
+    cap_row = (
+        np.where(node_valid[:, None], node_alloc, 0.0).max(axis=0)
+        if N and node_valid.any()
+        else np.zeros(pod_req.shape[1], np.float32)
+    )
+    order = preempt_order(pod_req, pod_prio, cap_row)
+    # global victim order: priority asc, index asc (stable)
+    vorder = np.argsort(pod_prio.astype(np.int64), kind="stable")
+
+    for i in order:
+        if not pending[i]:
+            continue
+        req = pod_req[i]
+        placed = False
+        for n in range(N):  # direct first-fit on the lowest node row
+            if node_valid[n] and sched_mask[i, n] and np.all(
+                req <= node_alloc[n] - used[n]
+            ):
+                used[n] += req
+                scheduled[i] = True
+                placed_node[i] = n
+                placed = True
+                break
+        if placed or not pod_can_preempt[i]:
+            continue
+        best = None  # ((victims, agg_prio, node), victim rows)
+        for n in range(N):
+            if not (node_valid[n] and sched_mask[i, n]):
+                continue
+            if not np.all(req <= node_alloc[n]):
+                continue  # cannot fit even an empty node
+            free = node_alloc[n] - used[n]
+            victims: list = []
+            agg = 0
+            fits = False
+            for q in vorder:
+                if not (
+                    alive[q]
+                    and pod_node[q] == n
+                    and pod_evictable[q]
+                    and pod_prio[q] < pod_prio[i]
+                ):
+                    continue
+                victims.append(int(q))
+                agg += int(pod_prio[q])
+                free = free + pod_req[q]
+                if np.all(req <= free):
+                    fits = True
+                    break
+            if fits:
+                cand = (len(victims), agg, n)
+                if best is None or cand < best[0]:
+                    best = (cand, victims)
+        if best is not None:
+            (_k, _agg, n), victims = best
+            for q in victims:
+                alive[q] = False
+                victim_of[q] = i
+                used[n] -= pod_req[q]
+            used[n] += req
+            scheduled[i] = True
+            placed_node[i] = n
+    return scheduled, placed_node, victim_of

@@ -1,6 +1,6 @@
 """Expander framework: choose which expansion option to act on (the port of
 ``autoscaler_tpu/expander/core.py``: random, most-pods, least-waste, price,
-priority and grpc-ref).
+priority, grpc-ref and the preemption churn filter).
 
 Reference: cluster-autoscaler/expander/expander.go — Option :44, Strategy
 :52, Filter :57; chain composition expander/factory/chain.go:25 (filters
@@ -27,7 +27,6 @@ PREEMPT_CHURN = "preempt-churn"
 NOT_PORTED = {
     GRPC: "ROADMAP queue 1 item 4, the serving paths: its client is the "
           "simulation sidecar's",
-    PREEMPT_CHURN: "ROADMAP queue 1 item 3, preemption",
 }
 
 
@@ -128,6 +127,45 @@ class LeastWasteFilter(Filter):
         if cap_mem > 0:
             wasted += 1.0 - min(req_mem / cap_mem, 1.0)
         return wasted
+
+
+class PreemptionChurnFilter(Filter):
+    """Penalize eviction-heavy scale-up options (--preemption-churn-weight).
+
+    Score = weight × churn, lower wins, where churn is the number of
+    planned evictions the tick's PreemptionPlan charges to pods the option
+    does NOT cover (PreemptionPlan.churn): an option whose new capacity
+    absorbs the would-be evictors makes their evictions unnecessary, so it
+    outranks an equally-sized option that leaves low-priority residents to
+    be displaced. The orchestrator rebinds ``churn_of`` each tick to the
+    live plan; with no plan bound (preemption disabled, or nothing planned
+    this tick) the filter disengages completely — no score column, no
+    elimination — so disabled runs stay byte-identical to pre-preemption
+    ledgers."""
+
+    name = PREEMPT_CHURN
+
+    def __init__(self, weight: float):
+        self.weight = float(weight)
+        # set of covered pod keys → eviction count; rebound per decision
+        self.churn_of = None
+
+    def best_options(self, options: List[Option]) -> List[Option]:
+        if not options or self.churn_of is None or self.weight <= 0:
+            return options
+        return self.best_options_from_scores(options, self.scores(options))
+
+    def scores(self, options: List[Option]) -> Optional[List[float]]:
+        if self.churn_of is None or self.weight <= 0:
+            return None
+        return [
+            self.weight * float(self.churn_of({p.key() for p in o.pods}))
+            for o in options
+        ]
+
+    def best_options_from_scores(self, options, scores):
+        best = min(scores)
+        return [o for s, o in zip(scores, options) if s <= best + 1e-9]
 
 
 class ChainStrategy(Strategy):

@@ -20,7 +20,9 @@ Dependency-free at import time (stdlib + numpy): the fit/preemption
 kernels are reached lazily by the probe and replay paths, never at
 import.
 
-The port's copy of ``autoscaler_tpu/journal/__init__.py``.
+The port's copy of ``autoscaler_tpu/journal/__init__.py``; the replay
+(``replay.py``) re-runs the preemption pass through the port's estimator
+on a device the caller names.
 """
 from autoscaler_tpu_torch.journal.ledger import (
     KEYFRAME_REASONS,

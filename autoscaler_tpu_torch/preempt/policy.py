@@ -21,10 +21,7 @@ These helpers are host-side only; their tensor twin is the
 snapshot/packer.py) plus the ``evictable_mask`` array handed to
 ops/preempt.ffd_binpack_preempt as its own operand.
 
-The port's copy of ``victim_eligible`` and ``evictable_mask`` from
-``autoscaler_tpu/preempt/policy.py`` (the flight journal captures the
-mask); ``can_preempt`` comes with the preemption engine (ROADMAP queue 1,
-the preemption kernel item).
+The port's copy of ``autoscaler_tpu/preempt/policy.py``.
 """
 from __future__ import annotations
 
@@ -33,6 +30,15 @@ from typing import Sequence
 import numpy as np
 
 from autoscaler_tpu_torch.kube.objects import Pod
+
+# the one spelling of "may not evict anyone" (spec.preemptionPolicy)
+PREEMPTION_POLICY_NEVER = "Never"
+
+
+def can_preempt(pod: Pod) -> bool:
+    """May this pod, while pending, displace lower-priority residents?"""
+    return pod.preemption_policy != PREEMPTION_POLICY_NEVER
+
 
 def victim_eligible(pod: Pod) -> bool:
     """May this pod, while resident, be evicted to admit a higher-priority

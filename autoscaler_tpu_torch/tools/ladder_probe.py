@@ -63,6 +63,9 @@ class LadderWatch:
     # the reasons a card dispatch may be served below the cuda rung for:
     # the shape gates and the run-compressed routes
     ALLOWED_BELOW_CUDA = ("smem", "spread_width", "dedup")
+    # the card's rung of a dispatch no hand kernel serves, with the cuda
+    # rung's automatic skip: the preemption pass
+    CARD_TORCH_ROUTES = (("torch_preempt", "unsupported"),)
     FAMILIES = ("estimator_kernel_route_total", "estimator_kernel_rung_attempts_total",
                 "estimator_breaker_transitions_total")
 
@@ -107,8 +110,9 @@ class LadderWatch:
 
     def problems(self) -> list:
         """Since the last reset: fault attempts, dispatches served below
-        the cuda rung for another reason than the shape gates or dedup,
-        forced dispatches, breaker transitions and estimator warnings."""
+        the cuda rung for another reason than the shape gates or dedup
+        (the preemption pass's torch rung is its card rung), forced
+        dispatches, breaker transitions and estimator warnings."""
         out = [f"rung {dict(key)['rung']}: {int(n)} fault attempts"
                for key, n in self.since("estimator_kernel_rung_attempts_total").items()
                if dict(key)["outcome"] == "fault"]
@@ -116,7 +120,8 @@ class LadderWatch:
             labels = dict(key)
             if labels["reason"] == "forced" or (
                     labels["route"] not in ("cuda", "cuda_affinity")
-                    and labels["reason"] not in self.ALLOWED_BELOW_CUDA):
+                    and labels["reason"] not in self.ALLOWED_BELOW_CUDA
+                    and (labels["route"], labels["reason"]) not in self.CARD_TORCH_ROUTES):
                 out.append(f"{labels['route']} served on the card ({labels['reason']}) "
                            f"x{int(n)}")
         out += [f"breaker {dict(key)['rung']}: {dict(key)['from_state']} -> "

@@ -88,6 +88,7 @@ SPLIT = (
     ("update_state", metrics_mod.UPDATE_STATE),
     ("snapshot_build", metrics_mod.SNAPSHOT_BUILD),
     ("filter_out", metrics_mod.FILTER_OUT_SCHEDULABLE),
+    ("preempt", metrics_mod.PREEMPT_PLAN),
     ("scale_up", metrics_mod.SCALE_UP),
     ("scale_down", metrics_mod.SCALE_DOWN),
     ("explain", metrics_mod.EXPLAIN_RECORD),
@@ -110,19 +111,20 @@ def loop_world(tenth: bool = False, seed: int = 0):
     return nodes, pods, burst[: len(burst) // cut], zoned_templates(templates)
 
 
-def build_loop(nodes, pods, burst, groups, device=None, clock=None, metrics=None):
+def build_loop(nodes, pods, burst, groups, device=None, clock=None, metrics=None,
+               options=None):
     """→ (autoscaler, provider, api) of the port on ``device``: the shape
     groups owning ``nodes``, a group per burst template (min 0, max
     TICK_MAX_SIZE, target 0), the listing with the burst pending. With
     ``clock``, the tracer's timeline clock is that callable (the SLO
     window's tick durations then replay alike on any device). The
     autoscaler counts on ``metrics`` (None = an AutoscalerMetrics of its
-    own)."""
+    own) and runs at ``LOOP_OPTIONS`` updated by ``options``."""
     provider = shape_provider(nodes)
     for gid, template in sorted(groups.items()):
         provider.add_node_group(gid, 0, TICK_MAX_SIZE, 0, template)
     api = fake_api(nodes, list(pods) + list(burst))
-    options = AutoscalingOptions(**LOOP_OPTIONS)
+    options = AutoscalingOptions(**{**LOOP_OPTIONS, **(options or {})})
     kw = {} if metrics is None else {"metrics": metrics}
     if clock is not None:
         kw.setdefault("metrics", metrics_mod.AutoscalerMetrics())
@@ -413,19 +415,22 @@ def hold_launches(launches) -> list:
 
 
 def run_loop_ticks(nodes, pods, burst, groups, device=None, timed=False,
-                   arrive=ARRIVALS, debugger=None, replayable=False, metrics=None):
+                   arrive=ARRIVALS, debugger=None, replayable=False, metrics=None,
+                   options=None, arriving=arrivals):
     """3o's three ticks on ``device``; a ``debugger`` (a
     ``DebuggingSnapshotter``) is attached and armed before the last tick,
     which it captures. ``replayable`` runs the tracer on a timeline clock
     that reads each tick's ``now_ts``, so that two runs (on two devices)
     write the same SLO windows; otherwise the ticks are timed by the wall
-    clock. The autoscaler counts on ``metrics`` (``build_loop``). →
+    clock. The autoscaler counts on ``metrics`` and takes ``options``
+    (``build_loop``); tick 3's pods are ``arriving(arrive, 2)``. →
     {"autoscaler", "provider", "api", "ticks": [{"result",
     "state", "churn", "probe", and with ``timed`` the "split" and
     "journal" seconds}]}."""
     timeline = {"now": 0.0}
     clock = (lambda: timeline["now"]) if replayable else None
-    sa, provider, api = build_loop(nodes, pods, burst, groups, device, clock, metrics)
+    sa, provider, api = build_loop(nodes, pods, burst, groups, device, clock, metrics,
+                                   options)
     sa.debugger = debugger
     timer = JournalTimer(sa) if timed else None
     probes = []
@@ -442,7 +447,7 @@ def run_loop_ticks(nodes, pods, burst, groups, device=None, timed=False,
         for k, now in enumerate(LOOP_TICKS):
             if k:
                 churned = churn(sa, api, provider, calls, seed=k,
-                                arriving=arrivals(arrive, k) if k == 2 else ())
+                                arriving=arriving(arrive, k) if k == 2 else ())
                 calls = len(provider.scale_up_calls)
             if debugger is not None and k == len(LOOP_TICKS) - 1:
                 debugger.request()

@@ -2,9 +2,10 @@
 """Runs the PyTorch port's main paths, the scale-up estimate with and
 without dynamic inter-pod affinity and hard topology spread, the cluster
 snapshot's predicate fit, the scale-up and scale-down halves of a
-reconcile tick, and the reconcile loop bound to a Kubernetes API and a
-cloud API over HTTP, on one CUDA card through its hand-written kernels,
-and holds every kernel against its plain PyTorch version.
+reconcile tick, the reconcile loop bound to a Kubernetes API and a cloud
+API over HTTP, and the loop's preemption pass, on one CUDA card through
+its hand-written kernels, and holds every kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -137,7 +138,22 @@ Phases (any failure raises and exits non-zero):
       (4l)'s size, against the fake kube and Compute APIs (one MIG a node
       shape, five burst MIGs, one a ct5lp TPU pool): it exits 0, took the
       Lease, resized a MIG, wrote the status ConfigMap, and its estimate and
-      journal probes launched kernels (counted in the subprocess).
+      journal probes launched kernels (counted in the subprocess);
+   t. the preemption storm (``tools/preempt_probe.run_preempt_ticks``):
+      (o)'s world and churn with priorities (apps 100-199's placed pods at
+      0, the rest of the listing at 1000, the burst, a wave of 9000
+      15-core pods and tick 3's arrivals at 10000, one in five at
+      ``preemptionPolicy: Never``), three ``run_once`` ticks with
+      ``--preemption-enabled``, a churn weight of 1.0 and the journal on:
+      each tick's pass (``estimate_preemption``: the torch loop of
+      ``ops/preempt.py`` on the card, route ``torch_preempt``; no hand
+      kernel) plans admissions and evictions before the scale-up and
+      evicts after it the victims of the pods it leaves uncovered; K1/K2
+      launch in tick 1 and K4 in the journal probes; each tick's eligible,
+      admitted, planned and evicted counts and ``preemptPlan`` span are
+      printed, then ``python -m autoscaler_tpu_torch.journal replay`` over
+      the ticks' journal and decision ledger runs on the card and must
+      find no divergence.
    Every kernel of the paths must have launched;
 4. each kernel at its headline shape against its plain version on the same
    card tensors, exactly: K1/K2 on all 500 groups, K3 on its three
@@ -185,7 +201,12 @@ Phases (any failure raises and exits non-zero):
    fresh fake servers: every RunOnceResult, target size and recorded
    write equal (the Lease's times and the Machines' deletion marks
    canonicalised), and the gce world's resize and deleteInstances
-   requests equal (4n);
+   requests equal (4n); (t) at (4l)'s size on the card and again on the
+   CPU (in a worker begun at 3t): every tick's state, preemption summary
+   and the journal's replay verdicts equal (4o); the preemption loop
+   against its plain version on the card and the serial oracle on
+   bench.py's 24 storm worlds and three worlds of 240 pods × 50 nodes with
+   memory in bytes, every decision equal (4p);
 5. the estimator's services: (a) each of (o)'s perf records (residency
    pools, the arena's delta rows, dispatches by route) and the ladder's
    proof over every path so far: no fault attempt, no breaker transition;
@@ -219,7 +240,9 @@ Phases (any failure raises and exits non-zero):
    share.
 
 The last two lines of standard output are the kernels line (one JSON
-object) and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
+object: the hand kernels under "kernels", and under "torch_preempt" the
+preemption loop's dispatches in 3t and its largest difference from the
+plain version and the oracle in 4p) and ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repo, it exits non-zero and prints nothing on
 standard output.
 """
@@ -415,6 +438,17 @@ def cpu_sequence(listings, templates):
     return out
 
 
+def cpu_preempt(world):
+    """3t's ticks at a tenth on the CPU (``tools/preempt_probe``), in a
+    worker → (seconds, ``preempt_probe.tick_views`` on the CPU)."""
+    from autoscaler_tpu_torch.tools import loop_probe, preempt_probe
+
+    t0 = time.perf_counter()
+    out = preempt_probe.run_preempt_ticks(*world, "cpu", arrive=loop_probe.ARRIVALS // 10,
+                                          replayable=True)
+    return time.perf_counter() - t0, preempt_probe.tick_views(out, "cpu")
+
+
 def main() -> int:
     global _POOL
     try:
@@ -451,6 +485,7 @@ def main() -> int:
         bound_loop,
         ladder_probe,
         loop_probe,
+        preempt_probe,
         scaledown_probe,
         tick_probe,
     )
@@ -1100,6 +1135,59 @@ def main() -> int:
     check(gce_launched.get("ffd_scan_swar", 0) + gce_launched.get("ffd_scan_f32", 0) >= 1
           and gce_launched.get("fit_reduce", 0) >= 2,
           f"main 3s: its estimate or journal probes launched no kernel: {gce_launched}")
+    # the preemption pass on the reconcile loop (3t): 3o's world and churn
+    # with the storm's priorities and wave, three run_once ticks with
+    # --preemption-enabled and a churn weight, the journal on; the pass is
+    # the estimator's torch loop on the card (no hand kernel); then the
+    # port's journal CLI replays the ticks on the card. The CPU's side of
+    # 4o begins now in a worker
+    t0 = time.perf_counter()
+    storm_tenth = preempt_probe.preempt_world(tenth=True)
+    cpu_jobs["preempt 4o"] = _POOL.apply_async(cpu_preempt, (storm_tenth,))
+    storm = preempt_probe.preempt_world()
+    print(f"# preempt 3t: {len(storm[0])} nodes, {len(storm[1])} pods, {len(storm[2])} "
+          f"pending (burst and wave), world built in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    storm_card, counts, t_storm = run_path("preemption storm 3t (3 ticks)", lambda: (
+        preempt_probe.run_preempt_ticks(*storm, None, timed=True, metrics=card_metrics)))
+    storm_sa = storm_card["autoscaler"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the pass's operand signature names the snapshot's P and N
+    storm_sigs = sorted({d["sig"].rsplit(";", 1)[-1] for rec in storm_sa.observatory.records()
+                         for d in rec["dispatches"] if d["route"] == "torch_preempt"})
+    storm_passes = sum(e["preemption"]["route"] is not None for e in storm_card["ticks"])
+    for k, entry in enumerate(storm_card["ticks"]):
+        print(loop_probe.tick_line(str(k + 1), entry).replace("# loop tick", "# preempt 3t tick"),
+              flush=True)
+        print(preempt_probe.plan_line(str(k + 1), entry).replace("# preempt", "# preempt 3t"),
+              flush=True)
+        r = entry["result"]
+        check(r.cluster_healthy and not r.errors, f"preempt 3t tick {k + 1}: {r.errors}")
+        check(entry["probe"]["checked"] and not entry["probe"]["drift"],
+              f"preempt 3t tick {k + 1}: the journal probe found drift {entry['probe']}")
+    first_storm = storm_card["ticks"][0]["preemption"]
+    check(first_storm["route"] == "torch_preempt" and first_storm["eligible"] > 0
+          and first_storm["admitted"] > 0 and first_storm["planned"] > 0,
+          f"preempt 3t: tick 1's pass planned nothing: {first_storm}")
+    check(counts.get("route:torch_preempt:unsupported", 0) == storm_passes > 0,
+          f"preempt 3t: the torch loop did not serve every pass on the card: {counts}")
+    check(counts["ffd_scan_swar"] + counts["ffd_scan_f32"] >= 1
+          and counts["fit_reduce"] >= 2 * len(loop_probe.LOOP_TICKS),
+          f"preempt 3t: K1/K2 in tick 1 or K4 in the journal probes did not launch: {counts}")
+    check(storm_sa.preempt_engine.estimator.device == dev,
+          "preempt 3t: the preemption pass does not run on the card")
+    storm_replay = preempt_probe.replay(storm_sa)
+    print(f"# preempt 3t: {t_storm:.3f} s host clock for the ticks, churns included; "
+          f"preemptPlan spans {[round(e['split']['preempt'], 6) for e in storm_card['ticks']]} "
+          f"s; the pass's [P, N] mask operand {storm_sigs} read as rows; peak card memory "
+          f"{peak} bytes over the ticks; journal replay on the card (python -m "
+          f"autoscaler_tpu_torch.journal replay): exit {storm_replay['rc']}, "
+          f"{storm_replay['verdict']}, {storm_replay['seconds']:.3f} s", flush=True)
+    check(storm_replay["rc"] == 0 and storm_replay["verdict"]["diverged"] == 0
+          and storm_replay["verdict"]["replayed"] >= 1,
+          f"preempt 3t: the journal replay diverged: {storm_replay}")
+    del storm, storm_card, storm_sa
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main paths")
     check(
@@ -1804,6 +1892,55 @@ def main() -> int:
     del bound_card, bound_cpu, gce_card, gce_cpu
     phase("4n the bindings on the card and the CPU", t0)
 
+    # 3t at 4l's tenth on the card and on the CPU (the CPU's in a worker,
+    # begun at 3t): every tick's state (result, pods, evictions, decision,
+    # journal and SLO lines), preemption summary and the journal's replay
+    # verdicts equal (4o)
+    t0 = time.perf_counter()
+    watch.reset()
+    storm_card_t = preempt_probe.run_preempt_ticks(
+        *storm_tenth, dev, arrive=loop_probe.ARRIVALS // 10, replayable=True,
+        metrics=card_metrics)
+    check(not watch.problems(), f"preempt 4o: the kernel ladder {watch.problems()}")
+    card_view = preempt_probe.tick_views(storm_card_t, dev)
+    t_card = time.perf_counter() - t0
+    t_cpu, cpu_view = cpu_jobs.pop("preempt 4o").get(CPU_WAIT_S)
+    diffs = [loop_probe.state_differences(a, b)
+             for a, b in zip(card_view["states"], cpu_view["states"])]
+    same = {key: card_view[key] == cpu_view[key] for key in ("preemption", "replay")}
+    print(f"# preempt 4o: {len(storm_tenth[0])} nodes, {len(storm_tenth[1])} pods, "
+          f"{len(storm_tenth[2])} pending; card against CPU: state differences {diffs}, "
+          f"equal {same}; passes {card_view['preemption']}; replay divergences "
+          f"{[r['divergence'] for r in card_view['replay']]}; card {t_card:.3f} s, CPU "
+          f"worker {t_cpu:.3f} s host clock", flush=True)
+    check(len(diffs) == 3 and not any(diffs) and all(same.values()),
+          f"preempt 4o: the card differs from the CPU: {diffs} {same}")
+    check(not any(r["divergence"] for r in card_view["replay"])
+          and any(r["replayed"] for r in card_view["replay"]),
+          "preempt 4o: the journal replay diverged")
+    del storm_card_t, storm_tenth
+    phase("4o the preemption storm at a tenth on the card and the CPU", t0)
+
+    # the main loop against its plain version ([P, N, R] a step, on the
+    # card) and the serial oracle on bench.py's 24 storm worlds (96 pods x
+    # 12 nodes) and three worlds of 240 pods x 50 nodes with memory in bytes
+    # (4p)
+    t0 = time.perf_counter()
+    held_storm = preempt_probe.hold_plain(preempt_probe.storm_worlds(), dev)
+    held_wide = preempt_probe.hold_plain(preempt_probe.wide_worlds(), dev)
+    for label, held in (("4p storm worlds", held_storm), ("4p wide worlds", held_wide)):
+        print(preempt_probe.hold_line(label, held), flush=True)
+        check(all(h["equal"] for h in held),
+              f"preempt {label}: the main loop, its plain version and the oracle differ: "
+              f"{[h['differ'] for h in held]}")
+    preempt_err = max(h["max_abs_err"] for h in held_storm + held_wide)
+    preempt_line = {"name": "torch_preempt", "source": "autoscaler_tpu_torch/ops/preempt.py",
+                    "replaces": "autoscaler_tpu/ops/preempt.py:71 (an XLA lax.scan, no "
+                                "Pallas kernel)",
+                    "dispatches": storm_passes, "worlds": len(held_storm) + len(held_wide),
+                    "max_abs_err": preempt_err}
+    phase("4p the preemption loop against its plain version and the oracle", t0)
+
     # 5a: what 3o's ticks left in the perf observatory (one record a tick,
     # /perfz's body) and the ladder's proof: since the process started, no
     # rung attempt of a card estimator faulted and no breaker changed state
@@ -1893,7 +2030,7 @@ def main() -> int:
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi_line, flush=True)       # again: the head of a long log may be cut
 
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "torch_preempt": preempt_line}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},

@@ -565,9 +565,17 @@ def test_estimate_single_template_dynamic(cluster):
 
 
 def test_unported_expanders_raise():
-    for name in ("grpc", "preempt-churn"):
-        with pytest.raises(NotImplementedError):
-            texp.build_strategy([name])
+    """grpc is refused as not ported; preempt-churn is no expander name in
+    either package (the churn filter comes from the churn weight), so both
+    refuse it as unknown, alike."""
+    with pytest.raises(NotImplementedError):
+        texp.build_strategy(["grpc"])
+    errors = []
+    for build in (jexp.build_strategy, texp.build_strategy):
+        with pytest.raises(ValueError) as err:
+            build(["preempt-churn"])
+        errors.append(str(err.value))
+    assert errors == ["unknown expander 'preempt-churn'"] * 2
     with pytest.raises(ValueError, match="pricing model"):
         texp.build_strategy(["price"])
     with pytest.raises(ValueError):

@@ -1114,3 +1114,55 @@ def test_bound_tick_on_card_equals_cpu(cuda, monkeypatch):
         assert a["targets"] == b["targets"] and not a["decisions"]["errors"]
         assert bound_loop.write_canon(a["writes"]) == bound_loop.write_canon(b["writes"])
     assert card["autoscaler"]._packer.device.type == "cuda"
+
+
+# -- the preemption pass (ops/preempt.py): no hand kernel, the torch loop on
+# the card (a CUDA graph a chunk) against its plain version, the oracle and
+# the CPU
+
+
+@pytest.mark.parametrize("chunk", [3, 64])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_preempt_main_loop_matches_plain_on_the_card(cuda, seed, chunk, monkeypatch):
+    """The main loop on the card, chunks replayed as CUDA graphs (a chunk of
+    3 crosses many chunk edges), against its plain version on the card, the
+    serial oracle and the main loop on the CPU, field for field."""
+    from autoscaler_tpu_torch.ops import preempt
+    from autoscaler_tpu_torch.tools import preempt_probe
+
+    monkeypatch.setattr(preempt, "CHUNK", chunk)
+    worlds = preempt_probe.storm_worlds(2) + [preempt_probe.byte_world(
+        np.random.default_rng((1616, seed)), P=160, N=24, pending=40)]
+    held = preempt_probe.hold_plain(worlds, cuda)
+    assert all(h["equal"] for h in held), held
+    for w in worlds:
+        cpu = preempt.ffd_binpack_preempt(**{k: torch.tensor(w[k])
+                                             for k in preempt_probe.OPERANDS})
+        card = preempt.ffd_binpack_preempt(**{k: torch.tensor(w[k], device=cuda)
+                                              for k in preempt_probe.OPERANDS})
+        for a, b in zip(cpu, card):
+            assert torch.equal(a, b.cpu())
+
+
+def test_preempt_estimate_serves_on_the_card_and_faults_raise(cuda):
+    """estimate_preemption on the card is served by the torch loop there
+    (route torch_preempt, the cuda rung's ``unsupported`` skip); a fault
+    armed on the torch rung raises instead of descending to the host."""
+    from autoscaler_tpu_torch.estimator.binpacking import BinpackingNodeEstimator
+    from autoscaler_tpu_torch.preempt import PreemptionEngine
+    from autoscaler_tpu_torch.snapshot.cluster_snapshot import ClusterSnapshot
+    from autoscaler_tpu_torch.utils.errors import AutoscalerError
+    from autoscaler_tpu_torch.utils.test_utils import build_test_node, build_test_pod
+
+    snap = ClusterSnapshot(device=cuda)
+    snap.add_node(build_test_node("n0", cpu_m=4000))
+    snap.add_pod(build_test_pod("low", cpu_m=4000, node_name="n0", priority=5), "n0")
+    snap.add_pod(build_test_pod("high", cpu_m=4000, priority=100))
+    est = BinpackingNodeEstimator(device=cuda)
+    for eligible in (None, {"default/high"}):
+        plan = PreemptionEngine(est).plan(snap, eligible)
+        assert plan.route == "torch_preempt" and plan.victims == {"default/low": "default/high"}
+    assert PreemptionEngine(est).plan(snap, set()).victims == {}
+    est.ladder.fault_hook = lambda rung: "kernel_fault" if rung == "torch" else None
+    with pytest.raises(AutoscalerError):
+        PreemptionEngine(est).plan(snap)

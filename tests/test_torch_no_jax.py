@@ -508,3 +508,101 @@ def test_gce_tick_runs_without_grpc_protobuf_or_yaml():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.splitlines()[-1].split() == ["OK", "0", "1", "1"], proc.stdout
+
+
+# the preemption slice: the pass, the engine, the policy and the journal's
+# replay and CLI, each at its JAX counterpart's path
+PREEMPT_MODULES = (
+    "ops/preempt.py", "preempt/__init__.py", "preempt/engine.py", "preempt/policy.py",
+    "journal/replay.py", "journal/__main__.py",
+)
+
+
+def test_preemption_modules_are_ported():
+    for rel in PREEMPT_MODULES:
+        assert (PORT / rel).is_file(), rel
+        assert (REPO / "autoscaler_tpu" / rel).is_file(), rel
+        assert f"autoscaler_tpu_torch/{rel}" in PORT_FILES
+
+
+_PREEMPT_BLOCKED = r"""
+import contextlib, io, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+from autoscaler_tpu_torch.estimator.binpacking import BinpackingNodeEstimator
+from autoscaler_tpu_torch.journal import __main__ as cli
+from autoscaler_tpu_torch.preempt import PreemptionEngine
+from autoscaler_tpu_torch.snapshot.cluster_snapshot import ClusterSnapshot
+from autoscaler_tpu_torch.tools import loop_probe as lp, preempt_probe as pp
+from autoscaler_tpu_torch.utils.test_utils import build_test_node, build_test_pod
+from autoscaler_tpu_torch.utils.workload import build_snapshot_world
+snap = ClusterSnapshot(device="cpu")
+snap.add_node(build_test_node("n0", cpu_m=4000))
+snap.add_pod(build_test_pod("low", cpu_m=4000, node_name="n0", priority=5), "n0")
+snap.add_pod(build_test_pod("high", cpu_m=4000, priority=100))
+plan = PreemptionEngine(BinpackingNodeEstimator(device="cpu")).plan(snap)
+held = pp.hold_plain(pp.storm_worlds(2), "cpu")
+nodes, pods = lp.scale_in_listing(*build_snapshot_world(N=120, P=800, port_nodes=40))
+templates, burst = lp.burst_operands()
+pods, burst = pp.prioritize(pods, burst[:200] + pp.storm_wave(60))
+out = pp.run_preempt_ticks(nodes, pods, burst, lp.zoned_templates(templates), "cpu", arrive=40)
+with tempfile.TemporaryDirectory() as tmp:
+    journal, ledger = pp.write_ledgers(out["autoscaler"], tmp)
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli.main(["replay", journal, "--explain-ledger", ledger, "--device", "cpu"])
+loaded = [m for m in sys.modules if m == "autoscaler_tpu" or m.startswith("autoscaler_tpu.")]
+assert not loaded, loaded
+print("OK", plan.route, len(plan.victims), all(h["equal"] for h in held), rc,
+      stdout.getvalue().strip().splitlines()[-1])
+"""
+
+
+def test_preemption_runs_with_jax_blocked():
+    """An engine's plan, 4p's check on two storm worlds, and the storm's
+    three ticks on a small world with their journal replayed through the
+    port's CLI, with jax blocked: nothing of the JAX package is imported."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", _PREEMPT_BLOCKED], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ok, route, victims, held, rc, verdict = proc.stdout.split(" ", 5)
+    assert (ok, route, victims, held, rc) == ("OK", "torch_preempt", "1", "True", "0")
+    assert '"diverged":0' in verdict and '"replayed":0' not in verdict
+
+
+def test_preemption_entry_points_raise_without_a_card(monkeypatch):
+    """The probe, 4p's check and the journal's replay of a tick with a
+    preemption pass run on the card unless asked for the CPU."""
+    from autoscaler_tpu_torch.cloudprovider.test_provider import TestCloudProvider
+    from autoscaler_tpu_torch.config.options import AutoscalingOptions
+    from autoscaler_tpu_torch.core.static_autoscaler import StaticAutoscaler
+    from autoscaler_tpu_torch.journal import JournalReader
+    from autoscaler_tpu_torch.journal.replay import replay_tick
+    from autoscaler_tpu_torch.kube.api import FakeClusterAPI
+    from autoscaler_tpu_torch.tools import preempt_probe
+    from autoscaler_tpu_torch.utils.test_utils import build_test_node, build_test_pod
+
+    provider, api = TestCloudProvider(), FakeClusterAPI()
+    node = build_test_node("n0", cpu_m=4000)
+    provider.add_node_group("g", 1, 1, 1, node)
+    provider.add_node("g", node)
+    api.add_node(node)
+    api.add_pod(build_test_pod("low", cpu_m=4000, node_name="n0", priority=5))
+    api.add_pod(build_test_pod("high", cpu_m=4000, priority=100))
+    sa = StaticAutoscaler(provider, api, AutoscalingOptions(preemption_enabled=True),
+                          device="cpu")
+    sa.run_once(now_ts=0.0)
+    reader = JournalReader(sa.journal.records())
+    state = reader.reconstruct(reader.ticks()[0])
+    record = sa.explainer.records()[0]
+    assert replay_tick(state, record, device="cpu")["replayed"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        preempt_probe.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        preempt_probe.hold_plain(preempt_probe.storm_worlds(1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replay_tick(state, record)

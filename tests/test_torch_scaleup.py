@@ -373,12 +373,33 @@ def test_orchestrator_estimates_on_its_device():
     {"preemption_churn_weight": 0.5},
 ])
 def test_unported_options_raise(unported):
-    provider = make_provider(TORCH, [("g", 0, 5, 0, 1000, 2 * GB)])
-    weight = unported.pop("preemption_churn_weight", 0.0)
-    opts = topts.AutoscalingOptions(preemption_churn_weight=weight)
-    csr = treg.ClusterStateRegistry(provider, opts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_orch.ScaleUpOrchestrator(provider, opts, csr, device="cpu", **unported)
+    """The churn weight, once refused, now builds as in the JAX package: the
+    preemption churn filter leads the expander chain with the weight, and a
+    decision with a plan's churn bound chooses, scores and records alike
+    (the option leaving fewer evictions standing wins)."""
+    out = {}
+    for k in (JAX, TORCH):
+        kw = dict(unported)
+        weight = kw.pop("preemption_churn_weight")
+        provider = make_provider(k, [("small", 0, 20, 0, 1000, 2 * GB),
+                                     ("big", 0, 20, 0, 8000, 16 * GB)])
+        opts = k.opts.AutoscalingOptions(preemption_churn_weight=weight, expander="least-waste")
+        orch = orchestrator(k, provider, opts, k.reg.ClusterStateRegistry(provider, opts), **kw)
+        churn = orch.expander.filters[0]
+        assert orch.churn_filter is churn and churn.name == "preempt-churn"
+        assert churn.weight == weight
+        pods = [k.tu.build_test_pod(f"p{i}", cpu_m=900, mem=GB) for i in range(3)]
+        pods.append(k.tu.build_test_pod("wide", cpu_m=3000, mem=GB))
+        victims = {"v0": "default/wide", "v1": "default/wide", "v2": "default/p0"}
+
+        def churn_of(covered):
+            return sum(1 for e in victims.values() if e not in covered)
+
+        res = orch.scale_up(pods, [], 1.0, preemption_churn=churn_of)
+        table = orch.expander.last_table
+        out[k.name] = (result_canon(res), provider_state(provider, orch.csr), canon(table))
+    assert out["torch"] == out["jax"]
+    assert table and all("preempt-churn" in row["scores"] for row in table)
 
 
 @pytest.mark.parametrize("with_metrics", [False, True])
@@ -410,11 +431,24 @@ def test_orchestrator_threads_the_observatory_and_ladder(with_metrics):
 
 @pytest.mark.parametrize("name", ["grpc", "preempt-churn"])
 def test_unported_expanders_raise(name):
-    provider = make_provider(TORCH, [("g", 0, 5, 0, 1000, 2 * GB)])
-    opts = topts.AutoscalingOptions(expander=name)
-    with pytest.raises(NotImplementedError, match="not ported.*ROADMAP queue 1 item"):
-        torch_orch.ScaleUpOrchestrator(provider, opts, treg.ClusterStateRegistry(provider, opts),
-                                       device="cpu")
+    """grpc is still refused, naming its ROADMAP item. preempt-churn is no
+    expander name in either package (the churn filter is built from
+    --preemption-churn-weight): both refuse it as unknown, alike."""
+    if name == "grpc":
+        provider = make_provider(TORCH, [("g", 0, 5, 0, 1000, 2 * GB)])
+        opts = topts.AutoscalingOptions(expander=name)
+        with pytest.raises(NotImplementedError, match="not ported.*ROADMAP queue 1 item"):
+            torch_orch.ScaleUpOrchestrator(provider, opts, treg.ClusterStateRegistry(provider, opts),
+                                           device="cpu")
+        return
+    errors = []
+    for k in (JAX, TORCH):
+        provider = make_provider(k, [("g", 0, 5, 0, 1000, 2 * GB)])
+        opts = k.opts.AutoscalingOptions(expander=name)
+        with pytest.raises(ValueError) as err:
+            orchestrator(k, provider, opts, k.reg.ClusterStateRegistry(provider, opts))
+        errors.append(str(err.value))
+    assert errors[0] == errors[1] == "unknown expander 'preempt-churn'"
 
 
 @pytest.mark.parametrize("name", ["price", "priority"])

@@ -481,17 +481,26 @@ def test_hold_launches_finds_a_differing_output():
 
 
 def test_unported_options_raise():
-    """Preemption and the profiler still raise, naming their ROADMAP items;
-    the perf observatory and its cost model are taken."""
+    """The profiler still raises, naming its ROADMAP item; preemption is
+    taken and built as in the JAX package (an engine on the orchestrator's
+    estimator, the churn filter leading the chain); the perf observatory
+    and its cost model are taken."""
     from autoscaler_tpu_torch.perf import PerfObservatory
 
     provider, api = tprov.TestCloudProvider(), tapi.FakeClusterAPI()
-    for kw, item in (
-        ({"preemption_enabled": True}, "preemption"),
-        ({"jax_profiler_dir": "x"}, "trace/device.py"),
-    ):
-        with pytest.raises(NotImplementedError, match=item):
-            tsa.StaticAutoscaler(provider, api, topts.AutoscalingOptions(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="trace/device.py"):
+        tsa.StaticAutoscaler(provider, api, topts.AutoscalingOptions(jax_profiler_dir="x"),
+                             device="cpu")
+    built = {}
+    for k in (JAX, TORCH):
+        opts = k.opts.AutoscalingOptions(preemption_enabled=True, preemption_churn_weight=1.0)
+        sa = k.sa.StaticAutoscaler(k.prov.TestCloudProvider(), k.api.FakeClusterAPI(), opts,
+                                   **k.kw)
+        orch = sa.scale_up_orchestrator
+        assert sa.preempt_engine.estimator is orch.estimator
+        built[k.name] = (type(sa.preempt_engine).__name__,
+                         [f.name for f in orch.expander.filters], orch.churn_filter.weight)
+    assert built["torch"] == built["jax"]
     sa = tsa.StaticAutoscaler(provider, api, topts.AutoscalingOptions(perf_cost_model=True),
                               device="cpu")
     assert sa.observatory.cost_model_enabled

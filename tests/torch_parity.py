@@ -499,7 +499,8 @@ NAME_MAP = {
     "rung": {"pallas": "cuda", "xla": "torch"},
     "route": {"pallas": "cuda", "pallas_affinity": "cuda_affinity",
               "xla_scan": "torch_scan", "xla_runs": "torch_runs",
-              "xla_single": "torch_single"},
+              "xla_single": "torch_single", "xla_preempt": "torch_preempt",
+              "pallas_preempt": "cuda_preempt"},
     "reason": {"not_tpu": "not_cuda", "vmem": "smem"},
 }
 
