@@ -85,8 +85,15 @@ and on a CUDA device the torch rung is the card's rung, strict as the
 cuda rung is for the scans; off the card the Python oracle is its host
 twin.
 
-Not here yet: the fleet client (``fleet_client=`` raises; ROADMAP queue 1
-item 4).
+With ``fleet_client=`` (``gym/env.FleetEstimatorClient`` over a shared
+``fleet/coalescer.FleetCoalescer``) a plain estimate of a world without
+dynamic constraints rides the coalescer's admission queue instead of this
+estimator's ladder (route ``fleet_coalesced``): its packed operands join
+other estimators' in one batched dispatch, with identical answers. A
+fleet failure — admission, overload, deadline or drain, a coalescer that
+never answers — falls back to the solo ladder, as in the JAX package; on
+a CUDA device a batch that failed on the card's rung (a kernel fault)
+raises instead.
 """
 from __future__ import annotations
 
@@ -329,11 +336,9 @@ class BinpackingNodeEstimator:
         fleet_client=None,
         device=None,
     ):
-        if fleet_client is not None:
-            raise NotImplementedError(
-                "fleet_client: not ported yet (ROADMAP queue 1 item 4, the "
-                "fleet coalescer)"
-            )
+        # the fleet-coalesced lane: plain packed estimates go to a SHARED
+        # coalescer's admission queue (gym/env.FleetEstimatorClient)
+        self.fleet_client = fleet_client
         self.limiter = limiter or ThresholdBasedEstimationLimiter()
         self.device = resolve_device(device)
         self.metrics = metrics
@@ -640,6 +645,13 @@ class BinpackingNodeEstimator:
         caps = np.array(
             [self.limiter.node_cap(headrooms.get(g, 0)) for g in names], np.int32
         )
+        if self.fleet_client is not None and not dynamic:
+            # fleet-coalesced lane: run compression is skipped (the
+            # batched kernel has no runs twin); per-group verdicts are
+            # identical. A fleet failure falls back to the solo walk below.
+            out = self._fleet_estimate(pods, names, templates, caps)
+            if out is not None:
+                return out
         if not dynamic:
             if len(groups) * 2 <= len(pods):
                 return self._walk_ladder([
@@ -1015,6 +1027,62 @@ class BinpackingNodeEstimator:
         return out
 
     # -- the kernel ladder (utils/circuit.py + estimator/ladder.py) ----------
+    # -- the fleet-coalesced lane -----------------------------------------------
+    def _fleet_estimate(
+        self, pods, names, templates, caps
+    ) -> Optional[Dict[str, Tuple[int, List[Pod]]]]:
+        """One plain batched estimate through the shared fleet coalescer:
+        submit the packed operands as a FleetRequest, block for the
+        demuxed answer. Returns None on a fleet failure (admission,
+        overload, deadline or drain; a coalescer that never answers) so
+        the solo ladder keeps deciding. On a CUDA device a batch failed
+        by the card's rung (a FleetError that is not an admission error)
+        is a kernel fault, and raises."""
+        from autoscaler_tpu_torch.fleet.errors import FleetAdmissionError, FleetError
+
+        P = bucket_size(len(pods))
+        try:
+            req, masks, allocs = _build_group_arrays(
+                pods, names, templates, interpod=True, pad=P
+            )
+            self._explain_scratch = {
+                "kind": "pods", "names": list(names), "req": req,
+                "masks": masks, "allocs": allocs,
+                "involved": np.zeros((P,), bool),
+            }
+            max_nodes = int(caps.max()) if len(caps) else 0
+            with trace.span(
+                metrics_mod.FLEET_DISPATCH, metrics=self.metrics,
+                rung="coalesced", pods=len(pods), groups=len(names),
+            ) as sp:
+                counts, scheduled = self.fleet_client.estimate_groups(
+                    req, masks, allocs, caps, max_nodes
+                )
+                sp.set_attrs(outcome="ok", route="fleet_coalesced")
+        except Exception as e:  # noqa: BLE001 — degrade to the solo ladder
+            if (
+                self.device.type == "cuda"
+                and isinstance(e, FleetError)
+                and not isinstance(e, FleetAdmissionError)
+            ):
+                raise
+            logger.warning(
+                "fleet-coalesced estimate failed; falling back to the "
+                "solo kernel ladder", exc_info=True,
+            )
+            self._explain_scratch = None
+            return None
+        self._note_route("fleet_coalesced", "ok")
+        counts = np.asarray(counts)
+        scheduled = np.asarray(scheduled)
+        return {
+            g: (
+                int(counts[gi]),
+                [p for i, p in enumerate(pods) if scheduled[gi, i]],
+            )
+            for gi, g in enumerate(names)
+        }
+
     def _note_route(self, route: str, reason: str, detail: str = "") -> None:
         """Record which route served a dispatch (the metric always; one log
         line when a dispatch lost its kernel to a real cliff — smem,

@@ -334,3 +334,34 @@ def ffd_binpack_preempt_reference(
             scheduled[i] = True
             placed_node[i] = n
     return scheduled, placed_node, victim_of
+
+
+def scenario_binpack_reference(
+    scen_req: np.ndarray,     # [S, P, R] per-scenario pod matrices
+    scen_masks: np.ndarray,   # [S, G, P]
+    scen_allocs: np.ndarray,  # [S, G, R]
+    max_nodes: int,
+    scen_caps: np.ndarray | None = None,  # [S, G] i32
+):
+    """Serial per-scenario oracle twin of ops/binpack.ffd_binpack_scenarios
+    (the fleet batched entry): plain Python loops over scenarios and groups,
+    each through the ONE shared FFD order spec. This is also the fleet
+    coalescer's degraded rung — a faulted batched dispatch falls back here
+    off the card, and because every rung shares the order spec the
+    per-tenant verdicts are identical. → (counts [S, G] i32, scheduled
+    [S, G, P])."""
+    S, P, R = scen_req.shape
+    G = scen_masks.shape[1]
+    counts = np.zeros((S, G), np.int32)
+    scheds = np.zeros((S, G, P), bool)
+    for s in range(S):
+        for g in range(G):
+            cap = max_nodes if scen_caps is None else int(
+                min(scen_caps[s, g], max_nodes)
+            )
+            c, sched = ffd_binpack_reference(
+                scen_req[s], scen_masks[s, g], scen_allocs[s, g], cap
+            )
+            counts[s, g] = c
+            scheds[s, g] = sched
+    return counts, scheds

@@ -1,6 +1,6 @@
 """Expander framework: choose which expansion option to act on (the port of
 ``autoscaler_tpu/expander/core.py``: random, most-pods, least-waste, price,
-priority, grpc-ref and the preemption churn filter).
+priority, grpc, grpc-ref and the preemption churn filter).
 
 Reference: cluster-autoscaler/expander/expander.go — Option :44, Strategy
 :52, Filter :57; chain composition expander/factory/chain.go:25 (filters
@@ -23,11 +23,6 @@ PRIORITY = "priority"
 GRPC = "grpc"
 GRPC_REF = "grpc-ref"  # reference expander.proto wire format
 PREEMPT_CHURN = "preempt-churn"
-# expanders of the JAX package that later slices port, with their item
-NOT_PORTED = {
-    GRPC: "ROADMAP queue 1 item 4, the serving paths: its client is the "
-          "simulation sidecar's",
-}
 
 
 @dataclass
@@ -268,6 +263,19 @@ def build_strategy(names: Sequence[str], seed: Optional[int] = None, **kwargs) -
                 from autoscaler_tpu_torch.expander.priority import PriorityFilter
 
                 filters.append(PriorityFilter(kwargs.get("priorities") or {}))
+        elif name == GRPC:
+            from autoscaler_tpu_torch.expander.grpc_ import GRPCFilter
+
+            if not kwargs.get("grpc_target"):
+                raise ValueError(
+                    "expander 'grpc' needs a target (--grpc-expander-url)"
+                )
+            filters.append(GRPCFilter(
+                kwargs["grpc_target"],
+                default_deadline_s=kwargs.get("rpc_deadline_s"),
+                failover_targets=kwargs.get("rpc_failover_targets"),
+                hedge=bool(kwargs.get("rpc_hedge")),
+            ))
         elif name == GRPC_REF:
             from autoscaler_tpu_torch.expander.grpc_ import RefGRPCFilter
 
@@ -276,10 +284,6 @@ def build_strategy(names: Sequence[str], seed: Optional[int] = None, **kwargs) -
                     "expander 'grpc-ref' needs a target (--grpc-expander-url)"
                 )
             filters.append(RefGRPCFilter(kwargs["grpc_target"]))
-        elif name in NOT_PORTED:
-            raise NotImplementedError(
-                f"expander {name!r} is not ported yet ({NOT_PORTED[name]})"
-            )
         else:
             raise ValueError(f"unknown expander {name!r}")
     return ChainStrategy(filters, RandomStrategy(seed))

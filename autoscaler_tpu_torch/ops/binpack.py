@@ -2,8 +2,9 @@
 scans in ``autoscaler_tpu/ops/binpack.py`` (``ffd_scores``,
 ``ffd_binpack``, ``ffd_binpack_groups``, ``ffd_binpack_groups_runs``, and
 the dynamic inter-pod affinity and hard topology-spread scans
-``ffd_binpack_groups_affinity`` and ``ffd_binpack_groups_runs_affinity``),
-and of its constraint attribution (``attribute_unschedulable``,
+``ffd_binpack_groups_affinity`` and ``ffd_binpack_groups_runs_affinity``,
+and the scenario-batched fleet entry ``ffd_binpack_scenarios``), and of
+its constraint attribution (``attribute_unschedulable``,
 ``attribution_summary``).
 
 Reference: cluster-autoscaler/estimator/binpacking_estimator.go:65. Pods
@@ -45,6 +46,92 @@ from autoscaler_tpu_torch.ops.telemetry import observed
 
 BIG_I32 = 2**30  # "no domain yet" sentinel in the spread minimums
 
+# Machine-readable kernel contracts (graftlint GL007), the JAX package's
+# own: the operands' dim-symbol ties and dtypes at every dispatch site. (The
+# run-compressed loops rename the pod axis P to the run axis U.)
+KERNEL_CONTRACTS = {
+    "ffd_binpack": {
+        "args": {
+            "pod_req": {"dims": ["P", "R"], "dtype": "f32"},
+            "pod_mask": {"dims": ["P"], "dtype": "bool"},
+            "template_alloc": {"dims": ["R"], "dtype": "f32"},
+        },
+        "static": {"max_nodes": {"min": 1}},
+    },
+    "ffd_binpack_groups": {
+        "args": {
+            "pod_req": {"dims": ["P", "R"], "dtype": "f32"},
+            "pod_masks": {"dims": ["G", "P"], "dtype": "bool"},
+            "template_allocs": {"dims": ["G", "R"], "dtype": "f32"},
+            "node_caps": {"dims": ["G"], "dtype": "i32"},
+        },
+        "static": {"max_nodes": {"min": 1}},
+    },
+    "ffd_binpack_groups_runs": {
+        "args": {
+            "run_req": {"dims": ["U", "R"], "dtype": "f32"},
+            "run_counts": {"dims": ["U"], "dtype": "i32"},
+            "run_masks": {"dims": ["G", "U"], "dtype": "bool"},
+            "template_allocs": {"dims": ["G", "R"], "dtype": "f32"},
+            "node_caps": {"dims": ["G"], "dtype": "i32"},
+        },
+        "static": {"max_nodes": {"min": 1}},
+    },
+    "ffd_binpack_groups_runs_affinity": {
+        "args": {
+            "run_req": {"dims": ["U", "R"], "dtype": "f32"},
+            "run_counts": {"dims": ["U"], "dtype": "i32"},
+            "run_masks": {"dims": ["G", "U"], "dtype": "bool"},
+            "template_allocs": {"dims": ["G", "R"], "dtype": "f32"},
+            "involved": {"dims": ["U"], "dtype": "bool"},
+            "match": {"dims": ["T", "U"], "dtype": "bool"},
+            "aff_of": {"dims": ["T", "U"], "dtype": "bool"},
+            "anti_of": {"dims": ["T", "U"], "dtype": "bool"},
+            "node_level": {"dims": ["T"], "dtype": "bool"},
+            "has_label": {"dims": ["G", "T"], "dtype": "bool"},
+            "node_caps": {"dims": ["G"], "dtype": "i32"},
+        },
+        "static": {"max_nodes": {"min": 1}},
+    },
+    "ffd_binpack_groups_affinity": {
+        "args": {
+            "pod_req": {"dims": ["P", "R"], "dtype": "f32"},
+            "pod_masks": {"dims": ["G", "P"], "dtype": "bool"},
+            "template_allocs": {"dims": ["G", "R"], "dtype": "f32"},
+            "match": {"dims": ["T", "P"], "dtype": "bool"},
+            "aff_of": {"dims": ["T", "P"], "dtype": "bool"},
+            "anti_of": {"dims": ["T", "P"], "dtype": "bool"},
+            "node_level": {"dims": ["T"], "dtype": "bool"},
+            "has_label": {"dims": ["G", "T"], "dtype": "bool"},
+            "node_caps": {"dims": ["G"], "dtype": "i32"},
+        },
+        "static": {"max_nodes": {"min": 1}},
+    },
+    "attribute_unschedulable": {
+        "args": {
+            "pod_req": {"dims": ["P", "R"], "dtype": "f32"},
+            "pod_masks": {"dims": ["G", "P"], "dtype": "bool"},
+            "template_allocs": {"dims": ["G", "R"], "dtype": "f32"},
+            "scheduled": {"dims": ["G", "P"], "dtype": "bool"},
+            "involved": {"dims": ["P"], "dtype": "bool"},
+        },
+    },
+    # Scenario-batched fleet entry (fleet/coalescer.py): the leading S
+    # axis is independent what-if worlds — one coalesced multi-tenant batch.
+    # Operand names are scen_* on purpose: each tenant ships its OWN pod
+    # matrix, so the ranks differ from the single-snapshot family and the
+    # cross-twin rank check must not tie them to pod_req/pod_masks.
+    "ffd_binpack_scenarios": {
+        "args": {
+            "scen_req": {"dims": ["S", "P", "R"], "dtype": "f32"},
+            "scen_masks": {"dims": ["S", "G", "P"], "dtype": "bool"},
+            "scen_allocs": {"dims": ["S", "G", "R"], "dtype": "f32"},
+            "scen_caps": {"dims": ["S", "G"], "dtype": "i32"},
+        },
+        "static": {"max_nodes": {"min": 1}},
+    },
+}
+
 
 class BinpackResult(NamedTuple):
     node_count: torch.Tensor   # i32 scalar (or [G]) — template nodes opened
@@ -64,7 +151,8 @@ def ffd_scores(pod_req: torch.Tensor, template_alloc: torch.Tensor) -> torch.Ten
     cpu/cpu_cap + mem/mem_cap (binpacking_estimator.go:164-193); a zero cap
     drops its term.
 
-    ``template_alloc`` is [R] (→ [P] scores) or [G, R] (→ [G, P]). Each
+    ``template_alloc`` is [R] (→ [P] scores) or [G, R] (→ [G, P]); a
+    stack of pod matrices [S, 1, P, R] against [S, G, R] gives [S, G, P]. Each
     product and the sum are separate eager kernels, so no fused
     multiply-add re-rounds the sum: the result is bit-identical to the JAX
     package, numpy and the serial C++ oracle. Never compile this."""
@@ -72,8 +160,8 @@ def ffd_scores(pod_req: torch.Tensor, template_alloc: torch.Tensor) -> torch.Ten
     mem_cap = template_alloc[..., MEMORY, None]
     c_scale = torch.where(cpu_cap > 0, cpu_cap, 1.0)
     m_scale = torch.where(mem_cap > 0, mem_cap, 1.0)
-    s_cpu = torch.where(cpu_cap > 0, pod_req[:, CPU] * m_scale, 0.0)
-    s_mem = torch.where(mem_cap > 0, pod_req[:, MEMORY] * c_scale, 0.0)
+    s_cpu = torch.where(cpu_cap > 0, pod_req[..., CPU] * m_scale, 0.0)
+    s_mem = torch.where(mem_cap > 0, pod_req[..., MEMORY] * c_scale, 0.0)
     return s_cpu + s_mem
 
 
@@ -148,11 +236,20 @@ def ffd_binpack_groups(
     """All node groups at once: the per-pod loop of ffd_binpack vectorized
     over the group axis, with a usage carry [G, R, M]. Returns [G]-leading
     results."""
-    dev = pod_req.device
-    P, R = pod_req.shape
     G = pod_masks.shape[0]
-    caps = _caps(node_caps, G, max_nodes, dev)
+    caps = _caps(node_caps, G, max_nodes, pod_req.device)
     order = score_order(pod_req, template_allocs)                  # [G, P]
+    return _groups_loop(pod_req, order, order, pod_masks, template_allocs, caps, max_nodes)
+
+
+def _groups_loop(rows, rows_of, order, pod_masks, template_allocs, caps, max_nodes):
+    """The per-pod loop over G groups. Group g's s-th pod in its score
+    order is ``order[g, s]`` (a column of ``pod_masks``) and its request
+    row is ``rows[rows_of[g, s]]``: the shared matrix for one snapshot,
+    a scenario's own block of a stacked matrix for a batch."""
+    dev = rows.device
+    R = rows.shape[1]
+    G, P = pod_masks.shape
     sorted_mask = torch.gather(pod_masks, 1, order)                 # [G, P]
     alloc_t = template_allocs[:, :, None]                           # [G, R, 1]
     node_ids = torch.arange(max_nodes, dtype=torch.int32, device=dev)
@@ -160,7 +257,7 @@ def ffd_binpack_groups(
     opened = torch.zeros((G,), dtype=torch.int32, device=dev)
     placed = torch.zeros((G, P), dtype=torch.bool, device=dev)
     for s in range(P):
-        req = pod_req[order[:, s]]                                  # [G, R]
+        req = rows[rows_of[:, s]]                                   # [G, R]
         free_t = alloc_t - used_t
         fits_n = (req[:, :, None] <= free_t).all(dim=1)             # [G, M]
         fits_n &= node_ids[None, :] < opened[:, None]
@@ -182,6 +279,57 @@ def ffd_binpack_groups(
         node_count=opened,
         scheduled=scheduled,
         node_used=used_t.transpose(1, 2).contiguous(),              # [G, M, R]
+    )
+
+
+def scenario_order(scen_req: torch.Tensor, scen_allocs: torch.Tensor) -> torch.Tensor:
+    """[S, G, P] int64 — each (scenario, group)'s pods by descending score
+    against the group's alloc, as ``score_order`` sorts one snapshot."""
+    scores = ffd_scores(scen_req[:, None], scen_allocs)             # [S, G, P]
+    return torch.sort(-scores, dim=2, stable=True).indices
+
+
+def scenario_caps(scen_caps: Optional[torch.Tensor], S: int, G: int, max_nodes: int, device):
+    """[S, G] i32 caps min'd with ``max_nodes`` (None: ``max_nodes``)."""
+    if scen_caps is None:
+        return torch.full((S, G), max_nodes, dtype=torch.int32, device=device)
+    return torch.clamp(scen_caps.to(torch.int32), max=max_nodes)
+
+
+@observed
+def ffd_binpack_scenarios(
+    scen_req: torch.Tensor,     # [S, P, R] f32 per-scenario pending-pod matrices
+    scen_masks: torch.Tensor,   # [S, G, P] bool per-scenario per-group schedulability
+    scen_allocs: torch.Tensor,  # [S, G, R] f32 per-scenario template capacities
+    max_nodes: int,
+    scen_caps: Optional[torch.Tensor] = None,  # [S, G] i32 per-group caps
+) -> BinpackResult:
+    """The fleet-serving entry: a batch of independent estimate worlds in
+    one dispatch. Scenario s is one tenant's request — its own pods,
+    masks, templates and caps — and its verdicts are exactly those of
+    ``ffd_binpack_groups`` on its own operands (the JAX package's
+    ``vmap(ffd_binpack_groups)``): the per-pod loop runs once over the
+    flattened S·G groups, each group reading its scenario's block of the
+    stacked pod matrix. ``max_nodes`` is the shared carry size; a tenant's
+    node budget rides ``scen_caps`` (min'd with ``max_nodes``). Returns
+    BinpackResult(node_count [S, G] i32, scheduled [S, G, P] bool,
+    node_used [S, G, max_nodes, R] f32). ``ops/ffd_scan.
+    ffd_binpack_scenarios_cuda`` is the same batch in one K1/K2 launch."""
+    S, P, R = scen_req.shape
+    G = scen_masks.shape[1]
+    dev = scen_req.device
+    caps = scenario_caps(scen_caps, S, G, max_nodes, dev).reshape(S * G)
+    order = scenario_order(scen_req, scen_allocs)                   # [S, G, P]
+    base = (torch.arange(S, device=dev) * P)[:, None, None]
+    res = _groups_loop(
+        scen_req.reshape(S * P, R), (order + base).reshape(S * G, P),
+        order.reshape(S * G, P), scen_masks.reshape(S * G, P),
+        scen_allocs.reshape(S * G, R), caps, max_nodes,
+    )
+    return BinpackResult(
+        node_count=res.node_count.reshape(S, G),
+        scheduled=res.scheduled.reshape(S, G, P),
+        node_used=res.node_used.reshape(S, G, max_nodes, R),
     )
 
 

@@ -21,6 +21,10 @@ the same glue:
   per-group request stream [G, P_pad, NP]; after the scan a scatter on
   the same order puts the placement bits back in pod order.
 
+``ffd_binpack_scenarios_cuda`` serves a batch of S independent
+scenarios (the fleet's coalesced tenants, each with its own pod matrix)
+the same way, flattened to S·G groups in ONE launch (``prepare_scenarios``).
+
 The scan itself is ``ffd_scan_f32`` (K1) or ``ffd_scan_swar`` (K2). For a
 tensor on a CUDA card each launches its kernel from ``csrc/ffd_scan.cu``
 and counts the launch in ``LAUNCHES``; for a tensor on the CPU each runs
@@ -38,7 +42,12 @@ import torch
 
 from autoscaler_tpu_torch.device import resolve_device
 from autoscaler_tpu_torch.ops import _build
-from autoscaler_tpu_torch.ops.binpack import BinpackResult, score_order
+from autoscaler_tpu_torch.ops.binpack import (
+    BinpackResult,
+    scenario_caps,
+    scenario_order,
+    score_order,
+)
 from autoscaler_tpu_torch.ops.telemetry import observed
 
 BIG_I32 = 2**31 - 1
@@ -237,30 +246,82 @@ def prepare_scan(
     _check_operands(pod_req, pod_masks, template_allocs, node_caps)
     if max_nodes < 1:
         raise ValueError(f"max_nodes must be >= 1, got {max_nodes}")
-    dev = pod_req.device
-    P, R_full = pod_req.shape
     G = pod_masks.shape[0]
     if node_caps is None:
-        node_caps = torch.full((G,), max_nodes, dtype=torch.int32, device=dev)
-    caps = torch.clamp(node_caps, max=max_nodes).contiguous()
+        node_caps = torch.full((G,), max_nodes, dtype=torch.int32, device=pod_req.device)
     order = score_order(pod_req, template_allocs)                   # [G, P]
-    allocs = clamp_inf_allocs(pod_req, template_allocs)
+    return _build_operands(
+        pod_req, order, order, pod_masks, template_allocs,
+        torch.clamp(node_caps, max=max_nodes), max_nodes, scan_plan,
+    )
+
+
+def prepare_scenarios(
+    scen_req: torch.Tensor,     # [S, P, R] f32
+    scen_masks: torch.Tensor,   # [S, G, P] bool
+    scen_allocs: torch.Tensor,  # [S, G, R] f32
+    max_nodes: int,
+    scen_caps: Optional[torch.Tensor] = None,  # [S, G] i32
+    scan_plan: Optional[ScanPlan] = None,
+) -> ScanOperands:
+    """``prepare_scan`` for a batch of S scenarios, flattened to S·G
+    groups: group (s, g) streams scenario s's pods in its own score order
+    against its own alloc, with cap ``scen_caps[s, g]`` (min'd with
+    ``max_nodes``). One ``plan_scan`` covers the batch (``scan_plan`` is
+    that of ``scen_req.reshape(S·P, R)`` against ``scen_allocs.reshape(
+    S·G, R)``), so a single fractional scenario routes the whole batch to
+    K1. Padded slots (all masks False) stream only inactive rows, and
+    padded groups (alloc 0, cap 0) open nothing."""
+    for name, t, dtype in (("scen_req", scen_req, torch.float32),
+                           ("scen_masks", scen_masks, torch.bool),
+                           ("scen_allocs", scen_allocs, torch.float32)):
+        if not isinstance(t, torch.Tensor) or t.dtype != dtype or t.dim() != 3:
+            raise ValueError(f"{name} must be a 3-d {dtype} tensor")
+    S, P, R = scen_req.shape
+    G = scen_masks.shape[1]
+    if scen_masks.shape != (S, G, P) or scen_allocs.shape != (S, G, R):
+        raise ValueError(
+            f"shape mismatch: scen_req {tuple(scen_req.shape)}, scen_masks "
+            f"{tuple(scen_masks.shape)}, scen_allocs {tuple(scen_allocs.shape)}"
+        )
+    if max_nodes < 1:
+        raise ValueError(f"max_nodes must be >= 1, got {max_nodes}")
+    dev = scen_req.device
+    caps = scenario_caps(scen_caps, S, G, max_nodes, dev).reshape(S * G)
+    order = scenario_order(scen_req, scen_allocs)                   # [S, G, P]
+    base = (torch.arange(S, device=dev) * P)[:, None, None]
+    return _build_operands(
+        scen_req.reshape(S * P, R), (order + base).reshape(S * G, P),
+        order.reshape(S * G, P), scen_masks.reshape(S * G, P),
+        scen_allocs.reshape(S * G, R), caps, max_nodes, scan_plan,
+    )
+
+
+def _build_operands(rows, rows_of, order, pod_masks, template_allocs, caps,
+                    max_nodes, scan_plan) -> ScanOperands:
+    """The stream of G groups: group g's s-th pod in its score order is
+    column ``order[g, s]`` of ``pod_masks`` with request row
+    ``rows[rows_of[g, s]]`` (for one snapshot ``rows_of`` is ``order``)."""
+    dev = rows.device
+    R_full = rows.shape[1]
+    G, P = pod_masks.shape
+    allocs = clamp_inf_allocs(rows, template_allocs)
     if scan_plan is None:
-        scan_plan = plan_scan(pod_req, template_allocs)
+        scan_plan = plan_scan(rows, template_allocs)
     keep, plan = scan_plan.keep, scan_plan.plan
     if len(keep) < R_full:
         keep_t = torch.tensor(keep, device=dev)
-        pod_req = pod_req[:, keep_t]
+        rows = rows[:, keep_t]
         allocs = allocs[:, keep_t]
 
     if plan is not None:
         guard_vals, sentinels = _swar_masks(plan)
-        plane_cols = torch.stack(_swar_pack_cols(pod_req, plan), dim=1)  # [P, NP]
+        plane_cols = torch.stack(_swar_pack_cols(rows, plan), dim=1)    # [N, NP]
         inactive = torch.tensor(sentinels, dtype=torch.int32, device=dev)
-        allocs_in = torch.stack(_swar_pack_cols(allocs, plan), dim=1)    # [G, NP]
+        allocs_in = torch.stack(_swar_pack_cols(allocs, plan), dim=1)   # [G, NP]
         guards = torch.tensor(guard_vals, dtype=torch.int32, device=dev)
     else:
-        plane_cols = pod_req
+        plane_cols = rows
         inactive = torch.full(
             (len(keep),), float("inf"), dtype=torch.float32, device=dev
         )
@@ -270,11 +331,11 @@ def prepare_scan(
     P_pad = P + (-P) % STEP_BLOCK
     stream = inactive.expand(G, P_pad, NP).contiguous()
     sorted_masks = torch.gather(pod_masks, 1, order)                 # [G, P]
-    stream[:, :P] = torch.where(sorted_masks[:, :, None], plane_cols[order], inactive)
+    stream[:, :P] = torch.where(sorted_masks[:, :, None], plane_cols[rows_of], inactive)
     return ScanOperands(
         stream=stream,
         allocs=allocs_in.contiguous(),
-        caps=caps,
+        caps=caps.contiguous(),
         guards=guards,
         max_nodes=max_nodes,
         order=order,
@@ -597,3 +658,37 @@ def ffd_binpack_groups_cuda(
         )
     ops = prepare_scan(pod_req, pod_masks, template_allocs, max_nodes, node_caps, scan_plan)
     return finish_scan(ops, *run_scan(ops))
+
+
+@observed
+def ffd_binpack_scenarios_cuda(
+    scen_req: torch.Tensor,     # [S, P, R] f32
+    scen_masks: torch.Tensor,   # [S, G, P] bool
+    scen_allocs: torch.Tensor,  # [S, G, R] f32
+    max_nodes: int,
+    scen_caps: Optional[torch.Tensor] = None,  # [S, G] i32
+    scan_plan: Optional[ScanPlan] = None,
+) -> BinpackResult:
+    """A batch of S independent scenarios in ONE K1/K2 launch over S·G
+    groups (``prepare_scenarios``) — the port of ``ffd_binpack_scenarios``
+    on the kernels. Returns BinpackResult(node_count [S, G] i32, scheduled
+    [S, G, P] bool, node_used [S, G, max_nodes, R] f32) on the inputs'
+    device, equal to ``ops/binpack.ffd_binpack_scenarios`` on the same
+    operands. ``scan_plan``, when given, is ``plan_scan``'s on the
+    flattened batch."""
+    S, P, R = scen_req.shape
+    G = scen_masks.shape[1]
+    if S * P == 0 or S * G == 0:
+        dev = scen_req.device
+        return BinpackResult(
+            node_count=torch.zeros((S, G), dtype=torch.int32, device=dev),
+            scheduled=torch.zeros((S, G, P), dtype=torch.bool, device=dev),
+            node_used=torch.zeros((S, G, max_nodes, R), dtype=torch.float32, device=dev),
+        )
+    ops = prepare_scenarios(scen_req, scen_masks, scen_allocs, max_nodes, scen_caps, scan_plan)
+    res = finish_scan(ops, *run_scan(ops))
+    return BinpackResult(
+        node_count=res.node_count.reshape(S, G),
+        scheduled=res.scheduled.reshape(S, G, P),
+        node_used=res.node_used.reshape(S, G, max_nodes, R),
+    )

@@ -64,8 +64,9 @@ class LadderWatch:
     # the shape gates and the run-compressed routes
     ALLOWED_BELOW_CUDA = ("smem", "spread_width", "dedup")
     # the card's rung of a dispatch no hand kernel serves, with the cuda
-    # rung's automatic skip: the preemption pass
-    CARD_TORCH_ROUTES = (("torch_preempt", "unsupported"),)
+    # rung's automatic skip: the preemption pass; and the fleet lane, whose
+    # dispatch the shared coalescer serves on its own cuda rung
+    CARD_TORCH_ROUTES = (("torch_preempt", "unsupported"), ("fleet_coalesced", "ok"))
     FAMILIES = ("estimator_kernel_route_total", "estimator_kernel_rung_attempts_total",
                 "estimator_breaker_transitions_total")
 
@@ -111,7 +112,8 @@ class LadderWatch:
     def problems(self) -> list:
         """Since the last reset: fault attempts, dispatches served below
         the cuda rung for another reason than the shape gates or dedup
-        (the preemption pass's torch rung is its card rung), forced
+        (the preemption pass's torch rung is its card rung, the fleet
+        lane's the coalescer's), forced
         dispatches, breaker transitions and estimator warnings."""
         out = [f"rung {dict(key)['rung']}: {int(n)} fault attempts"
                for key, n in self.since("estimator_kernel_rung_attempts_total").items()

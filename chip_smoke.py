@@ -3,7 +3,8 @@
 without dynamic inter-pod affinity and hard topology spread, the cluster
 snapshot's predicate fit, the scale-up and scale-down halves of a
 reconcile tick, the reconcile loop bound to a Kubernetes API and a cloud
-API over HTTP, and the loop's preemption pass, on one CUDA card through
+API over HTTP, the loop's preemption pass, the scenario what-if and the
+fleet's coalesced estimates, on one CUDA card through
 its hand-written kernels, and holds every kernel against its plain
 PyTorch version.
 
@@ -153,7 +154,32 @@ Phases (any failure raises and exits non-zero):
       admitted, planned and evicted counts and ``preemptPlan`` span are
       printed, then ``python -m autoscaler_tpu_torch.journal replay`` over
       the ticks' journal and decision ledger runs on the card and must
-      find no divergence.
+      find no divergence;
+   u. scenario batching (``tools/fleet_probe``): (a)'s operands under
+      BASELINE config 5's 8 spot-pricing scenarios (shared allocs, base
+      prices uniform in 0.5-3.0, spot discount 0.7, revocation 0.3, seed 0)
+      through ``whatif_best_options`` on ``make_mesh()`` (1x1 on one card)
+      with ``ffd_binpack_groups_cuda``, one K2 launch a scenario: every
+      scenario's counts equal (a)'s K2 counts, the costs, best groups and
+      best costs the host's f32 recomputation; ``ScenarioStrategy`` over
+      the expansion options of (b)'s estimate (K1/K2 behind the shared
+      memory gate), its choice held the same way; and
+      ``sharded_affinity_estimate(use_pallas=True)`` on a 1-device group
+      mesh over (d)'s operands, one K3 launch equal to (d)'s;
+   v. the fleet: a ``FleetCoalescer`` (buckets 1024x32x8 and 4096x64x8, 8
+      scenario slots, prewarmed) on the card serves 16 tenants of
+      bench.py --fleet's form at real widths (512-4096 pods, 8-64 groups,
+      integral cpu and memory, caps 1-1000, every second one priced) and
+      one of 6000 pods x 100 groups (an ad-hoc bucket) in one flush: every
+      batch one K1/K2 launch over its S·G groups
+      (``ffd_binpack_scenarios_cuda``), every ticket on rung cuda's route,
+      every answer byte-equal to the tenant's solo dispatch, every what-if
+      best group the host's f64 argmin; batched and sequential
+      tenant-requests/s as bench.py --fleet reports them; then the
+      estimator's fleet lane: two estimators on the card share one started
+      coalescer (5 ms window), each estimating a 3 000-pod slice of (b)'s
+      burst x (b)'s templates from its own thread, each equal to its solo
+      estimate, on route fleet_coalesced.
    Every kernel of the paths must have launched;
 4. each kernel at its headline shape against its plain version on the same
    card tensors, exactly: K1/K2 on all 500 groups, K3 on its three
@@ -206,7 +232,15 @@ Phases (any failure raises and exits non-zero):
    and the journal's replay verdicts equal (4o); the preemption loop
    against its plain version on the card and the serial oracle on
    bench.py's 24 storm worlds and three worlds of 240 pods × 50 nodes with
-   memory in bytes, every decision equal (4p);
+   memory in bytes, every decision equal (4p); (v)'s batched launches
+   against the kernel's plain version on their captured operands,
+   ``ffd_binpack_scenarios_cuda`` against its plain version and the serial
+   oracle on bench.py --fleet's 32 x 8 x 8 worlds (padded zero slots,
+   cap-0 groups, a fractional tenant that turns the batch to K1), a fleet
+   of 8 tenants at the 1024x32x8 bucket on the card and on the CPU (in a
+   worker begun at 3v) with equal answers, decision-ledger record and
+   fleet metric lines, and ``sharded_scaledown_step`` on a 1-device
+   candidate mesh over (m)'s candidates against (m)'s passes (4q);
 5. the estimator's services: (a) each of (o)'s perf records (residency
    pools, the arena's delta rows, dispatches by route) and the ladder's
    proof over every path so far: no fault attempt, no breaker transition;
@@ -220,7 +254,11 @@ Phases (any failure raises and exits non-zero):
    ``autoscaler_tpu_torch/csrc/ffd_serial.cpp`` at first use, timed) on
    every group of (4l)'s burst and the Python rung on every 50th, each
    served by an estimator on the CPU with the rungs above it faulted,
-   against the cuda rung's decisions;
+   against the cuda rung's decisions; (d) the fleet's fault walk on the
+   card (``fleet_probe.fault_walk``): faults injected on the coalescer's
+   cuda rung fail their batches' tickets with the error and no oracle
+   serves; the breaker opens, a batch while it is open fails too, and
+   past the cooldown on the injected clock a probe serves and closes it;
 6. timings with CUDA events, each run queued behind ~10 ms of a spinning
    card so that they time the card and not the host's launches: each
    kernel alone, its whole entry call, and the plain version; K3 on the
@@ -449,6 +487,16 @@ def cpu_preempt(world):
     return time.perf_counter() - t0, preempt_probe.tick_views(out, "cpu")
 
 
+def cpu_fleet():
+    """4q's fleet (``tools/fleet_probe.fleet_view``) on the CPU, in a worker
+    → (seconds, the view)."""
+    from autoscaler_tpu_torch.tools import fleet_probe
+
+    t0 = time.perf_counter()
+    view = fleet_probe.fleet_view("cpu")
+    return time.perf_counter() - t0, view
+
+
 def main() -> int:
     global _POOL
     try:
@@ -483,6 +531,7 @@ def main() -> int:
     from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
     from autoscaler_tpu_torch.tools import (
         bound_loop,
+        fleet_probe,
         ladder_probe,
         loop_probe,
         preempt_probe,
@@ -1188,6 +1237,93 @@ def main() -> int:
           and storm_replay["verdict"]["replayed"] >= 1,
           f"preempt 3t: the journal replay diverged: {storm_replay}")
     del storm, storm_card, storm_sa
+    # the what-if at BASELINE config 5 (3u): 3a's headline operands under 8
+    # spot-pricing scenarios on a 1x1 mesh of the card, each scenario's FFD
+    # one K2 launch; every scenario's counts must be 3a's K2 counts and the
+    # costs, best groups and best costs the host's f32 recomputation
+    wi_start = torch.cuda.Event(enable_timing=True)
+    wi_stop = torch.cuda.Event(enable_timing=True)
+
+    def whatif_path():
+        wi_start.record()
+        out = fleet_probe.whatif_path(dev, req, masks, allocs, caps, HEADLINE_MAX_NODES)
+        wi_stop.record()
+        return out
+
+    (whatif, whatif_ops), counts, t_whatif = run_path("what-if 3u (8 scenarios)", whatif_path)
+    whatif_ms = wi_start.elapsed_time(wi_stop)
+    check(counts["ffd_scan_swar"] == fleet_probe.SCENARIOS and counts["ffd_scan_f32"] == 0,
+          f"what-if 3u: not one K2 launch a scenario: {counts}")
+    bad = fleet_probe.whatif_problems(whatif, res_swar.node_count.cpu().numpy(),
+                                      res_swar.scheduled.cpu().numpy(), req, whatif_ops[3])
+    check(not bad, f"what-if 3u: {bad}")
+    print(f"# what-if 3u: {fleet_probe.SCENARIOS} scenarios x {G} groups x {P} pods, "
+          f"{whatif_ms:.3f} ms on the card's clock ({whatif_ms / fleet_probe.SCENARIOS:.3f} ms a "
+          f"scenario, its K2 launch, plan fetch and sort), {t_whatif:.3f} s host clock; best "
+          f"groups {whatif.best_group.tolist()}, best costs {whatif.best_cost.tolist()}; every "
+          f"scenario's counts equal 3a's K2 counts, costs and argmins the host's", flush=True)
+    # the scenario expander over the expansion options of 3b's estimate
+    (strategy, strat_options, strat_choice), counts, t_strategy = run_path(
+        "scenario expander 3u", lambda: fleet_probe.strategy_path(
+            dev, burst_card, templates, HEADLINE_MAX_NODES))
+    check(strategy.last_route == "cuda" and counts["ffd_scan_swar"] + counts["ffd_scan_f32"]
+          == fleet_probe.SCENARIOS, f"scenario expander 3u: not on K1/K2: {counts}")
+    bad = fleet_probe.strategy_problems(strategy, strat_options, strat_choice, dev)
+    check(not bad, f"scenario expander 3u: {bad}")
+    print(f"# scenario expander 3u: {len(strat_options)} options, "
+          f"{strategy.last_whatif.node_counts.shape[0]} scenarios, chose "
+          f"{strat_choice.node_group.id()} (best groups "
+          f"{strategy.last_whatif.best_group.tolist()}), {t_strategy:.3f} s host clock; "
+          f"launches {counts}", flush=True)
+    # K3 over a 1-device group mesh on the affinity workload (3d's operands)
+    res_sharded, counts, t_sharded = run_path("sharded affinity 3u", lambda: (
+        fleet_probe.affinity_path(dev, aff_ops, AFFINITY_MAX_NODES)))
+    check(counts["ffd_scan_aff"] == 1, f"sharded affinity 3u: not one K3 launch: {counts}")
+    check(all(torch.equal(a, b) for a, b in zip(res_sharded, res_aff)),
+          "sharded affinity 3u: differs from 3d's K3 result")
+    print(f"# sharded affinity 3u: one K3 launch on a 1-device group mesh, equal to 3d's; "
+          f"{t_sharded:.3f} s host clock", flush=True)
+    del whatif, whatif_ops, strategy, res_sharded
+    # the fleet (3v): a prewarmed coalescer on a 1x1 mesh of the card serves
+    # 16 tenants of bench.py --fleet's form at real widths and one past
+    # every bucket in one flush; every batch one K1/K2 launch (captured for
+    # 4q), every answer byte-equal to the tenant's solo dispatch, every
+    # what-if best group the host's f64 argmin; then batched and sequential
+    # rounds timed as bench.py --fleet times them. The CPU's side of 4q
+    # begins now in a worker
+    cpu_jobs["fleet 4q"] = _POOL.apply_async(cpu_fleet, ())
+    fleet_reqs = fleet_probe.fleet_tenants()
+    fleet_out, counts, t_served = run_path("fleet 3v (17 tenants)", lambda: fleet_probe.serve(
+        fleet_reqs, dev, AutoscalerMetrics(), reps=REPS, capture=True))
+    bad = fleet_probe.serve_problems(fleet_reqs, fleet_out)
+    check(not bad and fleet_out["batches"] == len(fleet_out["captured"]) >= 3,
+          f"fleet 3v: {bad}, {fleet_out['batches']} batches, {len(fleet_out['captured'])} launches")
+    fleet_batch = max(fleet_out["captured"], key=lambda c: c[1][0].numel())
+    fleet_batch_ms = event_ms(lambda: getattr(ffd_scan, fleet_batch[0])(*fleet_batch[1]))
+    n_req = len(fleet_reqs)
+    out = fleet_out
+    print(f"# fleet 3v: {n_req} tenants, buckets {fleet_probe.BUCKETS} (prewarmed "
+          f"{out['warmed']} in {out['prewarm_s']:.3f} s), {out['batches']} batches "
+          f"{sorted(set(a.bucket for a in out['answers']))}, launches {out['launches']}, "
+          f"routes {out['routes']}; served in {out['serve_s']:.3f} s; batched "
+          f"{n_req / out['batched_s']:.1f} tenant-requests/s ({out['batched_s']:.5f} s a "
+          f"round), sequential {n_req / out['sequential_s']:.1f} ({out['sequential_s']:.5f} "
+          f"s), {out['sequential_s'] / out['batched_s']:.2f}x; the largest batch's launch "
+          f"{fleet_batch[0]} on stream {list(fleet_batch[1][0].shape)} {fleet_batch_ms:.3f} ms; "
+          f"path {t_served:.3f} s host clock", flush=True)
+    # the estimator's fleet lane: two estimators on the card, each with a
+    # FleetEstimatorClient on one started coalescer (5 ms window), each a
+    # 3 000-pod slice of 3b's burst x 3b's templates from a thread of its
+    # own; each result must equal the same estimator's solo estimate
+    lane, counts, t_lane = run_path("fleet lane 3v", lambda: fleet_probe.estimator_lane(
+        burst, templates, dev, metrics=card_metrics))
+    check(all(lane["equal"]) and not lane["errors"] and counts.get(
+        "route:fleet_coalesced:ok") == 2, f"fleet lane 3v: {lane['equal']} {lane['errors']} "
+          f"{counts}")
+    print(f"# fleet lane 3v: 2 estimators x {fleet_probe.LANE_PODS} pods x {len(templates)} "
+          f"groups, {lane['batches']} batches, scheduled {lane['scheduled']}, each equal to its "
+          f"solo estimate; {lane['seconds']:.3f} s for the lane, {t_lane:.3f} s with the solo "
+          f"estimates", flush=True)
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main paths")
     check(
@@ -1941,6 +2077,60 @@ def main() -> int:
                     "max_abs_err": preempt_err}
     phase("4p the preemption loop against its plain version and the oracle", t0)
 
+    # 4q: 3v's batched launches against the kernel's plain version on their
+    # captured operands; ffd_binpack_scenarios_cuda against its plain
+    # version and the serial oracle on small worlds; a fleet of 8 tenants
+    # at the 1024x32x8 bucket on the card and on the CPU (the CPU's in a
+    # worker begun at 3v); sharded_scaledown_step on a 1-device candidate
+    # mesh over 3m's candidates against 3m's passes
+    t0 = time.perf_counter()
+    held = loop_probe.hold_launches(fleet_out["captured"])
+    fleet_err = {}
+    for k, (name, shape, err, differ) in enumerate(held):
+        check(not differ, f"fleet 4q: batched launch {k} ({name} on {shape}): {differ} differ")
+        fleet_err[name] = max(fleet_err.get(name, 0.0), err)
+    held_small = fleet_probe.hold_scenarios(fleet_probe.small_worlds(), dev)
+    for h in held_small:
+        check(h["equal"], f"fleet 4q {h['label']}: {h['differ']}")
+        for name in h["route"]:
+            fleet_err[name] = max(fleet_err.get(name, 0.0), h["max_abs_err"])
+    check([h["route"] for h in held_small] == [["ffd_scan_swar"], ["ffd_scan_swar"],
+                                               ["ffd_scan_f32"]],
+          f"fleet 4q: small worlds' routes {[h['route'] for h in held_small]}")
+    card_view = fleet_probe.fleet_view(dev)
+    t_cpu, cpu_view = cpu_jobs.pop("fleet 4q").get(CPU_WAIT_S)
+    same = {key: card_view[key] == cpu_view[key] for key in ("answers", "record", "metrics")}
+    check(all(same.values()) and all(r["match_solo"] for r in card_view["record"]["tenants"]),
+          f"fleet 4q: the card's fleet differs from the CPU's: {same}")
+    from autoscaler_tpu_torch.ops.scaledown import joint_removal_feasibility
+    from autoscaler_tpu_torch.parallel.mesh import Mesh, sharded_scaledown_step
+
+    fn, (sd_snap, sd_cands, sd_slots, sd_blocked) = down_card["3m"]["loops"][-1]["dispatch_ops"]
+    sd_excluded = torch.zeros(sd_snap.node_valid.shape[0], dtype=torch.bool, device=dev)
+    sd_excluded[sd_cands.long()] = True
+    per, joint = sharded_scaledown_step(Mesh([dev], ("candidate",)), sd_snap, sd_cands,
+                                        sd_slots, sd_blocked, sd_excluded)
+    per_ref = fn(sd_snap, sd_cands, sd_slots, sd_blocked)
+    joint_ref = joint_removal_feasibility(sd_snap, sd_cands, sd_slots, sd_excluded)
+    check(all(torch.equal(a, b) for a, b in zip(per, per_ref))
+          and all(torch.equal(a, b) for a, b in zip(joint, joint_ref)),
+          "fleet 4q: sharded_scaledown_step differs from 3m's passes")
+    for entry in kernels:
+        entry["max_abs_err"] = max(entry["max_abs_err"], fleet_err.get(entry["name"], 0.0))
+        if entry["name"] == fleet_batch[0]:
+            entry["fleet_batch_ms"] = fleet_batch_ms
+            entry["fleet_batch_stream"] = list(fleet_batch[1][0].shape)
+    print(f"# fleet 4q: all {len(held)} batched launches of 3v equal their plain versions "
+          f"({[(n, s) for n, s, _, _ in held]}); small worlds "
+          f"{[(h['label'], h['route']) for h in held_small]} equal their plain versions and "
+          f"the oracle; the 1024x32x8 fleet on the card and the CPU equal {same} (CPU worker "
+          f"{t_cpu:.3f} s); sharded_scaledown_step over 3m's {int(sd_cands.shape[0])} "
+          f"candidates equal to its passes ({int(per.feasible.sum())} feasible, "
+          f"{int(joint.feasible.sum())} jointly); {time.perf_counter() - t0:.3f} s host clock",
+          flush=True)
+    del held, fleet_out, card_view, cpu_view
+    phase("4q the fleet's launches, small worlds, the CPU's fleet, the mesh's scale-down", t0)
+
     # 5a: what 3o's ticks left in the perf observatory (one record a tick,
     # /perfz's body) and the ladder's proof: since the process started, no
     # rung attempt of a card estimator faulted and no breaker changed state
@@ -1994,8 +2184,22 @@ def main() -> int:
           f"host rungs 5c: the host rungs did not serve: {rungs['native'][3]} "
           f"{rungs['python_ref'][3]}")
     del tenth, walk
-    watch.close()
     phase("5c the native and Python rungs against the cuda rung", t0)
+
+    # 5d: the fleet's fault walk on the card: faults injected on the
+    # coalescer's cuda rung for two batches fail their tickets with the
+    # error (no oracle rung serves) and open the breaker; a batch while it
+    # is open fails too; past the cooldown on the coalescer's injected
+    # clock one half-open probe serves and closes it
+    t0 = time.perf_counter()
+    fleet_walk = fleet_probe.fault_walk(dev)
+    bad = fleet_probe.walk_problems(fleet_walk)
+    print(f"# fleet fault walk 5d: {fleet_walk['steps']}; oracle batches "
+          f"{fleet_walk['oracle_batches']}, failed tickets {fleet_walk['failed_tickets']}",
+          flush=True)
+    check(fleet_walk["card"] and not bad, f"fleet fault walk 5d: {bad}")
+    watch.close()
+    phase("5d the fleet's fault walk on the card", t0)
 
     # where the burst estimate's time goes: the host operand build (mask
     # engine, packing) and the scan call on the card

@@ -565,11 +565,15 @@ def test_estimate_single_template_dynamic(cluster):
 
 
 def test_unported_expanders_raise():
-    """grpc is refused as not ported; preempt-churn is no expander name in
-    either package (the churn filter comes from the churn weight), so both
-    refuse it as unknown, alike."""
-    with pytest.raises(NotImplementedError):
-        texp.build_strategy(["grpc"])
+    """grpc without a target is refused with the JAX package's ValueError;
+    preempt-churn is no expander name in either package (the churn filter
+    comes from the churn weight), so both refuse it as unknown, alike."""
+    errors = []
+    for build in (jexp.build_strategy, texp.build_strategy):
+        with pytest.raises(ValueError) as err:
+            build(["grpc"])
+        errors.append(str(err.value))
+    assert errors == ["expander 'grpc' needs a target (--grpc-expander-url)"] * 2
     errors = []
     for build in (jexp.build_strategy, texp.build_strategy):
         with pytest.raises(ValueError) as err:

@@ -1166,3 +1166,62 @@ def test_preempt_estimate_serves_on_the_card_and_faults_raise(cuda):
     est.ladder.fault_hook = lambda rung: "kernel_fault" if rung == "torch" else None
     with pytest.raises(AutoscalerError):
         PreemptionEngine(est).plan(snap)
+
+
+# -- scenario batching: one K1/K2 launch for a batch of scenarios ------------
+
+
+@pytest.mark.parametrize("route", ["swar", "f32"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_batched_launch_matches_plain_version(cuda, seed, route):
+    """A batch of 4 scenarios (the last a padded zero slot, one cap-0
+    group) in one launch over S·G groups: the kernel's outputs equal its
+    plain version's on the same stream, the answers the torch loop's and
+    each scenario's solo launch."""
+    from autoscaler_tpu_torch.ops.binpack import ffd_binpack_scenarios
+
+    worlds = [_world(seed * 10 + s, route, P=120, G=6) for s in range(3)]
+    req = np.stack([w[0] for w in worlds] + [np.zeros_like(worlds[0][0])])
+    masks = np.stack([w[1] for w in worlds] + [np.zeros_like(worlds[0][1])])
+    allocs = np.stack([w[2] for w in worlds] + [np.zeros_like(worlds[0][2])])
+    caps = np.stack([w[3] for w in worlds] + [np.zeros_like(worlds[0][3])])
+    args = [torch.tensor(a, device=cuda) for a in (req, masks, allocs, caps)]
+    ops = ffd_scan.prepare_scenarios(*args[:3], 64, args[3])
+    assert (ops.plan is not None) == (route == "swar")
+    name = "ffd_scan_swar" if route == "swar" else "ffd_scan_f32"
+    before = ffd_scan.LAUNCHES[name]
+    got = ffd_scan.run_scan(ops)
+    torch.cuda.synchronize()
+    assert ffd_scan.LAUNCHES[name] == before + 1
+    plain = (ffd_scan._scan_plain_swar(ops.stream, ops.allocs, ops.caps, ops.guards, 64)
+             if ops.plan is not None else
+             ffd_scan._scan_plain_f32(ops.stream, ops.allocs, ops.caps, 64))
+    for a, b in zip(plain, got):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    res = ffd_scan.ffd_binpack_scenarios_cuda(*args[:3], 64, args[3])
+    loop = ffd_binpack_scenarios(*args[:3], max_nodes=64, scen_caps=args[3])
+    assert torch.equal(res.node_count, loop.node_count)
+    assert torch.equal(res.scheduled, loop.scheduled)
+    for s in range(4):
+        solo = ffd_scan.ffd_binpack_groups_cuda(args[0][s], args[1][s], args[2][s], 64, args[3][s])
+        assert_results_equal(solo, type(solo)(*(x[s] for x in res)))
+
+
+def test_fleet_serves_each_batch_in_one_launch(cuda):
+    """A coalescer on the card: every ticket on rung cuda's route, one
+    K1/K2 launch a batch, each answer byte-equal to its solo dispatch."""
+    from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
+    from autoscaler_tpu_torch.parallel.mesh import FLEET_ROUTES
+    from autoscaler_tpu_torch.tools import fleet_probe
+
+    reqs = fleet_probe.fleet_tenants(0, 6, pods=(20, 60), groups=(2, 8), adhoc=(90, 10))
+    co = fleet_probe.coalescer(cuda, buckets="64x8x8", batch=4, metrics=AutoscalerMetrics())
+    before = dict(ffd_scan.LAUNCHES), dict(FLEET_ROUTES)
+    answers, admitted = fleet_probe.submit_flush(co, reqs)
+    launched = sum(ffd_scan.LAUNCHES[k] - before[0][k] for k in ffd_scan.LAUNCHES)
+    batches = int(sum(co.metrics.fleet_batches_total.values.values()))
+    assert batches == 3 and launched == batches == FLEET_ROUTES["cuda"] - before[1]["cuda"]
+    record = fleet_probe.round_record(co, reqs, answers, admitted,
+                                      lambda r: fleet_probe.solo(r, cuda))
+    assert [a.route for a in answers] == ["fleet_batched"] * len(reqs)
+    assert all(row["match_solo"] for row in record["tenants"])

@@ -606,3 +606,98 @@ def test_preemption_entry_points_raise_without_a_card(monkeypatch):
         preempt_probe.hold_plain(preempt_probe.storm_worlds(1))
     with pytest.raises(RuntimeError, match="CUDA"):
         replay_tick(state, record)
+
+
+# the serving paths and scenario batching: the mesh, the scenario expander,
+# the fleet, the estimator's fleet client, the sidecar and the grpc expander,
+# each at its JAX counterpart's path
+SERVING_MODULES = (
+    "parallel/__init__.py", "parallel/mesh.py", "expander/scenario.py", "expander/grpc_.py",
+    "fleet/__init__.py", "fleet/admission.py", "fleet/balance.py", "fleet/coalescer.py",
+    "fleet/errors.py", "fleet/ledger.py", "fleet/tiers.py", "gym/__init__.py", "gym/env.py",
+    "rpc/service.py", "rpc/__main__.py", "rpc/fleet_pb2.py",
+)
+# the card's machine has no grpc or protobuf: of the serving paths only the
+# sidecar, its wire module and the grpc expander may import them
+GRPC_MODULES = ("rpc/service.py", "rpc/fleet_pb2.py", "rpc/autoscaler_pb2.py",
+                "rpc/refcompat.py", "cloudprovider/external_grpc.py", "expander/grpc_.py")
+
+
+def test_serving_modules_are_ported():
+    for rel in SERVING_MODULES:
+        assert (PORT / rel).is_file(), rel
+        assert (REPO / "autoscaler_tpu" / rel).is_file(), rel
+        assert f"autoscaler_tpu_torch/{rel}" in PORT_FILES
+    assert "autoscaler_tpu_torch/tools/fleet_probe.py" in PORT_FILES
+
+
+@pytest.mark.parametrize("path", [p for p in PORT_FILES if p.startswith("autoscaler_tpu_torch/")])
+def test_grpc_imported_only_by_the_wire_modules(path):
+    rel = path[len("autoscaler_tpu_torch/"):]
+    tree = ast.parse((REPO / path).read_text(encoding="utf-8"), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if n == "grpc" or n.startswith(("grpc.", "google.protobuf"))]
+        assert not bad or rel in GRPC_MODULES, f"{path}:{node.lineno} imports {bad}"
+
+
+_SERVING_BLOCKED = r"""
+import sys
+for name in ("jax", "jaxlib", "grpc", "google.protobuf", "yaml"):
+    sys.modules[name] = None
+import numpy as np, torch
+from autoscaler_tpu_torch.estimator.binpacking import BinpackingNodeEstimator
+from autoscaler_tpu_torch.expander.core import Option
+from autoscaler_tpu_torch.expander.scenario import ScenarioStrategy
+from autoscaler_tpu_torch.fleet import FleetCoalescer
+from autoscaler_tpu_torch.gym.env import FleetEstimatorClient
+from autoscaler_tpu_torch.parallel.mesh import make_mesh, whatif_best_options
+from autoscaler_tpu_torch.tools import fleet_probe
+from autoscaler_tpu_torch.utils.test_utils import GB, build_test_node, build_test_pod
+co = FleetCoalescer(buckets="32x8x8", batch_scenarios=4, device="cpu")
+reqs = fleet_probe.fleet_tenants(0, 3, pods=(8, 24), groups=(2, 6), adhoc=None)
+answers, record = fleet_probe.serve_round(co, reqs, lambda r: fleet_probe.solo(r, "cpu"))
+mesh = make_mesh(["cpu"] * 4)
+req = reqs[0]
+ops = fleet_probe.whatif_operands(req.pod_req, req.pod_masks[:2], req.template_allocs[:2],
+                                  req.node_caps[:2], S=4)
+res = whatif_best_options(mesh, *(torch.tensor(a) for a in ops), max_nodes=16)
+class Group:
+    def __init__(self, name, t): self.name, self.t = name, t
+    def id(self): return self.name
+    def template_node_info(self): return self.t
+    def max_size(self): return 10
+    def target_size(self): return 0
+pods = [build_test_pod(f"p{i}", cpu_m=1000, mem=1 * GB) for i in range(4)]
+opts = [Option(Group(g, build_test_node(g, cpu_m=4000, mem=8 * GB)), 2, pods) for g in ("a", "b")]
+best = ScenarioStrategy({"a": 0.5, "b": 5.0}, mesh=make_mesh(["cpu"])).best_option(opts)
+co.start()
+est = BinpackingNodeEstimator(device="cpu", fleet_client=FleetEstimatorClient(co, "t"))
+lane = est.estimate_many(pods, {"a": opts[0].node_group.t})
+co.stop()
+loaded = [m for m, mod in sys.modules.items() if mod is not None and (
+    m == "autoscaler_tpu" or m.startswith(("autoscaler_tpu.", "grpc", "google.protobuf", "yaml")))]
+assert not loaded, loaded
+print("OK", [a.route for a in answers], all(r["match_solo"] for r in record["tenants"]),
+      res.node_counts.shape[0], best.node_group.id(), lane["a"][0])
+"""
+
+
+def test_serving_paths_run_without_jax_grpc_protobuf_or_yaml():
+    """As on the card's machine: with jax, grpc, protobuf and yaml blocked,
+    the coalescer serves a round, the what-if runs on a 4-slot mesh, the
+    scenario expander chooses and the estimator's fleet lane estimates,
+    all on the CPU."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVING_BLOCKED], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == (
+        "OK ['fleet_batched', 'fleet_batched', 'fleet_batched'] True 4 a 1"), proc.stdout

@@ -431,15 +431,32 @@ def test_orchestrator_threads_the_observatory_and_ladder(with_metrics):
 
 @pytest.mark.parametrize("name", ["grpc", "preempt-churn"])
 def test_unported_expanders_raise(name):
-    """grpc is still refused, naming its ROADMAP item. preempt-churn is no
-    expander name in either package (the churn filter is built from
-    --preemption-churn-weight): both refuse it as unknown, alike."""
+    """grpc builds as in the JAX package: against a live sidecar (the
+    JAX package's) both orchestrators build the GRPCFilter and scale up the
+    same group. preempt-churn is no expander name in either package (the
+    churn filter is built from --preemption-churn-weight): both refuse it
+    as unknown, alike."""
     if name == "grpc":
-        provider = make_provider(TORCH, [("g", 0, 5, 0, 1000, 2 * GB)])
-        opts = topts.AutoscalingOptions(expander=name)
-        with pytest.raises(NotImplementedError, match="not ported.*ROADMAP queue 1 item"):
-            torch_orch.ScaleUpOrchestrator(provider, opts, treg.ClusterStateRegistry(provider, opts),
-                                           device="cpu")
+        pytest.importorskip("grpc")
+        from autoscaler_tpu.rpc.service import serve
+
+        server, port = serve("127.0.0.1:0")
+        try:
+            decided = []
+            for k in (JAX, TORCH):
+                provider = make_provider(k, [("few", 0, 5, 0, 1000, 2 * GB),
+                                             ("many", 0, 5, 0, 4000, 8 * GB)])
+                opts = k.opts.AutoscalingOptions(expander=name,
+                                                 grpc_expander_url=f"127.0.0.1:{port}")
+                orch = orchestrator(k, provider, opts, k.reg.ClusterStateRegistry(provider, opts))
+                res = orch.scale_up([k.tu.build_test_pod(f"p{i}", cpu_m=900) for i in range(4)],
+                                    [], 1.0)
+                decided.append(([type(f).__name__ for f in orch.expander.filters],
+                                res.scaled_up, res.chosen_group, res.new_nodes))
+        finally:
+            server.stop(0)
+        assert decided[0] == decided[1]
+        assert decided[1][0] == ["GRPCFilter"] and decided[1][1]
         return
     errors = []
     for k in (JAX, TORCH):

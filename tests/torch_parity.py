@@ -543,3 +543,88 @@ def aff_smem(R, TP, S, max_nodes):
     """A stand-in for K3's shared memory: its carry grows with R, the term
     planes and the spread terms over the nodes."""
     return 4 * (R + 2 * TP + S) * max_nodes
+
+
+# -- the JAX package's own test cases, run on the port ----------------------------
+
+_JAX_PKG, _PORT_PKG = "autoscaler_tpu", "autoscaler_tpu_torch"
+# label values of the JAX package that the port names for its card
+PORT_CONSTS = {"xla": "torch", "pallas": "cuda", "not_tpu": "not_cuda", "vmem": "smem"}
+
+
+def _port_name(name):
+    if name == _JAX_PKG or name.startswith(_JAX_PKG + "."):
+        return _PORT_PKG + name[len(_JAX_PKG):]
+    return name
+
+
+def _port_code(code):
+    """A code object with the JAX package's label constants renamed
+    (``PORT_CONSTS``) and its ``autoscaler_tpu.*`` imports pointed at the
+    port, nested code (lambdas, comprehensions) included."""
+    import types
+
+    consts = tuple(
+        _port_code(c) if isinstance(c, types.CodeType)
+        else PORT_CONSTS.get(c, c) if isinstance(c, str) else c
+        for c in code.co_consts
+    )
+    names = tuple(_port_name(n) if "." in n or n == _JAX_PKG else n for n in code.co_names)
+    return code.replace(co_consts=consts, co_names=names)
+
+
+class Rebound:
+    """A JAX package test module whose functions run on the port: every
+    global that names a JAX package module, class or function is the
+    port's namesake, the module's own functions and classes are rebuilt on
+    those globals, and each function's code has its label constants and
+    local imports ported (``_port_code``). ``case(name)`` → a callable of the test
+    ``name`` ("test_x" or "TestClass.test_x") taking the test's fixtures."""
+
+    def __init__(self, module):
+        self.module = module
+        self.globals = dict(module.__dict__)
+        for key, value in list(self.globals.items()):
+            self.globals[key] = self._port(value)
+
+    def _port(self, value):
+        import importlib
+        import types
+
+        if isinstance(value, types.ModuleType):
+            name = _port_name(value.__name__)
+            return importlib.import_module(name) if name != value.__name__ else value
+        if isinstance(value, types.FunctionType) and value.__module__ == self.module.__name__:
+            return self.function(value)
+        if isinstance(value, type) and value.__module__ == self.module.__name__:
+            return self.cls(value)
+        mod = getattr(value, "__module__", None)
+        if isinstance(mod, str) and _port_name(mod) != mod and hasattr(value, "__qualname__"):
+            target = importlib.import_module(_port_name(mod))
+            for part in value.__qualname__.split("."):
+                target = getattr(target, part)
+            return target
+        return value
+
+    def function(self, fn):
+        import types
+
+        new = types.FunctionType(_port_code(fn.__code__), self.globals, fn.__name__,
+                                 fn.__defaults__, fn.__closure__)
+        new.__kwdefaults__ = fn.__kwdefaults__
+        return new
+
+    def cls(self, cls):
+        """The module's class ``cls`` with every method rebuilt."""
+        import types
+
+        body = {k: self.function(v) if isinstance(v, types.FunctionType) else v
+                for k, v in cls.__dict__.items() if k not in ("__dict__", "__weakref__")}
+        return type(cls.__name__, cls.__bases__, body)
+
+    def case(self, name):
+        if "." in name:
+            cls_name, meth = name.split(".")
+            cls = self.globals[cls_name]
+            return lambda **fixtures: getattr(cls(), meth)(**fixtures)
+        return self.globals[name]
