@@ -98,9 +98,9 @@ class AutoscalingOptions:
     # full span tree logged and the trace pinned in the ring (survives ring
     # eviction). 0 disables.
     trace_slow_tick_threshold_s: float = 2.0
-    # when set, each tick captures a jax profiler session into
-    # <dir>/tick_<id> — device timeline keyed by the same tick id as the
-    # host trace (--jax-profiler-dir; debug tool, off by default)
+    # when set, each tick captures a torch.profiler session into
+    # <dir>/tick_<id>/trace.json — device timeline keyed by the same tick id
+    # as the host trace (--jax-profiler-dir; debug tool, off by default)
     jax_profiler_dir: str = ""
 
     # -- perf observatory (autoscaler_tpu/perf) ------------------------------

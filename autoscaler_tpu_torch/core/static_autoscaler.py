@@ -29,9 +29,10 @@ and every dispatch of the tick, under a ``perfRecord`` span.
 With ``preemption_enabled`` the tick plans priority-aware evictions on the
 snapshot (``preempt/``, the estimator's ``torch_preempt`` route) before
 scale-up and evicts, after it, the victims of the admitted pods whose
-capacity the scale-up does not bring. Not ported yet, and refused with
-``NotImplementedError`` naming the ROADMAP item, never skipped silently:
-``jax_profiler_dir`` (the profiling item: ``trace/device.py``).
+capacity the scale-up does not bring. With ``jax_profiler_dir`` (the flag
+keeps the JAX package's name) each tick runs under a torch.profiler
+session exported into ``<dir>/tick_<id>/`` (``trace/device.py``), keyed by
+the tick's trace id.
 """
 from __future__ import annotations
 
@@ -115,7 +116,6 @@ class StaticAutoscaler:
         from autoscaler_tpu_torch.processors.pipeline import default_processors
 
         self.options = options or AutoscalingOptions()
-        _refuse_unported(self.options)
         self.device = resolve_device(device)
         self.provider = provider
         self.api = api
@@ -318,7 +318,7 @@ class StaticAutoscaler:
             # rate derived from it) replay byte-identically
             slo_t0 = trace.timeline_now()
             try:
-                result = self._run_once_traced(now_ts)
+                result = self._run_once_traced(now_ts, root)
             finally:
                 # finalize even when the tick crashed (the crash-only loop
                 # catches outside): the ledgers stay gap-free, and the
@@ -367,11 +367,35 @@ class StaticAutoscaler:
             )
             return result
 
-    def _run_once_traced(self, now_ts: float) -> RunOnceResult:
+    def _run_once_traced(self, now_ts: float, root) -> RunOnceResult:
         m = self.metrics
+        # optional device-timeline capture keyed by the host trace's tick id
+        # (--jax-profiler-dir): the profiler session directory and the
+        # flight-recorder trace share the id, so "why was tick 8124 slow"
+        # has both the host span tree and the device profile
+        profiling = False
+        tick_id = int(root.attrs.get("trace_id", 0))
+        if self.options.jax_profiler_dir:
+            from autoscaler_tpu_torch.trace.device import start_profiler_session
+
+            profiling = start_profiler_session(
+                self.options.jax_profiler_dir, tick_id
+            )
         try:
-            result = self._run_once_inner(now_ts)
+            if profiling:
+                # mark the tick as one profiler "step": profiler UIs group
+                # the captured device activity per tick
+                from autoscaler_tpu_torch.trace.device import step_annotation
+
+                with step_annotation("run_once", tick_id):
+                    result = self._run_once_inner(now_ts)
+            else:
+                result = self._run_once_inner(now_ts)
         finally:
+            if profiling:
+                from autoscaler_tpu_torch.trace.device import stop_profiler_session
+
+                stop_profiler_session()
             # status ConfigMap write mirrors the reference's defer
             # (static_autoscaler.go:387-393 + clusterstate.go:701): it must
             # run on EVERY exit path — unhealthy-cluster and error returns
@@ -1120,20 +1144,3 @@ class StaticAutoscaler:
                     self.metrics.errors_total.inc(
                         type=err2.error_type.value
                     )
-
-
-def _refuse_unported(options: AutoscalingOptions) -> None:
-    """Raise for every option the port cannot honour yet, naming its
-    ROADMAP item: nothing is skipped silently."""
-    asked = [
-        (name, item)
-        for name, on, item in (
-            ("jax_profiler_dir", bool(options.jax_profiler_dir),
-             "queue 1, the profiling item: trace/device.py"),
-        )
-        if on
-    ]
-    if asked:
-        raise NotImplementedError(
-            "; ".join(f"{name}: not ported yet (ROADMAP {item})" for name, item in asked)
-        )

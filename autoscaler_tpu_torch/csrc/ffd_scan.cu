@@ -18,7 +18,9 @@
 // ops/pallas_binpack.py:201-212). A node at or past the cap can never be
 // placed on, so the search stops at lim = min(opened, min(cap, M) - 1).
 // Outputs: free [G, NP, M], opened [G] and placed [G, P_pad] (one byte a
-// step).
+// step), and, when the caller passes it, node_of [G, P_pad]: the node each
+// step's pod took, -1 where it was not placed (the batched route sums the
+// usage from it in pod order, as the XLA scan does; null skips the write).
 //
 // What bounds it on this card. Not bytes: the stream is read once (0.4 GB
 // at the headline shape, ~0.12 ms at 3.35 TB/s), and not the node tests'
@@ -140,6 +142,7 @@ __global__ void __launch_bounds__(kThreads) ffd_scan_kernel(
     typename Fit::T* __restrict__ free_out,      // [G, NP, M]
     int32_t* __restrict__ opened_out,            // [G]
     uint8_t* __restrict__ placed_out,            // [G, P_pad]
+    int32_t* __restrict__ node_of_out,           // [G, P_pad] or null
     int P_pad, int NP, int M) {
   using T = typename Fit::T;
   const int NB = (M + kWarp - 1) / kWarp;
@@ -189,6 +192,7 @@ __global__ void __launch_bounds__(kThreads) ffd_scan_kernel(
     cp_async_commit();
     const T* reqs = req_s + buf * kSteps * NP;
     uint8_t my_placed = 0;
+    int my_node = -1;
     for (int s = 0; s < kSteps; ++s) {
       const T* req = reqs + s * NP;
       int first = kNoNode;
@@ -254,8 +258,12 @@ __global__ void __launch_bounds__(kThreads) ffd_scan_kernel(
         __syncthreads();   // the placement seen by all before the next step
       }
       if (lane == s) my_placed = place ? 1 : 0;
+      if (lane == s) my_node = place ? first : -1;
     }
     if (warp == 0) gplaced[base + lane] = my_placed;
+    if (warp == 0 && node_of_out) {
+      node_of_out[(size_t)g * P_pad + base + lane] = my_node;
+    }
   }
 
   __syncthreads();
@@ -276,8 +284,8 @@ size_t smem_bytes(int NP, int M) {
 template <typename Fit>
 int launch(const void* stream, const void* allocs, const void* caps,
            const void* guards, void* free_out, void* opened_out,
-           void* placed_out, int G, int P_pad, int NP, int M,
-           void* cuda_stream) {
+           void* placed_out, void* node_of_out, int G, int P_pad, int NP,
+           int M, void* cuda_stream) {
   using T = typename Fit::T;
   static_assert(sizeof(T) == 4, "smem_bytes counts 4-byte words");
   if (G <= 0 || NP <= 0 || M <= 0 || P_pad < 0 || P_pad % kSteps != 0) {
@@ -292,7 +300,8 @@ int launch(const void* stream, const void* allocs, const void* caps,
       static_cast<const T*>(stream), static_cast<const T*>(allocs),
       static_cast<const int32_t*>(caps), static_cast<const int32_t*>(guards),
       static_cast<T*>(free_out), static_cast<int32_t*>(opened_out),
-      static_cast<uint8_t*>(placed_out), P_pad, NP, M);
+      static_cast<uint8_t*>(placed_out), static_cast<int32_t*>(node_of_out),
+      P_pad, NP, M);
   return (int)cudaGetLastError();
 }
 
@@ -304,18 +313,21 @@ extern "C" {
 int ffd_scan_smem_bytes(int NP, int M) { return (int)smem_bytes(NP, M); }
 
 int ffd_scan_f32(const void* stream, const void* allocs, const void* caps,
-                 void* free_out, void* opened_out, void* placed_out, int G,
-                 int P_pad, int NP, int M, void* cuda_stream) {
+                 void* free_out, void* opened_out, void* placed_out,
+                 void* node_of_out, int G, int P_pad, int NP, int M,
+                 void* cuda_stream) {
   return launch<F32Fit>(stream, allocs, caps, nullptr, free_out, opened_out,
-                        placed_out, G, P_pad, NP, M, cuda_stream);
+                        placed_out, node_of_out, G, P_pad, NP, M,
+                        cuda_stream);
 }
 
 int ffd_scan_swar(const void* stream, const void* allocs, const void* caps,
                   const void* guards, void* free_out, void* opened_out,
-                  void* placed_out, int G, int P_pad, int NP, int M,
-                  void* cuda_stream) {
+                  void* placed_out, void* node_of_out, int G, int P_pad,
+                  int NP, int M, void* cuda_stream) {
   return launch<SwarFit>(stream, allocs, caps, guards, free_out, opened_out,
-                         placed_out, G, P_pad, NP, M, cuda_stream);
+                         placed_out, node_of_out, G, P_pad, NP, M,
+                         cuda_stream);
 }
 
 }  // extern "C"

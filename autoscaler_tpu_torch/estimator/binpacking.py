@@ -137,6 +137,7 @@ from autoscaler_tpu_torch.ops.binpack import (
 )
 from autoscaler_tpu_torch.ops.preempt import SchedRows, ffd_binpack_preempt
 from autoscaler_tpu_torch.ops.telemetry import kernel_observer
+from autoscaler_tpu_torch.trace.device import device_annotation
 from autoscaler_tpu_torch.perf import PerfObservatory, default_peak_flops
 from autoscaler_tpu_torch.snapshot.affinity import (
     SpreadTermTensors,
@@ -1221,7 +1222,7 @@ class BinpackingNodeEstimator:
         )
 
     def _dispatch(self, label: str, fn, sp):
-        """Run one rung under a ``torch.profiler.record_function`` named
+        """Run one rung under a ``device_annotation`` (a torch.profiler range) named
         after the route (the span's name on a captured profile; free when
         no profiler runs) and hand the dispatch to the perf observatory,
         which records the compile-vs-execute split per (route, shape
@@ -1236,7 +1237,7 @@ class BinpackingNodeEstimator:
         obs.clear_pending()
         t0 = trace.timeline_now()
         with kernel_observer(obs.note_kernel):
-            with torch.profiler.record_function(f"autoscaler/estimator/{label}"):
+            with device_annotation(f"autoscaler/estimator/{label}"):
                 out = fn()
         obs.on_dispatch(label, trace.timeline_now() - t0, span=sp)
         return out

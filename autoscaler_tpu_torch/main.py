@@ -269,9 +269,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "full span tree logged and the trace pinned in the "
                         "flight recorder; 0 disables")
     p.add_argument("--jax-profiler-dir", default="",
-                   help="capture a jax profiler session per tick into "
-                        "<dir>/tick_<id> — device timeline keyed by the "
-                        "same tick id as the host trace (debug tool)")
+                   help="capture a torch.profiler session per tick into "
+                        "<dir>/tick_<id>/trace.json (Chrome trace) — device "
+                        "timeline keyed by the same tick id as the host "
+                        "trace (debug tool; named as in the JAX package)")
     p.add_argument("--perf-enabled", type=_bool_flag, default=True,
                    help="serve /perfz (per-tick perf records: compile "
                         "telemetry, cost model, residency; the observatory "

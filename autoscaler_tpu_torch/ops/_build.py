@@ -44,8 +44,8 @@ _INT = ctypes.c_int
 # C signatures of the entry points, per source
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "ffd_scan": {
-        "ffd_scan_f32": [_VOID_P] * 6 + [_INT] * 4 + [_VOID_P],
-        "ffd_scan_swar": [_VOID_P] * 7 + [_INT] * 4 + [_VOID_P],
+        "ffd_scan_f32": [_VOID_P] * 7 + [_INT] * 4 + [_VOID_P],
+        "ffd_scan_swar": [_VOID_P] * 8 + [_INT] * 4 + [_VOID_P],
         "ffd_scan_smem_bytes": [_INT, _INT],
     },
     "ffd_scan_affinity": {

@@ -22,8 +22,13 @@ the same glue:
   the same order puts the placement bits back in pod order.
 
 ``ffd_binpack_scenarios_cuda`` serves a batch of S independent
-scenarios (the fleet's coalesced tenants, each with its own pod matrix)
+scenarios (the fleet's coalescer's tenants, each with its own pod matrix)
 the same way, flattened to S·G groups in ONE launch (``prepare_scenarios``).
+Its twin is the XLA scan, which sums each node's placed requests in f32 in
+pod order; so this route asks the kernel for the node each pod took
+(``node_of``) and sums the requests the same way (``summed_node_used``),
+where the solo route reads the usage back as alloc − free, as its Pallas
+twin does.
 
 The scan itself is ``ffd_scan_f32`` (K1) or ``ffd_scan_swar`` (K2). For a
 tensor on a CUDA card each launches its kernel from ``csrc/ffd_scan.cu``
@@ -49,6 +54,7 @@ from autoscaler_tpu_torch.ops.binpack import (
     score_order,
 )
 from autoscaler_tpu_torch.ops.telemetry import observed
+from autoscaler_tpu_torch.trace.device import device_annotation
 
 BIG_I32 = 2**31 - 1
 STEP_BLOCK = 32  # the kernels stage 32 steps at a time: P pads to a multiple
@@ -168,6 +174,8 @@ class ScanOperands(NamedTuple):
     keep: List[int]          # resource axes kept by the compression
     allocs_kept: torch.Tensor  # [G, R_k] f32, clamped — for node_used
     num_resources: int       # R before compression
+    rows: torch.Tensor       # [N, R] f32, the request rows as given
+    rows_of: torch.Tensor    # [G, P] int64: group g's s-th pod is rows[rows_of[g, s]]
 
 
 def _check_operands(pod_req, pod_masks, template_allocs, node_caps):
@@ -305,6 +313,7 @@ def _build_operands(rows, rows_of, order, pod_masks, template_allocs, caps,
     dev = rows.device
     R_full = rows.shape[1]
     G, P = pod_masks.shape
+    full_rows = rows
     allocs = clamp_inf_allocs(rows, template_allocs)
     if scan_plan is None:
         scan_plan = plan_scan(rows, template_allocs)
@@ -343,6 +352,8 @@ def _build_operands(rows, rows_of, order, pod_masks, template_allocs, caps,
         keep=keep,
         allocs_kept=allocs,
         num_resources=R_full,
+        rows=full_rows,
+        rows_of=rows_of,
     )
 
 
@@ -352,7 +363,8 @@ def _build_operands(rows, rows_of, order, pod_masks, template_allocs, caps,
 SEARCH_CHUNK = 512  # steps whose search the plain version counts at once
 
 
-def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats, block_max):
+def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats, block_max,
+                node_of=False):
     """The kernels' step loop in PyTorch, vectorized over groups and nodes.
     Every node is tested each step; closed nodes all hold free == alloc, so
     the min lands on node `opened` exactly when the kernel's bounded test
@@ -372,7 +384,9 @@ def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats, block_max
     ``block_max`` gives the block summaries of a carry: the kernels keep
     each summary exact at every step (refreshed on every placement in its
     block), so the plain version takes them afresh from the carry before
-    each step, and counts the search SEARCH_CHUNK steps at a time."""
+    each step, and counts the search SEARCH_CHUNK steps at a time. With
+    ``node_of`` it also returns the node each step's pod took (-1 where it
+    was not placed), as the kernels write it when asked."""
     G, P_pad, NP = stream.shape
     dev = stream.device
     M = max_nodes
@@ -381,6 +395,7 @@ def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats, block_max
     node_ids = torch.arange(M, dtype=torch.int32, device=dev)
     rows = torch.arange(G, device=dev)
     placed = torch.zeros((G, P_pad), dtype=torch.bool, device=dev)
+    nodes = torch.full((G, P_pad), -1, dtype=torch.int32, device=dev) if node_of else None
     tests = torch.zeros((), dtype=torch.int64, device=dev)
     if stats is not None:
         NB = -(-M // NODE_BLOCK)
@@ -417,6 +432,8 @@ def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats, block_max
         free[rows, :, tgt] = torch.where(place[:, None], cur - req, cur)
         opened = torch.maximum(opened, torch.where(place, first + 1, 0))
         placed[:, s] = place
+        if nodes is not None:
+            nodes[:, s] = torch.where(place, first, -1)
         if stats is not None:
             lim = torch.clamp(opened, max=M - 1)
             need = torch.where(first < BIG_I32, first, lim) + 1
@@ -431,6 +448,8 @@ def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats, block_max
         # the kernels end with their slowest group: its share of the work
         for key, n in zip(keys[1:], work[1:].amax(dim=1).tolist()):
             stats[f"max_group_{key}"] = max(stats.get(f"max_group_{key}", 0), n)
+    if nodes is not None:
+        return free, opened, placed, nodes
     return free, opened, placed
 
 
@@ -513,18 +532,20 @@ def _fit_f32(free, req):
     return req[:, :, None] <= free
 
 
-def _scan_plain_f32(stream, allocs, caps, max_nodes, stats=None):
+def _scan_plain_f32(stream, allocs, caps, max_nodes, stats=None, node_of=False):
     """Plain version of K1 on K1's exact operands → (free [G, NP, M] f32,
-    opened [G] i32, placed [G, P_pad] bool)."""
+    opened [G] i32, placed [G, P_pad] bool), and node_of [G, P_pad] i32
+    when asked."""
     inactive = torch.full(
         (stream.shape[2],), float("inf"), dtype=torch.float32, device=stream.device
     )
     return _scan_plain(
-        stream, allocs, caps, max_nodes, _fit_f32, inactive, stats, _f32_block_max
+        stream, allocs, caps, max_nodes, _fit_f32, inactive, stats, _f32_block_max,
+        node_of,
     )
 
 
-def _scan_plain_swar(stream, allocs, caps, guards, max_nodes, stats=None):
+def _scan_plain_swar(stream, allocs, caps, guards, max_nodes, stats=None, node_of=False):
     """Plain version of K2 on K2's exact operands, in int32 bit arithmetic:
     z = (free | guard) - req borrows out of exactly the fields where
     free < req, clearing their guard bits."""
@@ -535,7 +556,8 @@ def _scan_plain_swar(stream, allocs, caps, guards, max_nodes, stats=None):
 
     # the sentinel sets every field to its guard bit: the guards ARE the row
     block_max = _swar_block_max(guards) if stats is not None else None
-    return _scan_plain(stream, allocs, caps, max_nodes, fit, guards, stats, block_max)
+    return _scan_plain(stream, allocs, caps, max_nodes, fit, guards, stats, block_max,
+                       node_of)
 
 
 def _check_kernel_operands(stream, allocs, caps, guards, max_nodes, dtype):
@@ -559,22 +581,27 @@ def _check_kernel_operands(stream, allocs, caps, guards, max_nodes, dtype):
         )
 
 
-def _launch(name, stream, allocs, caps, guards, max_nodes):
+def _launch(name, stream, allocs, caps, guards, max_nodes, node_of=False):
     G, P_pad, NP = stream.shape
     dev = stream.device
     free = torch.empty((G, NP, max_nodes), dtype=stream.dtype, device=dev)
     opened = torch.empty((G,), dtype=torch.int32, device=dev)
     placed = torch.empty((G, P_pad), dtype=torch.uint8, device=dev)
+    nodes = torch.empty((G, P_pad), dtype=torch.int32, device=dev) if node_of else None
     lib = _build.load("ffd_scan")
-    with torch.cuda.device(dev):
+    # the range names the kernel on a captured profile (trace/device.py)
+    with torch.cuda.device(dev), device_annotation(name):
         cuda_stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = [stream.data_ptr(), allocs.data_ptr(), caps.data_ptr()]
         if guards is not None:
             ptrs.append(guards.data_ptr())
-        ptrs += [free.data_ptr(), opened.data_ptr(), placed.data_ptr()]
+        ptrs += [free.data_ptr(), opened.data_ptr(), placed.data_ptr(),
+                 nodes.data_ptr() if nodes is not None else None]
         err = getattr(lib, name)(*ptrs, G, P_pad, NP, max_nodes, cuda_stream)
     _build.check(err, name)
     LAUNCHES[name] += 1
+    if nodes is not None:
+        return free, opened, placed.view(torch.bool), nodes
     return free, opened, placed.view(torch.bool)
 
 
@@ -584,39 +611,78 @@ def smem_bytes(planes: int, max_nodes: int) -> int:
     return int(_build.load("ffd_scan").ffd_scan_smem_bytes(planes, max_nodes))
 
 
-def ffd_scan_f32(stream, allocs, caps, max_nodes):
+def ffd_scan_f32(stream, allocs, caps, max_nodes, node_of=False):
     """K1: the f32 scan. CUDA tensors launch the kernel; CPU tensors run
-    the plain version."""
+    the plain version. ``node_of`` adds the node each pod took."""
     if stream.device.type == "cpu":
-        return _scan_plain_f32(stream, allocs, caps, max_nodes)
+        return _scan_plain_f32(stream, allocs, caps, max_nodes, node_of=node_of)
     _check_kernel_operands(stream, allocs, caps, None, max_nodes, torch.float32)
-    return _launch("ffd_scan_f32", stream, allocs, caps, None, max_nodes)
+    return _launch("ffd_scan_f32", stream, allocs, caps, None, max_nodes, node_of)
 
 
-def ffd_scan_swar(stream, allocs, caps, guards, max_nodes):
+def ffd_scan_swar(stream, allocs, caps, guards, max_nodes, node_of=False):
     """K2: the SWAR scan. CUDA tensors launch the kernel; CPU tensors run
-    the plain version."""
+    the plain version. ``node_of`` adds the node each pod took."""
     if stream.device.type == "cpu":
-        return _scan_plain_swar(stream, allocs, caps, guards, max_nodes)
+        return _scan_plain_swar(stream, allocs, caps, guards, max_nodes, node_of=node_of)
     _check_kernel_operands(stream, allocs, caps, guards, max_nodes, torch.int32)
-    return _launch("ffd_scan_swar", stream, allocs, caps, guards, max_nodes)
+    return _launch("ffd_scan_swar", stream, allocs, caps, guards, max_nodes, node_of)
 
 
-def run_scan(ops: ScanOperands):
+def run_scan(ops: ScanOperands, node_of=False):
     """The scan on prepared operands → (free [G, NP, M], opened [G],
-    placed [G, P_pad] bool), through K2 on the SWAR route, else K1."""
+    placed [G, P_pad] bool), and node_of [G, P_pad] i32 when asked,
+    through K2 on the SWAR route, else K1."""
+    kw = {"node_of": True} if node_of else {}
     if ops.plan is not None:
-        return ffd_scan_swar(ops.stream, ops.allocs, ops.caps, ops.guards, ops.max_nodes)
-    return ffd_scan_f32(ops.stream, ops.allocs, ops.caps, ops.max_nodes)
+        return ffd_scan_swar(ops.stream, ops.allocs, ops.caps, ops.guards, ops.max_nodes, **kw)
+    return ffd_scan_f32(ops.stream, ops.allocs, ops.caps, ops.max_nodes, **kw)
 
 
-def finish_scan(ops: ScanOperands, free, opened, placed) -> BinpackResult:
+def summed_node_used(ops: ScanOperands, node_of: torch.Tensor) -> torch.Tensor:
+    """node_used [G, M, R] f32 as the XLA scan computes it: each node's
+    placed requests added in f32, in the group's score order. The k-th pod
+    placed on a node is added in pass k, so a pass adds at most one pod to
+    a node: as many passes as the most pods on one node, no atomics."""
+    G, P = ops.rows_of.shape
+    M, R = ops.max_nodes, ops.num_resources
+    dev = node_of.device
+    nodes = node_of[:, :P].long()                                   # [G, P]
+    placed = nodes >= 0
+    # rank of each pod among the earlier pods on its node: sort by node
+    # (stably, so score order holds within a node), minus the run's start
+    key = torch.where(placed, nodes, M)
+    sorted_key, perm = torch.sort(key, dim=1, stable=True)
+    start = torch.searchsorted(sorted_key, sorted_key, side="left")
+    rank = torch.empty_like(perm)
+    rank.scatter_(1, perm, torch.arange(P, device=dev).expand(G, P) - start)
+    flat = torch.nonzero(placed.flatten()).squeeze(1)               # placed pods
+    by_rank = flat[torch.sort(rank.flatten()[flat], stable=True).indices]
+    counts = torch.bincount(rank.flatten()[flat]).tolist() if flat.numel() else []
+    target = (by_rank // P) * M + nodes.flatten()[by_rank]           # g·M + node
+    req = ops.rows[ops.rows_of.flatten()[by_rank]]                   # [n, R]
+    used = torch.zeros((G * M, R), dtype=torch.float32, device=dev)
+    at = 0
+    for n in counts:
+        idx = target[at:at + n]
+        used[idx] = used[idx] + req[at:at + n]
+        at += n
+    return used.reshape(G, M, R)
+
+
+def finish_scan(ops: ScanOperands, free, opened, placed, node_of=None) -> BinpackResult:
     """Everything after the kernel: un-sort the placement bits to pod
-    order, unpack SWAR free capacity, node_used = alloc − free, and put
-    the dropped resource axes back as zero columns."""
+    order, unpack SWAR free capacity, node_used = alloc − free (or, given
+    ``node_of``, the placed requests summed as the XLA scan sums them), and
+    put the dropped resource axes back as zero columns."""
     G, P = ops.order.shape
     scheduled = torch.zeros((G, P), dtype=torch.bool, device=free.device)
     scheduled.scatter_(1, ops.order, placed[:, :P])
+    if node_of is not None:
+        return BinpackResult(
+            node_count=opened, scheduled=scheduled,
+            node_used=summed_node_used(ops, node_of),
+        )
     if ops.plan is not None:
         free = _swar_unpack_free(free.transpose(0, 1), ops.plan, len(ops.keep))
         free = free.transpose(0, 1)                                   # [G, R_k, M]
@@ -686,7 +752,7 @@ def ffd_binpack_scenarios_cuda(
             node_used=torch.zeros((S, G, max_nodes, R), dtype=torch.float32, device=dev),
         )
     ops = prepare_scenarios(scen_req, scen_masks, scen_allocs, max_nodes, scen_caps, scan_plan)
-    res = finish_scan(ops, *run_scan(ops))
+    res = finish_scan(ops, *run_scan(ops, node_of=True))
     return BinpackResult(
         node_count=res.node_count.reshape(S, G),
         scheduled=res.scheduled.reshape(S, G, P),

@@ -57,6 +57,7 @@ from autoscaler_tpu_torch.ops.ffd_scan import (
     clamp_inf_allocs,
 )
 from autoscaler_tpu_torch.ops.telemetry import observed
+from autoscaler_tpu_torch.trace.device import device_annotation
 
 MAX_SPREAD = 32          # the spread bitset payload is one int32 plane
 GROUP_WARPS = 8          # warps of each group's block (kWarps in csrc/ffd_scan_affinity.cu)
@@ -469,7 +470,8 @@ def ffd_scan_aff(ops: AffScanOperands):
     opened = torch.empty((G,), dtype=torch.int32, device=dev)
     placed = torch.empty((G, P_pad), dtype=torch.uint8, device=dev)
     lib = _build.load("ffd_scan_affinity")
-    with torch.cuda.device(dev):
+    # the range names the kernel on a captured profile (trace/device.py)
+    with torch.cuda.device(dev), device_annotation("ffd_scan_aff"):
         cuda_stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ffd_scan_aff(
             ops.stream.data_ptr(), ops.bits.data_ptr(), ops.allocs.data_ptr(),

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from autoscaler_tpu_torch.ops import _build
+from autoscaler_tpu_torch.trace.device import device_annotation
 
 BIG_I32 = 2**31 - 1
 # pairs the plain version tests at once: pods a chunk = this // N
@@ -252,7 +253,8 @@ def fit_reduce_cuda(
     count = torch.zeros((P,), dtype=torch.int32, device=dev)
     first = torch.full((P,), BIG_I32, dtype=torch.int32, device=dev)
     lib = _build.load("fit_reduce")
-    with torch.cuda.device(dev):
+    # the range names the kernel on a captured profile (trace/device.py)
+    with torch.cuda.device(dev), device_annotation("fit_reduce"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fit_reduce(
             *(t.data_ptr() for t in operands), count.data_ptr(), first.data_ptr(),
@@ -355,7 +357,7 @@ def fit_reduce_rows(
     count = torch.zeros((S,), dtype=torch.int32, device=dev)
     first = torch.full((S,), BIG_I32, dtype=torch.int32, device=dev)
     lib = _build.load("fit_reduce")
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), device_annotation("fit_reduce_rows"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fit_reduce_rows(
             pod_req.data_ptr(), free.data_ptr(), rows.data_ptr(), slots.data_ptr(),

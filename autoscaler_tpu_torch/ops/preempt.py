@@ -224,13 +224,15 @@ class _Loop:
 
     def capture(self) -> "torch.cuda.CUDAGraph":
         """One CUDA graph of a whole chunk's steps on the buffers (recorded,
-        not run), on a side stream as capture requires."""
+        not run), on a side stream as capture requires. The capture holds
+        only this thread to the capture rules (``thread_local``): other
+        threads on the card (the gym's concurrent rollouts) keep running."""
         dev = self.used.device
         graph = torch.cuda.CUDAGraph()
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            graph.capture_begin()
+            graph.capture_begin(capture_error_mode="thread_local")
             for j in range(self.place.shape[0]):
                 self.step(j)
             graph.capture_end()

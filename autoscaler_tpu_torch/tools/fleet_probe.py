@@ -118,6 +118,22 @@ def fractional(req):
     return out
 
 
+def decimal(req, seed=0):
+    """A copy of ``req`` whose memory requests are decimal megabytes read
+    in MiB (k · 10^6 / 2^20, k in 1..59) against 1–3 GiB nodes: no SWAR
+    plan, and with tens of pods a node the usage summed in f32 rounds apart
+    from alloc − free."""
+    rng = np.random.default_rng(seed)
+    P, G = req.pod_masks.shape[1], req.pod_masks.shape[0]
+    out = type(req)(**{**req.__dict__})
+    out.pod_req = req.pod_req.copy()
+    out.pod_req[:, MEMORY] = (rng.integers(1, 60, P) * 1000**2 / 1024**2).astype(np.float32)
+    out.template_allocs = req.template_allocs.copy()
+    out.template_allocs[:, MEMORY] = rng.integers(1, 4, G) * 1024.0
+    out.tenant_id = req.tenant_id + "-dec"
+    return out
+
+
 def solo(req, device=None):
     """The tenant's solo dispatch (``parallel/mesh.fleet_solo_estimate``)."""
     from autoscaler_tpu_torch.parallel.mesh import fleet_solo_estimate
@@ -533,8 +549,10 @@ def strategy_problems(strategy, options, chosen, device=None) -> list:
 def small_worlds(seed=5):
     """4q's small worlds for ``ffd_binpack_scenarios``: bench.py --fleet's
     8 tenants stacked, the same with padded zero slots and cap-0 groups,
-    and a stack with one fractional tenant (the batch takes K1) → [(label,
-    scen_req, scen_masks, scen_allocs, scen_caps, max_nodes)]."""
+    a stack with one fractional tenant (the batch takes K1), and four of
+    bench.py's tenants with decimal memory (K1; node_used summed from the
+    node each pod took, as the XLA scan sums it) → [(label, scen_req,
+    scen_masks, scen_allocs, scen_caps, max_nodes)]."""
     from autoscaler_tpu_torch.fleet.buckets import BucketSpec, pad_operands
 
     def stack(reqs, S, bucket, zero_caps=()):
@@ -561,6 +579,8 @@ def small_worlds(seed=5):
         ("bench 32x8x8 x 8", *stack(bench, 8, b32), 32),
         ("padded slots, cap-0 groups", *stack(bench[:5], 8, b32, zero_caps=((0, 1), (3, 7))), 32),
         ("fractional tenant (K1)", *stack(mixed + [fractional(mixed[0])], 4, b_mixed), 32),
+        ("decimal tenants (K1)", *stack([decimal(r, k) for k, r in enumerate(bench[:4])], 4,
+                                         b32), 32),
     ]
 
 

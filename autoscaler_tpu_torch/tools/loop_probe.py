@@ -361,10 +361,11 @@ def _frozen(x):
 
 class KernelCapture:
     """Within ``with``, every call of a kernel wrapper in ``KERNELS`` is
-    recorded in ``launches`` as (its count name, its operands, its outputs),
-    both copied at the call, so that each launch can be held against its
-    plain version afterwards (``hold_launches``). The wrappers themselves
-    run and count as before."""
+    recorded in ``launches`` as (its count name, its operands, its outputs)
+    and its keyword arguments where it was given any, operands and outputs
+    copied at the call, so
+    that each launch can be held against its plain version afterwards
+    (``hold_launches``). The wrappers themselves run and count as before."""
 
     def __init__(self):
         self.launches = []
@@ -378,9 +379,10 @@ class KernelCapture:
         return self
 
     def _recording(self, name, fn):
-        def call(*args):
-            out = fn(*args)
-            self.launches.append((name, _frozen(args), _frozen(out)))
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            launch = (name, _frozen(args), _frozen(out))
+            self.launches.append(launch + (dict(kw),) if kw else launch)
             return out
         return call
 
@@ -391,7 +393,7 @@ class KernelCapture:
         return False
 
     def counts(self) -> Counter:
-        return Counter(name for name, _, _ in self.launches)
+        return Counter(launch[0] for launch in self.launches)
 
 
 def hold_launches(launches) -> list:
@@ -401,10 +403,12 @@ def hold_launches(launches) -> list:
     fields that differ) a launch."""
     plain = {name: fn for _, _, name, fn in KERNELS}
     held = []
-    for name, args, got in launches:
-        want = plain[name](*args)
-        differ, err = [], 0.0
-        for field, a, b in zip(getattr(want, "_fields", ("free", "opened", "placed")), want, got):
+    for name, args, got, *kw in launches:
+        want = plain[name](*args, **(kw[0] if kw else {}))
+        differ = [] if len(want) == len(got) else ["outputs"]
+        err = 0.0
+        fields = getattr(want, "_fields", ("free", "opened", "placed", "node_of"))
+        for field, a, b in zip(fields, want, got):
             if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
                 differ.append(field)
             elif a.numel():

@@ -151,7 +151,7 @@ def _launch_scan(lib, ops):
     if ops.plan is not None:
         ptrs.append(ops.guards.data_ptr())
         name = "ffd_scan_swar"
-    ptrs += [free.data_ptr(), opened.data_ptr(), placed.data_ptr()]
+    ptrs += [free.data_ptr(), opened.data_ptr(), placed.data_ptr(), None]
     cuda_stream = torch.cuda.current_stream().cuda_stream
     _build.check(getattr(lib, name)(*ptrs, G, P_pad, NP, M, cuda_stream), name)
     return free, opened, placed.view(torch.bool)

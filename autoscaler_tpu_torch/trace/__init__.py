@@ -5,7 +5,7 @@ for the design contract (injectable clock ⇒ byte-identical loadgen replays;
 span durations feed ``function_duration_seconds`` through one choke point).
 
 The port's copy of ``autoscaler_tpu/trace/__init__.py``, ``tracer.py`` and
-``recorder.py``; ``trace/device.py`` (which imports jax) is not ported.
+``recorder.py``; ``trace/device.py`` is the JAX package's on torch.profiler.
 """
 from autoscaler_tpu_torch.trace.recorder import (
     CHROME_SCHEMA,

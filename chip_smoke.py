@@ -4,9 +4,10 @@ without dynamic inter-pod affinity and hard topology spread, the cluster
 snapshot's predicate fit, the scale-up and scale-down halves of a
 reconcile tick, the reconcile loop bound to a Kubernetes API and a cloud
 API over HTTP, the loop's preemption pass, the scenario what-if and the
-fleet's coalesced estimates, on one CUDA card through
-its hand-written kernels, and holds every kernel against its plain
-PyTorch version.
+fleet's coalesced estimates, and the scenario engine (the load generator's
+drills, the fleet drill, the policy gym and per-tick profiler sessions),
+on one CUDA card through its hand-written kernels, and holds every kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -116,8 +117,11 @@ Phases (any failure raises and exits non-zero):
    q. ``python -m autoscaler_tpu_torch.main --provider=test
       --max-iterations=2 --scan-interval=0 --address=:0`` in a subprocess on
       the card exits 0;
-   r. the bound reconcile loop (``tools/bound_loop.run_bound_ticks``): (o)'s
-      world served as JSON by the fake Kubernetes API of
+   r. the bound reconcile loop (``tools/bound_loop.run_bound_ticks``) at
+      (4l)'s tenth of (o)'s world (its full size is
+      ``python3 -m autoscaler_tpu_torch.tools.bound_loop``'s run; chip_smoke
+      cut it to a tenth to stay inside its time), served as JSON by the fake
+      Kubernetes API of
       ``tools/binding_probe`` (a child process), every group a
       MachineDeployment with its size and scale-from-zero annotations, every
       node annotated with its Machine; ``KubeRestClient`` →
@@ -125,9 +129,8 @@ Phases (any failure raises and exits non-zero):
       ``StaticAutoscaler`` on the card, expander ``priority,least-waste``
       on a live priority ConfigMap, under a ``LeaderElector`` on a
       ``KubeLease``; three ticks once the watch caches are synced, (o)'s
-      churn pushed as watch events between them. Each tick decides as
-      (o)'s did (the scale-up by group, the nodes deleted, the unneeded and
-      unremovable counts), K2, K3, K4 and its rows entry launch, and the
+      churn pushed as watch events between them. K2, K3, K4 and its rows
+      entry launch, and the
       fake API saw the ``/scale`` PUTs, taints, evictions and node DELETEs
       the decisions imply, one status ConfigMap write a tick and one Lease
       holder; the first list's split (HTTP read, ``json.loads``,
@@ -140,8 +143,9 @@ Phases (any failure raises and exits non-zero):
       shape, five burst MIGs, one a ct5lp TPU pool): it exits 0, took the
       Lease, resized a MIG, wrote the status ConfigMap, and its estimate and
       journal probes launched kernels (counted in the subprocess);
-   t. the preemption storm (``tools/preempt_probe.run_preempt_ticks``):
-      (o)'s world and churn with priorities (apps 100-199's placed pods at
+   t. the preemption storm (``tools/preempt_probe.run_preempt_ticks``) at
+      (4l)'s tenth (its full size is ``tools/preempt_probe``'s run; cut to
+      a tenth as (r) is): (o)'s world and churn with priorities (apps 100-199's placed pods at
       0, the rest of the listing at 1000, the burst, a wave of 9000
       15-core pods and tick 3's arrivals at 10000, one in five at
       ``preemptionPolicy: Never``), three ``run_once`` ticks with
@@ -179,7 +183,25 @@ Phases (any failure raises and exits non-zero):
       estimator's fleet lane: two estimators on the card share one started
       coalescer (5 ms window), each estimating a 3 000-pod slice of (b)'s
       burst x (b)'s templates from its own thread, each equal to its solo
-      estimate, on route fleet_coalesced.
+      estimate, on route fleet_coalesced;
+   w. Cluster Autoscaler's scalability drill at full size through the load
+      generator's ``run_scenario`` (``tools/drill_probe``): one node group
+      (4 000 m, 16 384 MiB, 110 pods; 10 to 1 000 nodes), 21 000 pods of
+      130 m / 512 MiB at tick 0 and 9 000 more at tick 1, all bound at 30
+      a node; the 9 000 complete at tick 4, and 10 minutes later the 300
+      emptied nodes go, 10 a tick (45 one-minute ticks); the latency
+      percentiles, node counts, deletions, the ticks' and the binder's
+      wall times and each tick's kernel routes are printed;
+   x. the fleet drill (``loadgen/fleetdrive``) over six tenants in the
+      shape of the JAX package's canned ``fleet_tenants`` scenario, 8
+      rounds: every answer equal to its solo dispatch (``all_match``);
+   y. the profiler: two ticks of the drill's world (a scale-up of 64 pods
+      of distinct sizes through K2, a scale-down of 10 emptied nodes; the
+      journal's probe through K4 each tick) with ``jax_profiler_dir`` set,
+      against the same run unprofiled: the decisions equal, each tick's
+      torch.profiler session a Chrome trace naming its step, its kernels'
+      ranges and the estimator's cuda range, with the kernels' launch
+      correlation counted.
    Every kernel of the paths must have launched;
 4. each kernel at its headline shape against its plain version on the same
    card tensors, exactly: K1/K2 on all 500 groups, K3 on its three
@@ -224,12 +246,14 @@ Phases (any failure raises and exits non-zero):
    operands and outputs, against its plain version on those operands,
    every field exact (4m); (r)'s sequence at (4l)'s size and (s)'s gce
    world in this process, each on the card and again on the CPU against
-   fresh fake servers: every RunOnceResult, target size and recorded
+   fresh fake servers: each of (r)'s ticks decides as (4l)'s card ticks
+   did (the scale-up by group, the nodes deleted, the unneeded and
+   unremovable counts), every RunOnceResult, target size and recorded
    write equal (the Lease's times and the Machines' deletion marks
    canonicalised), and the gce world's resize and deleteInstances
-   requests equal (4n); (t) at (4l)'s size on the card and again on the
-   CPU (in a worker begun at 3t): every tick's state, preemption summary
-   and the journal's replay verdicts equal (4o); the preemption loop
+   requests equal (4n); (t)'s ticks again on the CPU (in a worker begun
+   at 3t): every tick's state, preemption summary and the journal's
+   replay verdicts equal (4o); the preemption loop
    against its plain version on the card and the serial oracle on
    bench.py's 24 storm worlds and three worlds of 240 pods × 50 nodes with
    memory in bytes, every decision equal (4p); (v)'s batched launches
@@ -240,7 +264,12 @@ Phases (any failure raises and exits non-zero):
    of 8 tenants at the 1024x32x8 bucket on the card and on the CPU (in a
    worker begun at 3v) with equal answers, decision-ledger record and
    fleet metric lines, and ``sharded_scaledown_step`` on a 1-device
-   candidate mesh over (m)'s candidates against (m)'s passes (4q);
+   candidate mesh over (m)'s candidates against (m)'s passes (4q); (w)'s
+   drill at a tenth (100 nodes, 3 000 pods) on the card and on the CPU
+   (in a worker begun at 3w), the decision logs and score reports (wall
+   fields aside) byte-equal (4r); ``python -m autoscaler_tpu_torch.gym
+   tune`` over a two-scenario suite at (4r)'s size on the card and on the
+   CPU (in a worker begun at 3w), the tuning ledgers equal (4s);
 5. the estimator's services: (a) each of (o)'s perf records (residency
    pools, the arena's delta rows, dispatches by route) and the ladder's
    proof over every path so far: no fault attempt, no breaker transition;
@@ -259,6 +288,12 @@ Phases (any failure raises and exits non-zero):
    cuda rung fail their batches' tickets with the error and no oracle
    serves; the breaker opens, a batch while it is open fails too, and
    past the cooldown on the injected clock a probe serves and closes it;
+   (e) a ``kernel_fault`` scenario on the cuda rung, then
+   ``clear_faults``, on (4r)'s node group with pods of distinct sizes
+   (``drill_probe.fault_doc``): each faulted tick's run_once raises and the
+   driver records the typed error, nothing serves below the cuda rung,
+   and after the clear a half-open probe closes the breaker and the
+   decisions flow;
 6. timings with CUDA events, each run queued behind ~10 ms of a spinning
    card so that they time the card and not the host's launches: each
    kernel alone, its whole entry call, and the plain version; K3 on the
@@ -289,6 +324,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -497,6 +533,26 @@ def cpu_fleet():
     return time.perf_counter() - t0, view
 
 
+def cpu_drill():
+    """4r's drill at a tenth on the CPU (``tools/drill_probe``), in a worker
+    → (seconds, ``drill_probe.comparable``)."""
+    from autoscaler_tpu_torch.tools import drill_probe
+
+    result, seconds = drill_probe.run_drill(drill_probe.drill_doc(tenth=True), "cpu")
+    return seconds, drill_probe.comparable(result)
+
+
+def cpu_tune():
+    """4s's tune on the CPU (``python -m autoscaler_tpu_torch.gym tune``
+    over ``drill_probe.gym_suite_doc``), in a worker → (seconds, the
+    tuning ledger's text)."""
+    from autoscaler_tpu_torch.tools import drill_probe
+
+    t0 = time.perf_counter()
+    text = drill_probe.tune_ledger(drill_probe.gym_suite_doc(), "cpu")
+    return time.perf_counter() - t0, text
+
+
 def main() -> int:
     global _POOL
     try:
@@ -531,6 +587,7 @@ def main() -> int:
     from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
     from autoscaler_tpu_torch.tools import (
         bound_loop,
+        drill_probe,
         fleet_probe,
         ladder_probe,
         loop_probe,
@@ -1126,26 +1183,28 @@ def main() -> int:
           f"{proc.stdout.strip()[-200:]!r}", flush=True)
     check(proc.returncode == 0 and "device cuda:0" in proc.stdout,
           f"main: exit {proc.returncode}: {proc.stderr[-2000:]}")
-    # the bound reconcile loop (3r): 3o's world served over HTTP by the fake
-    # Kubernetes API of tools/binding_probe (a child process), the kube
-    # client's watch caches, the clusterapi provider and a live priority
-    # ConfigMap, three ticks under Lease election with 3o's churn pushed as
-    # watch events; each tick must decide as 3o's did
+    # the bound reconcile loop (3r), at 4l's tenth of 3o's world (the full
+    # size is tools/bound_loop's own run: chip_smoke runs it at a tenth to
+    # stay inside its time): served over HTTP by the fake Kubernetes API of
+    # tools/binding_probe (a child process), the kube client's watch caches,
+    # the clusterapi provider and a live priority ConfigMap, three ticks
+    # under Lease election with 3o's churn pushed as watch events, on the
+    # tracer's replayable clock; 4n holds each tick against 3o's at a tenth
+    # (4l) and against the same ticks on the CPU
+    tenth = loop_probe.loop_world(tenth=True)
+    arrive = loop_probe.ARRIVALS // 10
     errors_before = sum(card_metrics.errors_total.values.values())
-    bound, counts, t_bound = run_path("bound loop 3r (3 ticks over HTTP)", lambda: (
-        bound_loop.run_bound_ticks(loop_nodes, loop_pods, burst, tick_templates, None,
-                                   timed=True, metrics=card_metrics)))
+    bound, counts, t_bound = run_path("bound loop 3r (3 ticks over HTTP, at a tenth)", lambda: (
+        bound_loop.run_bound_ticks(*tenth, dev, arrive=arrive, replayable=True, timed=True,
+                                   metrics=card_metrics)))
     first = bound["first"]
     print(f"# bound 3r: world served in {bound['load_s']:.3f} s; first list of "
           f"{first['items']} pods, {first['bytes']} bytes: HTTP read {first['http_read_s']:.3f} s, "
           f"json.loads {first['json_loads_s']:.3f} s, convert (tick 1's list_pods) "
           f"{first['convert_s']:.3f} s; "
           f"watch caches synced in {bound['synced_s']:.3f} s", flush=True)
-    for k, (entry, ref) in enumerate(zip(bound["ticks"], loop_card["ticks"])):
+    for k, entry in enumerate(bound["ticks"]):
         print(bound_loop.bound_line(str(k + 1), entry), flush=True)
-        want = {**bound_loop.decisions(ref["result"]), "unremovable": ref["unremovable"]}
-        got = {**entry["decisions"], "unremovable": entry["unremovable"]}
-        check(got == want, f"bound loop tick {k + 1}: decided {got}, 3o decided {want}")
         check(entry["probe"]["checked"] and not entry["probe"]["drift"],
               f"bound loop tick {k + 1}: the journal probe found drift {entry['probe']}")
         problems = bound_loop.write_problems(entry)
@@ -1160,12 +1219,10 @@ def main() -> int:
     check(sum(card_metrics.errors_total.values.values()) == errors_before,
           "bound loop: errors_total counted")
     print(f"# bound 3r: {t_bound:.3f} s host clock, {len(bound['writes'])} writes, the "
-          f"Lease held by {holders}; each tick decided as 3o's did", flush=True)
-    del bound
+          f"Lease held by {holders}", flush=True)
     # the port's process entry with the gce provider, on the card, against
     # the fake kube and Compute APIs at 4l's size (3s)
     t0 = time.perf_counter()
-    tenth = loop_probe.loop_world(tenth=True)
     gce = bound_loop.run_gce_main(*tenth[:3], root)
     resizes = [path for m, path, _ in gce["compute_writes"] if "/resize?" in path]
     gce_status = [path for m, path, _ in gce["kube_writes"]
@@ -1190,16 +1247,21 @@ def main() -> int:
     # the estimator's torch loop on the card (no hand kernel); then the
     # port's journal CLI replays the ticks on the card. The CPU's side of
     # 4o begins now in a worker
+    # The storm runs at 4l's tenth of its world (the full size is
+    # tools/preempt_probe's own run: chip_smoke runs it at a tenth to stay
+    # inside its time), on the tracer's replayable clock; 4o holds these
+    # ticks against the same on the CPU
     t0 = time.perf_counter()
     storm_tenth = preempt_probe.preempt_world(tenth=True)
     cpu_jobs["preempt 4o"] = _POOL.apply_async(cpu_preempt, (storm_tenth,))
-    storm = preempt_probe.preempt_world()
+    storm = storm_tenth
     print(f"# preempt 3t: {len(storm[0])} nodes, {len(storm[1])} pods, {len(storm[2])} "
           f"pending (burst and wave), world built in {time.perf_counter() - t0:.3f} s",
           flush=True)
     torch.cuda.reset_peak_memory_stats(dev)
-    storm_card, counts, t_storm = run_path("preemption storm 3t (3 ticks)", lambda: (
-        preempt_probe.run_preempt_ticks(*storm, None, timed=True, metrics=card_metrics)))
+    storm_card, counts, t_storm = run_path("preemption storm 3t (3 ticks, at a tenth)", lambda: (
+        preempt_probe.run_preempt_ticks(*storm, dev, timed=True, arrive=loop_probe.ARRIVALS // 10,
+                                        replayable=True, metrics=card_metrics)))
     storm_sa = storm_card["autoscaler"]
     peak = torch.cuda.max_memory_allocated(dev)
     # the pass's operand signature names the snapshot's P and N
@@ -1236,7 +1298,7 @@ def main() -> int:
     check(storm_replay["rc"] == 0 and storm_replay["verdict"]["diverged"] == 0
           and storm_replay["verdict"]["replayed"] >= 1,
           f"preempt 3t: the journal replay diverged: {storm_replay}")
-    del storm, storm_card, storm_sa
+    del storm, storm_sa
     # the what-if at BASELINE config 5 (3u): 3a's headline operands under 8
     # spot-pricing scenarios on a 1x1 mesh of the card, each scenario's FFD
     # one K2 launch; every scenario's counts must be 3a's K2 counts and the
@@ -1324,6 +1386,61 @@ def main() -> int:
           f"groups, {lane['batches']} batches, scheduled {lane['scheduled']}, each equal to its "
           f"solo estimate; {lane['seconds']:.3f} s for the lane, {t_lane:.3f} s with the solo "
           f"estimates", flush=True)
+    # the scenario engine (3w-3y; tools/drill_probe). The CPU's sides of 4r
+    # and 4s begin now in workers
+    cpu_jobs["drill 4r"] = _POOL.apply_async(cpu_drill, ())
+    cpu_jobs["tune 4s"] = _POOL.apply_async(cpu_tune, ())
+    # 3w: Cluster Autoscaler's scalability drill at full size through
+    # run_scenario on the card: 30 000 pods on 1 000 nodes, then 300
+    # emptied nodes deleted
+    (drill, drill_s), counts, t_drill = run_path("scale drill 3w", lambda: drill_probe.run_drill(
+        drill_probe.drill_doc(), dev))
+    drill_line = drill_probe.drill_summary(drill, drill_s)
+    print(f"# scale drill 3w: {json.dumps(drill_line, sort_keys=True)}", flush=True)
+    print(f"# scale drill 3w: routes a tick {drill_probe.kernels_by_tick(drill)}; launches "
+          f"{ {k: v for k, v in counts.items() if k in launches} }", flush=True)
+    bad = drill_probe.drill_problems(drill)
+    check(not bad, f"scale drill 3w: {bad}")
+    del drill
+    # 3x: the fleet drill in the shape of the canned fleet_tenants scenario
+    # through fleetdrive on the card: every answer equal to its solo dispatch
+    (fleet_drill, fleet_drill_s), counts, _ = run_path(
+        "fleet drill 3x", lambda: drill_probe.run_fleet(drill_probe.fleet_doc(), dev))
+    fleet_report = drill_probe.fleet_summary(fleet_drill, fleet_drill_s)
+    print(f"# fleet drill 3x: {json.dumps(fleet_report, sort_keys=True)}; launches "
+          f"{ {k: v for k, v in counts.items() if k in launches} }", flush=True)
+    check(fleet_drill.all_match() and counts["ffd_scan_swar"] + counts["ffd_scan_f32"] > 0,
+          f"fleet drill 3x: {fleet_report}")
+    del fleet_drill
+    # 3y: the profiler. Two ticks of the drill's world with
+    # jax_profiler_dir set (tools/drill_probe.profile_doc): a scale-up of
+    # pods of distinct sizes through K2 and a scale-down, the journal's
+    # probe (K4 and its rows on the factored 30 000 x 1 000 snapshot) on
+    # both; the same run unprofiled: the decisions equal, each profiled
+    # tick's session a Chrome trace naming its kernels, the estimator's
+    # range and the tick's step, the kernels' launches correlated under
+    # their ranges
+    plain_drill, _ = drill_probe.run_drill(drill_probe.profile_doc(), dev,
+                                         profile_ticks=drill_probe.PROFILE_TICKS)
+    prof_dir = os.path.join(root, "build", "profiles")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    (profiled, _), counts, _ = run_path("profiled drill 3y", lambda: drill_probe.run_drill(
+        drill_probe.profile_doc(), dev, profiler_dir=prof_dir,
+        profile_ticks=drill_probe.PROFILE_TICKS))
+    check(drill_probe.comparable(profiled) == drill_probe.comparable(plain_drill),
+          "profiled drill 3y: the decisions differ from the unprofiled run's")
+    check(counts["ffd_scan_swar"] > 0 and counts["fit_reduce"] > 0,
+          f"profiled drill 3y: K2 and K4 did not both launch: {counts}")
+    sessions = drill_probe.profile_sessions(profiled, prof_dir)
+    for sess in sessions:
+        print(f"# profiled drill 3y: {json.dumps(sess, sort_keys=True)}", flush=True)
+    bad = drill_probe.session_problems(sessions)
+    check(not bad, f"profiled drill 3y: {bad}")
+    for rec, plain_rec in zip(profiled.records, plain_drill.records):
+        print(f"# profiled drill 3y: tick {rec.tick} {rec.wall_s:.4f} s "
+              f"{'profiled' if rec.tick in drill_probe.PROFILE_TICKS else 'not profiled'} "
+              f"against {plain_rec.wall_s:.4f} s unprofiled", flush=True)
+    del profiled, plain_drill
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main paths")
     check(
@@ -1968,6 +2085,8 @@ def main() -> int:
     check(len(diffs) == 3 and not any(diffs), f"reconcile loop 4l: the card differs: {diffs}")
     check(all(not e["probe"]["drift"] for e in on_card["ticks"] + on_cpu["ticks"]),
           "reconcile loop 4l: a journal probe found drift")
+    tenth_decided = [{**bound_loop.decisions(e["result"]), "unremovable": e["unremovable"]}
+                     for e in on_card["ticks"]]
     del on_card, on_cpu
     phase("4l the reconcile loop at a tenth on the card and the CPU", t0)
 
@@ -1993,13 +2112,16 @@ def main() -> int:
     del held, loop_capture
     phase("4m the reconcile loop's launches against their plain versions", t0)
 
-    # 3r's sequence at 4l's size, and 3s's gce world in this process, each
-    # on the card and again on the CPU against fresh fake servers: every
-    # RunOnceResult, target size and recorded write equal (4n)
+    # 3r's ticks (at 4l's size) each decided as 4l's card ticks did, and
+    # again on the CPU against fresh fake servers; 3s's gce world in this
+    # process on the card and the CPU: every RunOnceResult, target size and
+    # recorded write equal (4n)
     t0 = time.perf_counter()
+    bound_card = bound
+    for k, (entry, want) in enumerate(zip(bound_card["ticks"], tenth_decided)):
+        got = {**entry["decisions"], "unremovable": entry["unremovable"]}
+        check(got == want, f"bound loop 4n tick {k + 1}: decided {got}, 4l decided {want}")
     watch.reset()
-    bound_card = bound_loop.run_bound_ticks(*tenth, dev, arrive=arrive, replayable=True,
-                                            metrics=card_metrics)
     gce_card = bound_loop.run_gce_in_process(*tenth[:3], dev)
     t_card = time.perf_counter() - t0
     check(not watch.problems(), f"bound loop 4n: the kernel ladder {watch.problems()}")
@@ -2025,7 +2147,7 @@ def main() -> int:
           "bound loop 4n: a tick failed")
     check(gce_same and any("/resize?" in path for _, path, _ in gce_cpu["compute_writes"]),
           "bound loop 4n: the gce world's compute writes differ, or no resize")
-    del bound_card, bound_cpu, gce_card, gce_cpu
+    del bound, bound_card, bound_cpu, gce_card, gce_cpu
     phase("4n the bindings on the card and the CPU", t0)
 
     # 3t at 4l's tenth on the card and on the CPU (the CPU's in a worker,
@@ -2033,11 +2155,7 @@ def main() -> int:
     # journal and SLO lines), preemption summary and the journal's replay
     # verdicts equal (4o)
     t0 = time.perf_counter()
-    watch.reset()
-    storm_card_t = preempt_probe.run_preempt_ticks(
-        *storm_tenth, dev, arrive=loop_probe.ARRIVALS // 10, replayable=True,
-        metrics=card_metrics)
-    check(not watch.problems(), f"preempt 4o: the kernel ladder {watch.problems()}")
+    storm_card_t = storm_card
     card_view = preempt_probe.tick_views(storm_card_t, dev)
     t_card = time.perf_counter() - t0
     t_cpu, cpu_view = cpu_jobs.pop("preempt 4o").get(CPU_WAIT_S)
@@ -2054,7 +2172,7 @@ def main() -> int:
     check(not any(r["divergence"] for r in card_view["replay"])
           and any(r["replayed"] for r in card_view["replay"]),
           "preempt 4o: the journal replay diverged")
-    del storm_card_t, storm_tenth
+    del storm_card, storm_card_t, storm_tenth
     phase("4o the preemption storm at a tenth on the card and the CPU", t0)
 
     # the main loop against its plain version ([P, N, R] a step, on the
@@ -2095,7 +2213,7 @@ def main() -> int:
         for name in h["route"]:
             fleet_err[name] = max(fleet_err.get(name, 0.0), h["max_abs_err"])
     check([h["route"] for h in held_small] == [["ffd_scan_swar"], ["ffd_scan_swar"],
-                                               ["ffd_scan_f32"]],
+                                               ["ffd_scan_f32"], ["ffd_scan_f32"]],
           f"fleet 4q: small worlds' routes {[h['route'] for h in held_small]}")
     card_view = fleet_probe.fleet_view(dev)
     t_cpu, cpu_view = cpu_jobs.pop("fleet 4q").get(CPU_WAIT_S)
@@ -2130,6 +2248,35 @@ def main() -> int:
           flush=True)
     del held, fleet_out, card_view, cpu_view
     phase("4q the fleet's launches, small worlds, the CPU's fleet, the mesh's scale-down", t0)
+
+    # 4r: the drill at a tenth on the card and on the CPU (in a worker begun
+    # at 3w): the decision logs and the score reports (wall fields aside)
+    # byte-equal
+    t0 = time.perf_counter()
+    drill_tenth, tenth_s = drill_probe.run_drill(drill_probe.drill_doc(tenth=True), dev)
+    check(not drill_probe.drill_problems(drill_tenth, tenth=True),
+          f"drill 4r: {drill_probe.drill_problems(drill_tenth, tenth=True)}")
+    t_cpu, cpu_view = cpu_jobs.pop("drill 4r").get(CPU_WAIT_S)
+    card_view = drill_probe.comparable(drill_tenth)
+    same = {key: card_view[key] == cpu_view[key] for key in card_view}
+    check(all(same.values()), f"drill 4r: the card's run differs from the CPU's: {same}")
+    print(f"# drill 4r: {len(drill_tenth.records)} ticks, {tenth_s:.3f} s on the card, "
+          f"{t_cpu:.3f} s on the CPU; decision logs and reports equal", flush=True)
+    del drill_tenth, cpu_view, card_view
+    phase("4r the drill at a tenth on the card and the CPU", t0)
+
+    # 4s: python -m autoscaler_tpu_torch.gym tune over a two-scenario suite
+    # at 4r's size on the card and on the CPU (in a worker begun at 3w):
+    # the tuning ledgers equal
+    t0 = time.perf_counter()
+    card_ledger = drill_probe.tune_ledger(drill_probe.gym_suite_doc(), dev)
+    t_card = time.perf_counter() - t0
+    t_cpu, cpu_ledger = cpu_jobs.pop("tune 4s").get(CPU_WAIT_S)
+    check(card_ledger == cpu_ledger and card_ledger.strip(),
+          "tune 4s: the card's tuning ledger differs from the CPU's")
+    print(f"# tune 4s: {len(card_ledger.splitlines())} generation(s), {t_card:.3f} s on the "
+          f"card, {t_cpu:.3f} s on the CPU; ledgers equal", flush=True)
+    phase("4s the gym's tune on the card and the CPU", t0)
 
     # 5a: what 3o's ticks left in the perf observatory (one record a tick,
     # /perfz's body) and the ladder's proof: since the process started, no
@@ -2200,6 +2347,21 @@ def main() -> int:
     check(fleet_walk["card"] and not bad, f"fleet fault walk 5d: {bad}")
     watch.close()
     phase("5d the fleet's fault walk on the card", t0)
+
+    # 5e: a kernel_fault on the cuda rung, then clear_faults, on 4r's node
+    # group (tools/drill_probe.fault_doc): each faulted tick's run_once
+    # raises and the driver records the typed error; no estimate serves
+    # below the cuda rung; after the clear a half-open probe closes the
+    # breaker and the decisions flow again
+    t0 = time.perf_counter()
+    faulted, _ = drill_probe.run_drill(drill_probe.fault_doc(), dev)
+    for rec in faulted.records:
+        print(f"# fault drill 5e: tick {rec.tick}: scale-ups {rec.scale_ups}, degraded "
+              f"{rec.degraded}, errors {rec.errors}", flush=True)
+    bad = drill_probe.fault_problems(faulted, card=True)
+    check(not bad, f"fault drill 5e: {bad}")
+    del faulted
+    phase("5e the cuda rung's fault and recovery in a scenario on the card", t0)
 
     # where the burst estimate's time goes: the host operand build (mask
     # engine, packing) and the scan call on the card

@@ -551,9 +551,21 @@ def test_fleet_probe_serve_and_holds_on_the_cpu(on_cpu):
     assert fleet_probe.serve_problems(reqs, out) == []
     assert out["batched_s"] > 0 and out["sequential_s"] > 0
     assert tfleet.validate_fleet_records([out["record"]]) == []
-    held = fleet_probe.hold_scenarios(fleet_probe.small_worlds(), "cpu")
-    assert [h["equal"] for h in held] == [True] * 3
-    assert held[2]["shape"][0] == 4
+    worlds = fleet_probe.small_worlds()
+    held = fleet_probe.hold_scenarios(worlds, "cpu")
+    assert [h["equal"] for h in held] == [True] * 4
+    assert held[2]["shape"][0] == 4 and held[3]["shape"][0] == 4
+    # the decimal world is one where a node's usage summed in f32 rounds
+    # apart from alloc - free (the solo route's read-back)
+    from autoscaler_tpu_torch.ops import ffd_scan
+
+    _, req, masks, allocs, caps, M = worlds[3]
+    batched = ffd_scan.ffd_binpack_scenarios_cuda(*map(torch.tensor, (req, masks, allocs)), M,
+                                                  torch.tensor(caps))
+    solo_used = [ffd_scan.ffd_binpack_groups_cuda(*map(torch.tensor, (req[s], masks[s], allocs[s])),
+                                                  M, torch.tensor(caps[s])).node_used
+                 for s in range(req.shape[0])]
+    assert not torch.equal(batched.node_used, torch.stack(solo_used))
 
 
 def test_fleet_probe_fault_walk_on_the_cpu_descends():

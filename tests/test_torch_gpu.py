@@ -1176,8 +1176,10 @@ def test_preempt_estimate_serves_on_the_card_and_faults_raise(cuda):
 def test_batched_launch_matches_plain_version(cuda, seed, route):
     """A batch of 4 scenarios (the last a padded zero slot, one cap-0
     group) in one launch over S·G groups: the kernel's outputs equal its
-    plain version's on the same stream, the answers the torch loop's and
-    each scenario's solo launch."""
+    plain version's on the same stream (the node each pod took too), the
+    answers the torch loop's (node_used summed in pod order, as the XLA
+    scan sums it) and each scenario's solo launch (node_used there is
+    alloc - free, equal to the sum where the requests are integers)."""
     from autoscaler_tpu_torch.ops.binpack import ffd_binpack_scenarios
 
     worlds = [_world(seed * 10 + s, route, P=120, G=6) for s in range(3)]
@@ -1198,13 +1200,23 @@ def test_batched_launch_matches_plain_version(cuda, seed, route):
              ffd_scan._scan_plain_f32(ops.stream, ops.allocs, ops.caps, 64))
     for a, b in zip(plain, got):
         assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    got = ffd_scan.run_scan(ops, node_of=True)
+    plain = (ffd_scan._scan_plain_swar(ops.stream, ops.allocs, ops.caps, ops.guards, 64,
+                                       node_of=True)
+             if ops.plan is not None else
+             ffd_scan._scan_plain_f32(ops.stream, ops.allocs, ops.caps, 64, node_of=True))
+    assert len(got) == len(plain) == 4
+    for a, b in zip(plain, got):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
     res = ffd_scan.ffd_binpack_scenarios_cuda(*args[:3], 64, args[3])
     loop = ffd_binpack_scenarios(*args[:3], max_nodes=64, scen_caps=args[3])
-    assert torch.equal(res.node_count, loop.node_count)
-    assert torch.equal(res.scheduled, loop.scheduled)
+    assert_results_equal(loop, res)
     for s in range(4):
         solo = ffd_scan.ffd_binpack_groups_cuda(args[0][s], args[1][s], args[2][s], 64, args[3][s])
-        assert_results_equal(solo, type(solo)(*(x[s] for x in res)))
+        assert torch.equal(solo.node_count, res.node_count[s])
+        assert torch.equal(solo.scheduled, res.scheduled[s])
+        if route == "swar":
+            assert torch.equal(solo.node_used, res.node_used[s])
 
 
 def test_fleet_serves_each_batch_in_one_launch(cuda):
@@ -1225,3 +1237,55 @@ def test_fleet_serves_each_batch_in_one_launch(cuda):
                                       lambda r: fleet_probe.solo(r, cuda))
     assert [a.route for a in answers] == ["fleet_batched"] * len(reqs)
     assert all(row["match_solo"] for row in record["tenants"])
+
+
+# -- the scenario engine and the profiler on the card --------------------------------
+
+
+def test_scale_drill_at_a_tenth_on_the_card(cuda):
+    """4r: the drill at a tenth (100 nodes, 3 000 pods) through
+    run_scenario on the card binds every pod and deletes every emptied
+    node, with the decision log and report (walls aside) of the CPU's run."""
+    from autoscaler_tpu_torch.tools import drill_probe
+
+    doc = drill_probe.drill_doc(tenth=True)
+    card, _ = drill_probe.run_drill(doc, cuda)
+    cpu, _ = drill_probe.run_drill(doc, "cpu")
+    assert drill_probe.drill_problems(card, tenth=True) == []
+    assert drill_probe.comparable(card) == drill_probe.comparable(cpu)
+
+
+def test_profiled_drill_names_its_kernels_on_the_card(cuda, tmp_path):
+    """3y: each profiled tick's session names its step and K4's range, the
+    scale-up tick K2's and the estimator's cuda range, and the decisions
+    equal the unprofiled run's."""
+    from autoscaler_tpu_torch.tools import drill_probe
+    from autoscaler_tpu_torch.trace import device as tdev
+
+    tdev._sessions_broken = False
+    doc = drill_probe.profile_doc()
+    plain, _ = drill_probe.run_drill(doc, cuda, profile_ticks=drill_probe.PROFILE_TICKS)
+    profiled, _ = drill_probe.run_drill(doc, cuda, profiler_dir=str(tmp_path),
+                                        profile_ticks=drill_probe.PROFILE_TICKS)
+    assert drill_probe.comparable(profiled) == drill_probe.comparable(plain)
+    assert drill_probe.session_problems(drill_probe.profile_sessions(profiled, str(tmp_path))) == []
+
+
+def test_fault_drill_raises_and_recovers_on_the_card(cuda):
+    """5e: the faulted ticks record the typed error, nothing serves below
+    the cuda rung, and after the clear the breaker closes."""
+    from autoscaler_tpu_torch.tools import drill_probe
+
+    faulted, _ = drill_probe.run_drill(drill_probe.fault_doc(), cuda)
+    assert drill_probe.fault_problems(faulted, card=True) == []
+
+
+def test_gym_tune_on_the_card_equals_the_cpu(cuda):
+    """4s: the gym's tune over a two-scenario suite at 4r's size, its
+    rollouts in two threads on one card sharing one coalescer (the greedy
+    loop captures its CUDA graphs while the other thread runs), writes the
+    CPU's tuning ledger."""
+    from autoscaler_tpu_torch.tools import drill_probe
+
+    doc = drill_probe.gym_suite_doc()
+    assert drill_probe.tune_ledger(doc, cuda) == drill_probe.tune_ledger(doc, "cpu")

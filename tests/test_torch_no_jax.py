@@ -701,3 +701,84 @@ def test_serving_paths_run_without_jax_grpc_protobuf_or_yaml():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.splitlines()[-1] == (
         "OK ['fleet_batched', 'fleet_batched', 'fleet_batched'] True 4 a 1"), proc.stdout
+
+
+# -- the scenario engine and the profiler -----------------------------------------
+
+SCENARIO_MODULES = (
+    "trace/device.py", "utils/sharded_worlds.py", "utils/poll.py",
+    *(f"loadgen/{m}.py" for m in ("__init__", "__main__", "cli", "driver", "faults",
+                                  "fleetdrive", "score", "spec", "suite", "workloads")),
+    *(f"gym/{m}.py" for m in ("__init__", "__main__", "cli", "env", "ledger", "policy",
+                              "tune")),
+)
+
+
+def test_scenario_modules_are_ported():
+    for rel in SCENARIO_MODULES:
+        assert (PORT / rel).is_file(), rel
+        assert (REPO / "autoscaler_tpu" / rel).is_file(), rel
+        assert f"autoscaler_tpu_torch/{rel}" in PORT_FILES
+    assert "autoscaler_tpu_torch/tools/drill_probe.py" in PORT_FILES
+
+
+_SCENARIO_BLOCKED = r"""
+import json, os, sys, tempfile
+for name in ("jax", "jaxlib", "grpc", "google.protobuf", "yaml"):
+    sys.modules[name] = None
+from autoscaler_tpu_torch.gym import TuneConfig, tune_suite, SuiteSpec
+from autoscaler_tpu_torch.loadgen import ScenarioSpec, run_scenario
+from autoscaler_tpu_torch.loadgen.fleetdrive import run_fleet_scenario
+from autoscaler_tpu_torch.loadgen.score import build_fleet_report, build_report
+from autoscaler_tpu_torch.tools import drill_probe
+from autoscaler_tpu_torch.utils import sharded_worlds
+from autoscaler_tpu_torch.utils.poll import poll_loop
+d = tempfile.mkdtemp()
+doc = drill_probe.profile_doc(tenth=True)
+spec = ScenarioSpec.from_dict(doc)
+spec.options["jax_profiler_dir"] = d
+res = run_scenario(spec, device="cpu")
+report = build_report(res)
+fleet = run_fleet_scenario(ScenarioSpec.from_dict(drill_probe.fleet_doc(ticks=2)), device="cpu")
+suite = SuiteSpec.from_dict({"name": "s", "scenarios": [drill_probe.profile_doc(tenth=True)]})
+tune = tune_suite(suite, TuneConfig(generations=1, population=1, workers=1, device="cpu"))
+world = sharded_worlds.scaledown_world(8, 20, 3, 4, device="cpu")
+n = []
+assert poll_loop(lambda: n.append(1), 0.0, max_iterations=2) == 0
+loaded = [m for m, mod in sys.modules.items() if mod is not None and (
+    m == "autoscaler_tpu" or m.startswith(("autoscaler_tpu.", "grpc", "google.protobuf", "yaml")))]
+assert not loaded, loaded
+print("OK", report["platform"], report["nodes"]["peak"], len(os.listdir(d)),
+      build_fleet_report(fleet)["parity"]["certified"], len(tune.records),
+      tuple(world[0].sched_mask.shape), len(n))
+"""
+
+
+def test_scenario_engine_runs_without_jax_grpc_protobuf_or_yaml():
+    """As on the card's machine: with jax, grpc, protobuf and yaml blocked,
+    a scenario runs with a profiler session a tick, a fleet drill certifies,
+    a tune writes its ledger, and the sharded worlds and the poll loop run,
+    all on the CPU."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCENARIO_BLOCKED], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "OK cpu 109 4 True 1 (20, 8) 2", proc.stdout
+
+
+def test_scenario_entry_points_raise_without_a_card(monkeypatch):
+    """The drivers, the env and the tuner run on the card unless asked for
+    the CPU."""
+    from autoscaler_tpu_torch.gym import PolicyGymEnv
+    from autoscaler_tpu_torch.loadgen import ScenarioDriver, ScenarioSpec
+    from autoscaler_tpu_torch.loadgen.fleetdrive import FleetScenarioDriver
+    from autoscaler_tpu_torch.tools import drill_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = ScenarioSpec.from_dict(drill_probe.profile_doc(tenth=True))
+    for build in (lambda: ScenarioDriver(spec), lambda: PolicyGymEnv(spec).reset(),
+                  lambda: FleetScenarioDriver(ScenarioSpec.from_dict(drill_probe.fleet_doc()))):
+        with pytest.raises(RuntimeError, match="CUDA|card"):
+            build()

@@ -106,15 +106,19 @@ def test_scenarios_match_jax_and_oracle(world):
         for field in ("node_count", "scheduled"):
             assert_equal(getattr(res, field), getattr(want, field), field)
         assert res.node_count.dtype == torch.int32 and res.scheduled.dtype == torch.bool
-    # the torch loop sums the usage as the XLA scan does; the kernels' glue
-    # reads it back as alloc - free, as a solo launch of each scenario does
-    # (equal to the sum where the requests are integers)
+    # the torch loop and the batched launch's glue (from the node each pod
+    # took) sum the usage as the XLA scan does, on every world; a solo
+    # launch reads it back as alloc - free, as its Pallas twin does, which
+    # equals the sum where the requests are integers
     assert_equal(got.node_used, want.node_used, "node_used")
+    assert_equal(batched.node_used, want.node_used, "node_used")
+    integral = not (world.get("decimal") or world.get("fractional"))
     for s in range(S_):
         solo = tscan.ffd_binpack_groups_cuda(T(req[s]), T(masks[s]), T(allocs[s]), M_, T(caps[s]))
-        assert_equal(batched.node_used[s], solo.node_used, "node_used")
-    if not (world.get("decimal") or world.get("fractional")):
-        assert_equal(batched.node_used, want.node_used, "node_used")
+        assert_equal(batched.node_count[s], solo.node_count, "node_count")
+        assert_equal(batched.scheduled[s], solo.scheduled, "scheduled")
+        if integral:
+            assert_equal(batched.node_used[s], solo.node_used, "node_used")
     assert int(np_of(got.node_count).sum()) > 0
 
 

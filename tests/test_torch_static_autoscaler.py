@@ -480,17 +480,24 @@ def test_hold_launches_finds_a_differing_output():
     assert loop_probe.hold_launches([(name, args, got)])[0][3] == ["fit_count"]
 
 
-def test_unported_options_raise():
-    """The profiler still raises, naming its ROADMAP item; preemption is
-    taken and built as in the JAX package (an engine on the orchestrator's
-    estimator, the churn filter leading the chain); the perf observatory
-    and its cost model are taken."""
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """No option is refused any more: the profiler is taken (a tick writes
+    its torch.profiler session under ``tick_<id>``, keyed by the tick's
+    trace id); preemption is taken and built as in the JAX package (an
+    engine on the orchestrator's estimator, the churn filter leading the
+    chain); the perf observatory and its cost model are taken."""
     from autoscaler_tpu_torch.perf import PerfObservatory
+    from autoscaler_tpu_torch.trace import device as tdev
 
+    monkeypatch.setattr(tdev, "_sessions_broken", False)
     provider, api = tprov.TestCloudProvider(), tapi.FakeClusterAPI()
-    with pytest.raises(NotImplementedError, match="trace/device.py"):
-        tsa.StaticAutoscaler(provider, api, topts.AutoscalingOptions(jax_profiler_dir="x"),
-                             device="cpu")
+    sa = tsa.StaticAutoscaler(provider, api,
+                              topts.AutoscalingOptions(jax_profiler_dir=str(tmp_path)),
+                              device="cpu")
+    sa.run_once(now_ts=0.0)
+    tid = sa.tracer.recorder.traces()[0].trace_id
+    capture = tmp_path / f"tick_{tid:06d}" / tdev.TRACE_FILE
+    assert capture.stat().st_size > 0 and f"ProfilerStep#{tid}" in capture.read_text()
     built = {}
     for k in (JAX, TORCH):
         opts = k.opts.AutoscalingOptions(preemption_enabled=True, preemption_churn_weight=1.0)
