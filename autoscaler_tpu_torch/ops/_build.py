@@ -8,7 +8,9 @@ loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
 - ``ffd_scan_affinity``: the affinity and spread scan K3
   (``ops/ffd_scan_affinity.py``);
 - ``fit_reduce``: the tiled predicate fit K4 and its rows entry
-  (``ops/fit_reduce.py``).
+  (``ops/fit_reduce.py``);
+- ``histogram``: the ordered scatter-add K5 of the VPA's histogram bank
+  (``ops/histogram.py``).
 
 A source is built at first use, into ``build/kernels/`` at the root of the
 checkout (a directory git ignores), under a name keyed by a hash of the
@@ -58,6 +60,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "fit_reduce_rows": [_VOID_P] * 6 + [_INT] * 3 + [_VOID_P],
         "fit_reduce_rows_smem_bytes": [_INT],
         "fit_reduce_geometry": [_INT] * 6 + [_VOID_P],
+    },
+    "histogram": {
+        "ordered_scatter_add": [_VOID_P] * 4 + [_INT] * 2 + [_VOID_P],
     },
 }
 

@@ -360,7 +360,7 @@ def _build_operands(rows, rows_of, order, pod_masks, template_allocs, caps,
 # -- the two kernels: wrappers and their plain versions ----------------------
 
 
-SEARCH_CHUNK = 512  # steps whose search the plain version counts at once
+SEARCH_CHUNK = 64  # steps whose work the plain version counts at once
 
 
 def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats, block_max,
@@ -383,8 +383,9 @@ def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats, block_max
 
     ``block_max`` gives the block summaries of a carry: the kernels keep
     each summary exact at every step (refreshed on every placement in its
-    block), so the plain version takes them afresh from the carry before
-    each step, and counts the search SEARCH_CHUNK steps at a time. With
+    block), so the plain version keeps the carry before each step and
+    counts SEARCH_CHUNK steps at a time: their summaries, their search and
+    their node tests, each in a few whole-chunk operations. With
     ``node_of`` it also returns the node each step's pod took (-1 where it
     was not placed), as the kernels write it when asked."""
     G, P_pad, NP = stream.shape
@@ -403,7 +404,7 @@ def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats, block_max
         live = torch.zeros((G, 1, NB * NODE_BLOCK), dtype=torch.bool, device=dev)
         live[:, 0, :M] = node_ids[None, :] < span[:, None]           # below the cap
         C = min(SEARCH_CHUNK, P_pad)
-        summs = torch.empty((C, G, NP, NB), dtype=stream.dtype, device=dev)
+        frees = torch.empty((C, G, NP, M), dtype=stream.dtype, device=dev)
         firsts = torch.empty((C, G), dtype=torch.int32, device=dev)
         openeds = torch.empty((C, G), dtype=torch.int32, device=dev)
         work = torch.zeros((3, G), dtype=torch.int64, device=dev)
@@ -414,17 +415,18 @@ def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats, block_max
         place = first < caps
         if stats is not None:
             i = s % C
-            summs[i] = block_max(free, live)
+            frees[i] = free
             firsts[i] = first
             openeds[i] = opened
             if i == C - 1 or s == P_pad - 1:
-                s0 = s - i
+                n, chunk = i + 1, stream[:, s - i:s + 1, :]           # chunk [G, n, NP]
                 work += _search_counts(
-                    summs[:i + 1].flatten(0, 1),
-                    stream[:, s0:s + 1, :].transpose(0, 1).flatten(0, 1),
-                    firsts[:i + 1].flatten(), openeds[:i + 1].flatten(),
-                    span.repeat(i + 1), fit,
-                ).unflatten(1, (i + 1, G)).sum(dim=1)
+                    block_max(frees[:n], live).flatten(0, 1),
+                    chunk.transpose(0, 1).flatten(0, 1),
+                    firsts[:n].flatten(), openeds[:n].flatten(),
+                    span.repeat(n), fit,
+                ).unflatten(1, (n, G)).sum(dim=1)
+                tests += _node_tests(firsts[:n], openeds[:n], caps, chunk, inactive, M)
         # only the hit node changes; select, never a multiply by a 0/1
         # flag (inf * 0 is NaN)
         tgt = torch.clamp(first, max=M - 1).long()
@@ -434,10 +436,6 @@ def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats, block_max
         placed[:, s] = place
         if nodes is not None:
             nodes[:, s] = torch.where(place, first, -1)
-        if stats is not None:
-            lim = torch.clamp(opened, max=M - 1)
-            need = torch.where(first < BIG_I32, first, lim) + 1
-            tests += torch.where((req != inactive).any(dim=1), need, 0).sum()
     if stats is not None:
         work = torch.cat([work, placed.sum(dim=1)[None]])            # [4, G]
         keys = ("summary_tests", "candidate_blocks", "rounds", "placements")
@@ -451,6 +449,18 @@ def _scan_plain(stream, allocs, caps, max_nodes, fit, inactive, stats, block_max
     if nodes is not None:
         return free, opened, placed, nodes
     return free, opened, placed
+
+
+def _node_tests(first, opened, caps, chunk, inactive, M):
+    """The node fit tests of a plain scan on n steps → a 0-d int64: nodes
+    0..first for a pod that fits somewhere, every node open after its step
+    plus one closed node otherwise, none for an inactive row. first and
+    opened (before each step) [n, G] i32, chunk [G, n, NP] the steps'
+    requests, inactive [NP] the row masked pods carry."""
+    after = torch.maximum(opened, torch.where(first < caps, first + 1, 0))
+    need = torch.where(first < BIG_I32, first, torch.clamp(after, max=M - 1)) + 1
+    active = (chunk != inactive).any(dim=2).transpose(0, 1)          # [n, G]
+    return torch.where(active, need, 0).sum()
 
 
 def _search_counts(summ, req, first, opened, span, fit, round_blocks=GROUP_WARPS):
@@ -488,8 +498,9 @@ def _blocks(x: torch.Tensor) -> torch.Tensor:
 
 
 def _f32_block_max(free, live):
-    """Block summaries of an f32 carry [G, NP, M] → [G, NP, NB]: the max
-    over each block's nodes below the cap (``live`` [G, 1, NB * 32]),
+    """Block summaries of an f32 carry [G, NP, M], or of a run of carries
+    [n, G, NP, M] → [..., NP, NB]: the max over each block's nodes below
+    the cap (``live`` [G, 1, NB * 32]),
     NaN nodes left out (they fit nothing), NaN for a block with none, as
     the kernel's key max gives them."""
     free = torch.nn.functional.pad(free, (0, live.shape[-1] - free.shape[-1]))
@@ -511,8 +522,9 @@ def _swar_fields(guard: int) -> List[int]:
 
 
 def _swar_block_max(guards):
-    """Block summaries of a packed carry, as the kernel's field-wise max
-    (0 for a block with no node below the cap)."""
+    """Block summaries of a packed carry (or a run of carries, as
+    ``_f32_block_max``), as the kernel's field-wise max (0 for a block with
+    no node below the cap)."""
     fields = [_swar_fields(int(g)) for g in guards.tolist()]
     width = max(len(f) for f in fields)
     masks = torch.tensor(
@@ -521,9 +533,9 @@ def _swar_block_max(guards):
 
     def block_max(free, live):
         free = torch.nn.functional.pad(free, (0, live.shape[-1] - free.shape[-1]))
-        x = _blocks(torch.where(live, free, 0))[:, :, None]          # [G, NP, 1, NB, 32]
+        x = _blocks(torch.where(live, free, 0)).unsqueeze(-3)        # [..., NP, 1, NB, 32]
         # the fields are disjoint: the sum of their maxima is their OR
-        return (x & masks).amax(dim=-1).sum(dim=2, dtype=torch.int32)
+        return (x & masks).amax(dim=-1).sum(dim=-2, dtype=torch.int32)
 
     return block_max
 

@@ -275,8 +275,9 @@ def _scan_plain_aff(stream, bits, allocs, caps, nl, hl, spstat, num_planes,
       and the busiest group's ``max_group_*`` of the last three. Inactive
       rows and steps that a group-level spread term blocks search nothing.
       The block summaries are taken afresh from the carry before each step
-      (the kernel keeps them exact), and the search is counted SEARCH_CHUNK
-      active steps at a time."""
+      (the kernel keeps them exact): the plain version keeps each active
+      step's carry and fit row and counts SEARCH_CHUNK active steps at a
+      time, in whole-chunk operations."""
     G, P_pad, R = stream.shape
     TP, S, M = num_planes, num_spread, max_nodes
     dev = stream.device
@@ -311,10 +312,11 @@ def _scan_plain_aff(stream, bits, allocs, caps, nl, hl, spstat, num_planes,
         live = torch.zeros((G, 1, NB * NODE_BLOCK), dtype=torch.bool, device=dev)
         live[:, 0, :M] = node_ids[None, :] < span[:, None]          # below the cap
         C = min(SEARCH_CHUNK, len(steps))
-        summs = torch.empty((C, G, R, NB), dtype=torch.float32, device=dev)
+        frees = torch.empty((C, G, R, M), dtype=torch.float32, device=dev)
+        fitses = torch.empty((C, G, M), dtype=torch.bool, device=dev)
         firsts = torch.empty((C, G), dtype=torch.int32, device=dev)
         openeds = torch.empty_like(firsts)
-        spans = torch.empty_like(firsts)
+        group_oks = torch.ones((C, G), dtype=torch.bool, device=dev)
         search = torch.zeros((3, G), dtype=torch.int64, device=dev)
     for k, s in enumerate(steps):
         req = stream[:, s, :]                                       # [G, R]
@@ -367,19 +369,26 @@ def _scan_plain_aff(stream, bits, allocs, caps, nl, hl, spstat, num_planes,
         place = first < caps
         if stats is not None:
             i = k % C
-            summs[i] = _f32_block_max(free, live)
+            frees[i] = free
+            fitses[i] = fits
             firsts[i] = first
             openeds[i] = opened
-            searched = active_rows[:, s] & group_ok if S else active_rows[:, s]
-            spans[i] = torch.where(searched, span, 0)   # an empty span searches nothing
+            if S:
+                group_oks[i] = group_ok
             if i == C - 1 or k == len(steps) - 1:
-                chunk = steps[k - i:k + 1]
+                n, chunk = i + 1, steps[k - i:k + 1]
+                act = active_rows[:, chunk].transpose(0, 1)         # [n, G]
+                # an empty span searches nothing
+                spans = torch.where(act & group_oks[:n], span, 0)
                 search += _search_counts(
-                    summs[:i + 1].flatten(0, 1),
+                    _f32_block_max(frees[:n], live).flatten(0, 1),
                     stream[:, chunk, :].transpose(0, 1).flatten(0, 1),
-                    firsts[:i + 1].flatten(), openeds[:i + 1].flatten(),
-                    spans[:i + 1].flatten(), _fit_f32, GROUP_WARPS * WARP_BLOCKS,
-                ).unflatten(1, (i + 1, G)).sum(dim=1)
+                    firsts[:n].flatten(), openeds[:n].flatten(),
+                    spans.flatten(), _fit_f32, GROUP_WARPS * WARP_BLOCKS,
+                ).unflatten(1, (n, G)).sum(dim=1)
+                _gate_work(work, bits[:, chunk, :].transpose(0, 1), fitses[:n], firsts[:n],
+                           openeds[:n], act, group_oks[:n], node_ids, TP, S,
+                           (shifts, nl_s) if S else None)
         # only the hit node changes; select, never a multiply by a 0/1
         # flag (inf * 0 is NaN)
         tgt = torch.clamp(first, max=M - 1).long()
@@ -395,22 +404,6 @@ def _scan_plain_aff(stream, bits, allocs, caps, nl, hl, spstat, num_planes,
             u = (place[:, None] & upd).to(torch.int32)              # [G, S]
             spc[rows, :, tgt] += u
             spct += u
-        if stats is not None:
-            act = active_rows[:, s]
-            lim = torch.clamp(opened, max=M - 1)
-            need = torch.where(first < BIG_I32, first, lim) + 1
-            # the gates run only on tested open nodes that pass the fit
-            gated = (fits & is_open & (node_ids[None, :] < need[:, None])).sum(dim=1)
-            planes = ((m_p | a_p | x_p) != 0).sum(dim=1)
-            if S:
-                # a group-level verdict that blocks the step needs no node
-                # test; the hostname minima are taken before it
-                host_terms = (sp_o & nl_s).sum(dim=1)
-                work["open_min_nodes"] += torch.where(act, host_terms * opened, 0).sum()
-                act = act & group_ok
-                work["host_gate_tests"] += torch.where(act, gated * host_terms, 0).sum()
-            work["node_tests"] += torch.where(act, need, 0).sum()
-            work["gate_plane_tests"] += torch.where(act, gated * planes, 0).sum()
         opened = torch.maximum(opened, torch.where(place, first + 1, 0))
         placed[:, s] = place
     if stats is not None:
@@ -424,6 +417,32 @@ def _scan_plain_aff(stream, bits, allocs, caps, nl, hl, spstat, num_planes,
         for key, n in zip(keys[1:], search[1:].amax(dim=1).tolist()):
             stats[f"max_group_{key}"] = max(stats.get(f"max_group_{key}", 0), n)
     return free, opened, placed
+
+
+def _gate_work(work, b, fits, first, opened, act, group_ok, node_ids, TP, S, spread):
+    """Adds n active steps' plain-scan work to ``work``: node tests, term-gate
+    evaluations and, with spread terms, the hostname gates and minima (see
+    ``_scan_plain_aff``). b [n, G, bit planes] the steps' bits, fits [n, G,
+    M] their fit rows, first and opened (before each step) [n, G], act
+    [n, G] the active rows, group_ok [n, G] the group-level spread
+    verdicts, spread (shifts, nl_s) when S."""
+    M = fits.shape[2]
+    need = torch.where(first < BIG_I32, first, torch.clamp(opened, max=M - 1)) + 1
+    is_open = node_ids < opened[:, :, None]                         # [n, G, M]
+    # the gates run only on tested open nodes that pass the fit
+    gated = (fits & is_open & (node_ids < need[:, :, None])).sum(dim=2)
+    planes = ((b[..., :TP] | b[..., TP:2 * TP] | b[..., 2 * TP:3 * TP]) != 0).sum(dim=2)
+    if S:
+        shifts, nl_s = spread
+        sp_o = ((b[..., 3 * TP, None] >> shifts) & 1) != 0        # [n, G, S]
+        # a group-level verdict that blocks the step needs no node test;
+        # the hostname minima are taken before it
+        host_terms = (sp_o & nl_s).sum(dim=2)
+        work["open_min_nodes"] += torch.where(act, host_terms * opened, 0).sum()
+        act = act & group_ok
+        work["host_gate_tests"] += torch.where(act, gated * host_terms, 0).sum()
+    work["node_tests"] += torch.where(act, need, 0).sum()
+    work["gate_plane_tests"] += torch.where(act, gated * planes, 0).sum()
 
 
 def _check_kernel_operands(ops: AffScanOperands):

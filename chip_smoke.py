@@ -4,10 +4,11 @@ without dynamic inter-pod affinity and hard topology spread, the cluster
 snapshot's predicate fit, the scale-up and scale-down halves of a
 reconcile tick, the reconcile loop bound to a Kubernetes API and a cloud
 API over HTTP, the loop's preemption pass, the scenario what-if and the
-fleet's coalesced estimates, and the scenario engine (the load generator's
+fleet's coalesced estimates, the scenario engine (the load generator's
 drills, the fleet drill, the policy gym and per-tick profiler sessions),
-on one CUDA card through its hand-written kernels, and holds every kernel
-against its plain PyTorch version.
+and the Vertical Pod Autoscaler's recommender and updater, on one CUDA
+card through its hand-written kernels, and holds every kernel against its
+plain PyTorch version.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -201,7 +202,20 @@ Phases (any failure raises and exits non-zero):
       against the same run unprofiled: the decisions equal, each tick's
       torch.profiler session a Chrome trace naming its step, its kernels'
       ranges and the estimator's cuda range, with the kernels' launch
-      correlation counted.
+      correlation counted;
+   z. the Vertical Pod Autoscaler (``tools/vpa_probe.run_vpa``) over (h)'s
+      cluster at (4l)'s tenth (1 500 nodes, 10 000 pods; its full size is
+      ``python3 -m autoscaler_tpu_torch.tools.vpa_probe``'s run, cut as (r)
+      is: a pass over 100 000 pods is ~15 s of host Python), each of its
+      300 apps in a namespace of its own under one VPA (Auto), its
+      histogram banks on the card: a warm start from 8 days of hourly
+      history for all 10 000 pods (``replay_history``: 1.92 M CPU samples
+      and the memory peaks), then five live passes a minute apart over
+      every pod, each a ``VpaRunner.run_once`` (scrape,
+      six percentiles a bank, status writes, checkpoints, evictions with
+      the evicted pods readmitted at their VPA's target) on an in-memory
+      API; every sample batch goes through K5, the ordered scatter-add
+      (``ops/histogram.ordered_scatter_add``, ``csrc/histogram.cu``).
    Every kernel of the paths must have launched;
 4. each kernel at its headline shape against its plain version on the same
    card tensors, exactly: K1/K2 on all 500 groups, K3 on its three
@@ -269,7 +283,14 @@ Phases (any failure raises and exits non-zero):
    (in a worker begun at 3w), the decision logs and score reports (wall
    fields aside) byte-equal (4r); ``python -m autoscaler_tpu_torch.gym
    tune`` over a two-scenario suite at (4r)'s size on the card and on the
-   CPU (in a worker begun at 3w), the tuning ledgers equal (4s);
+   CPU (in a worker begun at 3w), the tuning ledgers equal (4s); (z)'s run
+   again on the CPU (in a worker begun at 3w), every recommendation,
+   status write, checkpoint and eviction equal, K5 against its plain
+   version (``index_add_`` on the CPU) on each of the warm start's four
+   batches bit for bit, K5, its whole call and ``index_add_`` on the card
+   timed on the largest, and the admission webhook over (z)'s
+   recommendations over HTTP, and over HTTPS where ``cryptography``
+   imports (the script prints which) (4t);
 5. the estimator's services: (a) each of (o)'s perf records (residency
    pools, the arena's delta rows, dispatches by route) and the ladder's
    proof over every path so far: no fault attempt, no breaker transition;
@@ -321,6 +342,7 @@ standard output.
 """
 from __future__ import annotations
 
+import faulthandler
 import json
 import os
 import re
@@ -553,8 +575,21 @@ def cpu_tune():
     return time.perf_counter() - t0, text
 
 
+def cpu_vpa():
+    """3z's warm start and passes on the CPU (``tools/vpa_probe``), in a
+    worker → (seconds, ``vpa_probe.comparable``)."""
+    from autoscaler_tpu_torch.tools import vpa_probe
+
+    t0 = time.perf_counter()
+    result = vpa_probe.run_vpa(vpa_probe.vpa_world(**vpa_probe.TENTH), "cpu")
+    return time.perf_counter() - t0, vpa_probe.comparable(result)
+
+
 def main() -> int:
     global _POOL
+    # a crash in native code (a kernel's host side, a library) prints every
+    # thread's Python stack on standard error before the process dies
+    faulthandler.enable(all_threads=True)
     try:
         import torch
     except ImportError:
@@ -579,6 +614,7 @@ def main() -> int:
     from autoscaler_tpu_torch.kube.objects import MEMORY, OwnerRef, Taint, Toleration
     from autoscaler_tpu_torch.debugging import DebuggingSnapshotter
     from autoscaler_tpu_torch.ops import _build, ffd_scan, ffd_scan_affinity, fit, fit_reduce
+    from autoscaler_tpu_torch.ops import histogram as ops_histogram
     from autoscaler_tpu_torch.snapshot.arena import DeviceArena
     from autoscaler_tpu_torch.snapshot.cluster_snapshot import ClusterSnapshot
     from autoscaler_tpu_torch.snapshot.incremental import IncrementalPacker
@@ -594,6 +630,7 @@ def main() -> int:
         preempt_probe,
         scaledown_probe,
         tick_probe,
+        vpa_probe,
     )
     from autoscaler_tpu_torch.utils.test_utils import (
         GB,
@@ -623,7 +660,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     def phase(label, t0):
-        print(f"# phase {label}: {time.perf_counter() - t0:.3f} s host clock", flush=True)
+        now = time.perf_counter()
+        print(f"# phase {label}: {now - t0:.3f} s host clock, {now - t_start:.1f} s since "
+              f"the start", flush=True)
 
     # -- 1. device --------------------------------------------------------
     smi = subprocess.run(
@@ -810,7 +849,8 @@ def main() -> int:
         best = strategy.best_option(options)
         return (best.node_group.id() if best else None), strategy.last_table
 
-    counters = (ffd_scan.LAUNCHES, ffd_scan_affinity.LAUNCHES, fit_reduce.LAUNCHES)
+    counters = (ffd_scan.LAUNCHES, ffd_scan_affinity.LAUNCHES, fit_reduce.LAUNCHES,
+                ops_histogram.LAUNCHES)
     launches = {name: 0 for d in counters for name in d}
     # every estimator on the card counts on card_metrics; the watch reads
     # its ladder counters and the estimator logger's warnings per path
@@ -833,7 +873,7 @@ def main() -> int:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = {**ffd_scan.LAUNCHES, **ffd_scan_affinity.LAUNCHES, **fit_reduce.LAUNCHES,
-                  **watch.counts()}
+                  **ops_histogram.LAUNCHES, **watch.counts()}
         for name in launches:
             launches[name] += counts[name]
         print(f"# path {label}: {secs:.3f} s host clock, counts {counts}", flush=True)
@@ -1390,6 +1430,7 @@ def main() -> int:
     # and 4s begin now in workers
     cpu_jobs["drill 4r"] = _POOL.apply_async(cpu_drill, ())
     cpu_jobs["tune 4s"] = _POOL.apply_async(cpu_tune, ())
+    cpu_jobs["vpa 4t"] = _POOL.apply_async(cpu_vpa, ())
     # 3w: Cluster Autoscaler's scalability drill at full size through
     # run_scenario on the card: 30 000 pods on 1 000 nodes, then 300
     # emptied nodes deleted
@@ -1441,6 +1482,23 @@ def main() -> int:
               f"{'profiled' if rec.tick in drill_probe.PROFILE_TICKS else 'not profiled'} "
               f"against {plain_rec.wall_s:.4f} s unprofiled", flush=True)
     del profiled, plain_drill
+    # 3z: the Vertical Pod Autoscaler (tools/vpa_probe) over the snapshot
+    # probe's cluster at a tenth (its full size is tools/vpa_probe's run),
+    # its banks on the card: the warm start from 8 days of hourly history
+    # for all 10 000 pods (1.92 M CPU samples, the memory peaks) and five
+    # live passes over every pod, each a VpaRunner.run_once (scrape,
+    # recommend, statuses, checkpoints, evictions) on an in-memory API;
+    # every sample batch through K5
+    vpa_world = vpa_probe.vpa_world(**vpa_probe.TENTH)
+    vpa_capture = []
+    vpa_card, counts, t_vpa = run_path("vpa 3z", lambda: vpa_probe.run_vpa(
+        vpa_world, dev, capture=vpa_capture))
+    print(f"# vpa 3z: {json.dumps(vpa_probe.summary(vpa_card), sort_keys=True)}", flush=True)
+    bad = vpa_probe.problems(vpa_card)
+    check(not bad, f"vpa 3z: {bad}")
+    check(counts["ordered_scatter_add"] >= 4 and len(vpa_capture) == 4,
+          f"vpa 3z: K5 launched {counts['ordered_scatter_add']} times, "
+          f"{len(vpa_capture)} in the warm start")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main paths")
     check(
@@ -2278,6 +2336,90 @@ def main() -> int:
           f"card, {t_cpu:.3f} s on the CPU; ledgers equal", flush=True)
     phase("4s the gym's tune on the card and the CPU", t0)
 
+    # 4t: the VPA on the card and the CPU. 3z's run again on the CPU (in a
+    # worker begun at 3w): every recommendation, status write, checkpoint
+    # and eviction equal. K5 against its plain version (index_add_ on the
+    # CPU) on each of the warm start's four sample batches, bit for bit, and
+    # timed on the largest (the CPU bank's 1.92 M samples) beside
+    # index_add_ on the card (its atomics add a cell's samples in no fixed
+    # order: the library call, used nowhere in the port). Then the
+    # admission webhook on 3z's recommendations over HTTP, and over HTTPS
+    # where the cryptography package imports
+    t0 = time.perf_counter()
+    t_cpu, cpu_view = cpu_jobs.pop("vpa 4t").get(CPU_WAIT_S)
+    card_view = vpa_probe.comparable(vpa_card)
+    same = {part: card_view[part] == cpu_view[part] for part in card_view}
+    same.update({f"pass {k} {key}": card_view["passes"][k][key] == cpu_view["passes"][k][key]
+                 for k in range(len(card_view["passes"])) for key in card_view["passes"][k]})
+    check(all(same.values()), f"vpa 4t: the card's run differs from the CPU's: "
+          f"{[k for k, v in same.items() if not v]}")
+    print(f"# vpa 4t: card {t_vpa:.3f} s (warm start {vpa_card['replay']['seconds']:.3f} s, "
+          f"passes {[round(p['seconds'], 3) for p in vpa_card['passes']]} s), CPU {t_cpu:.3f} s; "
+          f"every recommendation, status, checkpoint and eviction equal", flush=True)
+    max_err = 0.0
+    for k, (before, index, values, after) in enumerate(vpa_capture):
+        want = ops_histogram._ordered_scatter_add_plain(before.cpu(), index.cpu(), values.cpu())
+        got = after.cpu()
+        check(torch.equal(want.view(torch.int32), got.view(torch.int32)),
+              f"vpa 4t: K5 differs from its plain version on warm-start batch {k}")
+        max_err = max(max_err, float((want.double() - got.double()).abs().max()))
+    before, index, values, _ = max(vpa_capture, key=lambda c: c[1].numel())
+    K, cells = index.numel(), int(torch.unique(index).numel())
+    keys, order = ops_histogram.sort_pairs(index)
+    scratch = before.clone()
+    k5_ms = event_ms(lambda: ops_histogram.launch_sorted(scratch, keys, order, values))
+    k5_call_ms = event_ms(lambda: ops_histogram.ordered_scatter_add(scratch, index, values))
+    index_long = index.long()
+    library_ms = event_ms(lambda: scratch.index_add_(0, index_long, values))
+    plain_args = (before.cpu(), index.cpu(), values.cpu())
+    t1 = time.perf_counter()
+    ops_histogram._ordered_scatter_add_plain(*plain_args)
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    bytes_moved = K * 4 + K * 4 + 2 * 4 * cells   # index, value; each touched cell read, written
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = K / FP32_OPS_PER_S * 1e3             # one add a sample
+    kernels.append({
+        "name": "ordered_scatter_add",
+        "route": "cuda",
+        "source": "autoscaler_tpu_torch/csrc/histogram.cu",
+        # not a TPU kernel: the JAX package's scatter-add, which XLA runs
+        "replaces": "autoscaler_tpu/vpa/histogram.py:111",
+        "tpu_kernel": False,
+        "launches": launches["ordered_scatter_add"],
+        "max_abs_err": max_err,
+        "ms": k5_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+        "call_ms": k5_call_ms,
+    })
+    print(f"# ordered_scatter_add: {k5_ms:.3f} ms kernel, {k5_call_ms:.3f} ms whole call "
+          f"(stable sort + kernel), {library_ms:.3f} ms index_add_ on the card, "
+          f"{plain_ms:.1f} ms plain (index_add_ on the CPU, host clock); parity exact on the "
+          f"warm start's {len(vpa_capture)} batches; bound {max(bytes_ms, ops_ms):.4f} ms "
+          f"({kernels[-1]['bound_by']}): K={K} samples into {cells} cells, {bytes_moved} B "
+          f"moved ({bytes_ms:.4f} ms), {K} adds ({ops_ms:.6f} ms)", flush=True)
+    del scratch, keys, order, index_long, vpa_capture
+    try:
+        import cryptography  # noqa: F401
+
+        crypto = f"importable ({cryptography.__version__})"
+    except ImportError:
+        crypto = None
+    print(f"# vpa 4t: cryptography {crypto or 'not importable'}", flush=True)
+    hooks = {"http": vpa_probe.admission_check(vpa_card["runner"], https=False)}
+    if crypto:
+        hooks["https"] = vpa_probe.admission_check(vpa_card["runner"], https=True)
+    else:
+        print("# vpa 4t: the webhook's HTTPS (vpa/certs.py) runs on the CPU only: "
+              "tests/test_torch_vpa_suites.py", flush=True)
+    print(f"# vpa 4t: admission webhook {hooks}", flush=True)
+    check(all(h["equal"] and h["patched"] == h["reviews"] > 0 for h in hooks.values()),
+          f"vpa 4t: admission webhook {hooks}")
+    del vpa_card, vpa_world, cpu_view, card_view
+    phase("4t the VPA recommender on the card and the CPU", t0)
+
     # 5a: what 3o's ticks left in the perf observatory (one record a tick,
     # /perfz's body) and the ladder's proof: since the process started, no
     # rung attempt of a card estimator faulted and no breaker changed state
@@ -2394,6 +2536,12 @@ def main() -> int:
         prof = scaledown_probe.dispatch_profile(rec["loops"][-1]["dispatch_ops"])
         print(scaledown_probe.split_line(label, rec, prof), flush=True)
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
+    import resource   # ru_maxrss is in KiB on Linux
+
+    print(f"# peak resident memory: this process "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB, the largest "
+          f"child that has ended {resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 2**20:.2f}"
+          f" GiB", flush=True)
     print(smi_line, flush=True)       # again: the head of a long log may be cut
 
     print(json.dumps({"kernels": kernels, "torch_preempt": preempt_line}), flush=True)

@@ -551,6 +551,24 @@ def test_search_model_matches_plain_version(route, world):
         assert stats[f"max_group_{key}"] == max(c[key] for c in per_group), key
 
 
+@pytest.mark.parametrize("world", ["std0", "m1000", "masked", "caps01"])
+@pytest.mark.parametrize("route", ROUTES)
+def test_work_counts_do_not_depend_on_the_chunk(route, world, monkeypatch):
+    """The plain version counts its work SEARCH_CHUNK steps at a time, in
+    whole-chunk operations; every count is the same at one step a chunk, a
+    few, and all the steps in one."""
+    ops = _model_operands(world, route)
+    counts = []
+    for chunk in (1, 7, ops.stream.shape[1]):
+        monkeypatch.setattr(ffd_scan, "SEARCH_CHUNK", chunk)
+        stats = {}
+        want = _plain(ops, stats)
+        counts.append(stats)
+    assert counts[0] == counts[1] == counts[2]
+    assert counts[0]["node_tests"] > 0
+    assert_bits_equal(want[2], _plain(ops)[2])
+
+
 @pytest.mark.parametrize("refresh_every", [0, 3])
 @pytest.mark.parametrize("world", ["std0", "m1000", "zero-equal"])
 @pytest.mark.parametrize("route", ROUTES)

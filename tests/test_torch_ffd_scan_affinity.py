@@ -604,6 +604,25 @@ def _model_aff(ops, **kw):
     )
 
 
+@pytest.mark.parametrize("world", ["m1000", "gates-reject", "zone-blocked"])
+def test_aff_work_counts_do_not_depend_on_the_chunk(world, monkeypatch):
+    """K3's plain version counts its work SEARCH_CHUNK active steps at a
+    time, in whole-chunk operations; every count (the search, node tests,
+    gate and hostname work) is the same at one step a chunk, a few, and
+    all the steps in one."""
+    ops = _search_operands(world)
+    counts = []
+    for chunk in (1, 7, ops.stream.shape[1]):
+        monkeypatch.setattr(fa, "SEARCH_CHUNK", chunk)
+        stats = {}
+        _plain_aff(ops, stats)
+        counts.append(stats)
+    assert counts[0] == counts[1] == counts[2]
+    assert counts[0]["node_tests"] > 0
+    if world != "m1000":   # the only world without term planes
+        assert counts[0]["gate_plane_tests"] > 0
+
+
 @pytest.mark.parametrize("world", AFF_SEARCH_WORLDS)
 def test_aff_search_model_matches_plain_version(world):
     """K3's search (rounds of candidate blocks in node order, exact capacity

@@ -1289,3 +1289,86 @@ def test_gym_tune_on_the_card_equals_the_cpu(cuda):
 
     doc = drill_probe.gym_suite_doc()
     assert drill_probe.tune_ledger(doc, cuda) == drill_probe.tune_ledger(doc, "cpu")
+
+
+# -- the VPA's histogram bank and K5 ---------------------------------------------------
+
+
+@pytest.mark.parametrize("N,K,dup", [(50, 200_000, "heavy"), (176 * 300, 192_000, "runs"),
+                                     (1000, 1, "one"), (4096, 4000, "none")])
+def test_ordered_scatter_add_matches_plain_version(cuda, N, K, dup):
+    """K5 against its plain version (index_add_ on the CPU) bit for bit:
+    cells with thousands of samples, long runs, one sample, no duplicate;
+    indices outside the target dropped."""
+    from autoscaler_tpu_torch.ops import histogram as ops_histogram
+
+    rng = np.random.default_rng(K)
+    target = (rng.standard_normal(N) * 10.0 ** rng.uniform(-3, 3, N)).astype(np.float32)
+    if dup == "none":
+        index = rng.permutation(N)[:K]
+    elif dup == "runs":
+        index = np.repeat(rng.integers(0, N, K // 192), 192)
+    else:
+        index = rng.integers(0, N, K)
+    index[:: max(1, K // 7)][1:] = N   # out of range: dropped
+    values = (rng.standard_normal(K) * 10.0 ** rng.uniform(-4, 4, K)).astype(np.float32)
+    want = ops_histogram.ordered_scatter_add(
+        torch.from_numpy(target.copy()), torch.from_numpy(index.astype(np.int32)),
+        torch.from_numpy(values))
+    before = ops_histogram.LAUNCHES["ordered_scatter_add"]
+    got = ops_histogram.ordered_scatter_add(
+        torch.from_numpy(target).to(cuda), torch.from_numpy(index.astype(np.int64)).to(cuda),
+        torch.from_numpy(values).to(cuda))
+    torch.cuda.synchronize()
+    assert ops_histogram.LAUNCHES["ordered_scatter_add"] == before + 1
+    assert torch.equal(want.view(torch.int32), got.cpu().view(torch.int32))
+
+
+def test_vpa_bank_on_the_card_equals_the_cpu(cuda):
+    """Two banks of each resource, one on the card and one on the CPU, fed
+    the same seeded batches at real epochs (the re-reference branch, a
+    peak replaced, one more ten half-lives on), restored from the same
+    checkpoints: weights, totals and six percentiles bit for bit."""
+    from autoscaler_tpu_torch.vpa import histogram as th
+
+    rng = np.random.default_rng(4)
+    T0, DAY, C = 1.7e9, 86400.0, 300
+    for spec, base in ((th.CPU_SPEC, 0.4), (th.MEMORY_SPEC, 6e8)):
+        banks = [th.HistogramBank(64, spec, device=d) for d in (cuda, "cpu")]
+        for t_end, span, K in ((T0, 8 * DAY, 400_000), (T0 + 60.0, 60.0, 100_000),
+                               (T0 + 12 * DAY, 60.0, 100_000)):
+            series = np.minimum(rng.zipf(1.3, K) - 1, C - 1)
+            values = base * rng.lognormal(0.0, 0.3, K)
+            weights = np.where(rng.random(K) < 0.1, -1.0, 1.0)
+            ts = t_end - rng.uniform(0.0, span, K)
+            for bank in banks:
+                bank.grow_to(C)
+                bank.add_samples(series, values, weights, ts)
+            assert banks[0].ref_ts == banks[1].ref_ts
+            for a, b in ((banks[0].weights, banks[1].weights), (banks[0].total, banks[1].total)):
+                assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+            for p in (0.5, 0.9, 0.95):
+                assert torch.equal(banks[0].percentile(p).cpu(), banks[1].percentile(p))
+        ckpts = [banks[1].checkpoint(s) for s in range(C)]
+        assert ckpts == [banks[0].checkpoint(s) for s in range(C)]
+        fresh = [th.HistogramBank(C, spec, device=d) for d in (cuda, "cpu")]
+        for bank in fresh:
+            for s, ckpt in enumerate(ckpts):
+                bank.restore(s, ckpt)
+        assert torch.equal(fresh[0].weights.cpu(), fresh[1].weights)
+        assert torch.equal(fresh[0].percentile(0.9).cpu(), fresh[1].percentile(0.9))
+
+
+def test_vpa_runner_on_the_card_equals_the_cpu(cuda):
+    """tools/vpa_probe's warm start and two passes on a small world, on the
+    card and on the CPU: every output equal; K5 launched in every feed."""
+    from autoscaler_tpu_torch.ops import histogram as ops_histogram
+    from autoscaler_tpu_torch.tools import vpa_probe
+
+    world = vpa_probe.vpa_world(**vpa_probe.SMALL)
+    before = ops_histogram.LAUNCHES["ordered_scatter_add"]
+    card = vpa_probe.run_vpa(world, cuda, passes=2)
+    assert ops_histogram.LAUNCHES["ordered_scatter_add"] - before >= 8
+    assert not vpa_probe.problems(card)
+    assert vpa_probe.comparable(card) == vpa_probe.comparable(vpa_probe.run_vpa(world, "cpu",
+                                                                               passes=2))

@@ -782,3 +782,78 @@ def test_scenario_entry_points_raise_without_a_card(monkeypatch):
                   lambda: FleetScenarioDriver(ScenarioSpec.from_dict(drill_probe.fleet_doc()))):
         with pytest.raises(RuntimeError, match="CUDA|card"):
             build()
+
+
+# -- the Vertical Pod Autoscaler, the addon resizer and the balancer ----------------
+
+VPA_MODULES = (
+    *(f"vpa/{m}.py" for m in ("__init__", "admission", "api", "certs", "feeder", "histogram",
+                              "kube_io", "main", "prometheus_history", "recommender",
+                              "updater")),
+    *(f"addonresizer/{m}.py" for m in ("__init__", "main", "nanny")),
+    *(f"balancer/{m}.py" for m in ("__init__", "policy", "summary")),
+)
+
+
+def test_vpa_modules_are_ported():
+    for rel in VPA_MODULES:
+        assert (PORT / rel).is_file(), rel
+        assert (REPO / "autoscaler_tpu" / rel).is_file(), rel
+        assert f"autoscaler_tpu_torch/{rel}" in PORT_FILES
+    for rel in ("ops/histogram.py", "tools/vpa_probe.py"):
+        assert f"autoscaler_tpu_torch/{rel}" in PORT_FILES
+    assert (PORT / "csrc" / "histogram.cu").is_file()
+
+
+# cryptography is blocked too: only vpa/certs.py needs it (the webhook's TLS)
+_VPA_BLOCKED = r"""
+import contextlib, io, sys
+for name in ("jax", "jaxlib", "cryptography"):
+    sys.modules[name] = None
+from autoscaler_tpu_torch.addonresizer.nanny import LinearEstimator
+from autoscaler_tpu_torch.balancer.policy import Target, get_placement
+from autoscaler_tpu_torch.tools import vpa_probe
+from autoscaler_tpu_torch.vpa import main
+world = vpa_probe.vpa_world(**vpa_probe.SMALL)
+result = vpa_probe.run_vpa(world, "cpu", passes=2)
+hook = vpa_probe.admission_check(result["runner"], https=False)
+with contextlib.redirect_stdout(io.StringIO()):
+    try:
+        main.main(["--help"])
+    except SystemExit as e:
+        assert e.code == 0
+loaded = [m for m, mod in sys.modules.items() if mod is not None and (
+    m == "autoscaler_tpu" or m.startswith(("autoscaler_tpu.", "cryptography")))]
+assert not loaded, loaded
+print("OK", result["series"], vpa_probe.problems(result) == [], hook["equal"], hook["patched"])
+"""
+
+
+def test_vpa_runs_without_jax_or_cryptography():
+    """The VPA's warm start and two passes of tools/vpa_probe on a small
+    world and its webhook over HTTP, on the CPU, with jax and cryptography
+    blocked: nothing of the JAX package is imported."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", _VPA_BLOCKED], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "OK 12 True True 8", proc.stdout
+
+
+def test_vpa_entry_points_raise_without_a_card(monkeypatch):
+    """The banks, the model, the runner, the probe and ``vpa.main`` run on
+    the card unless asked for the CPU."""
+    from autoscaler_tpu_torch.tools import vpa_probe
+    from autoscaler_tpu_torch.vpa import histogram, main, recommender
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: histogram.HistogramBank(4, histogram.CPU_SPEC),
+                  lambda: recommender.ClusterStateModel(),
+                  lambda: main.VpaRunner(None, None, None),
+                  lambda: vpa_probe.main(["--small"]),
+                  lambda: main.main(["--kube-api", "http://127.0.0.1:9"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    assert recommender.ClusterStateModel(device="cpu").cpu.weights.device.type == "cpu"

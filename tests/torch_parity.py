@@ -588,9 +588,13 @@ class Rebound:
             self.globals[key] = self._port(value)
 
     def _port(self, value):
+        import enum
         import importlib
         import types
 
+        if isinstance(value, enum.Enum):
+            ported = self._port(type(value))
+            return value if ported is type(value) else ported[value.name]
         if isinstance(value, types.ModuleType):
             name = _port_name(value.__name__)
             return importlib.import_module(name) if name != value.__name__ else value
@@ -606,12 +610,24 @@ class Rebound:
             return target
         return value
 
+    def _port_default(self, value):
+        """A default argument's value, ported when it is a JAX package
+        module, class, function or enum member (an instance stays as it
+        is)."""
+        import enum
+        import types
+
+        kinds = (enum.Enum, type, types.FunctionType, types.ModuleType)
+        return self._port(value) if isinstance(value, kinds) else value
+
     def function(self, fn):
         import types
 
+        defaults = fn.__defaults__ and tuple(self._port_default(d) for d in fn.__defaults__)
         new = types.FunctionType(_port_code(fn.__code__), self.globals, fn.__name__,
-                                 fn.__defaults__, fn.__closure__)
-        new.__kwdefaults__ = fn.__kwdefaults__
+                                 defaults, fn.__closure__)
+        new.__kwdefaults__ = fn.__kwdefaults__ and {
+            k: self._port_default(v) for k, v in fn.__kwdefaults__.items()}
         return new
 
     def cls(self, cls):
