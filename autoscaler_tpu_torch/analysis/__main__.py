@@ -1,0 +1,7 @@
+"""``python -m autoscaler_tpu_torch.analysis`` entry point."""
+import sys
+
+from autoscaler_tpu_torch.analysis.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

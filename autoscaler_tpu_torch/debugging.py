@@ -81,7 +81,7 @@ class DebuggingSnapshotter:
                     if i is not None and any_fit[i]:
                         lost_packing_race.append(p.key())
             if now is None:
-                now = time.time()  # fallback for bare calls; replaying callers pass now
+                now = time.time()  # graftlint: disable=GL001 — operator-artifact fallback; replay-reachable callers inject now
             self._payload = {
                 "captured_at": now,
                 "node_count": len(nodes),

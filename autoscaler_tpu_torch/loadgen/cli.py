@@ -13,9 +13,8 @@ reproduce the decision log byte-for-byte.
 
 ``--device`` picks where the loop runs (default: the first CUDA card, as
 ``python -m autoscaler_tpu_torch.main`` does; ``cpu`` for the host).
-``--sanitize`` is refused: the determinism sanitizer lives in the static
-checker (``analysis/``), which the port does not have yet (ROADMAP queue
-1 item 7).
+``--sanitize`` runs ``run`` or ``replay`` under the determinism sanitizer
+(``analysis/sanitizer.py``) and exits 1 on any ambient read it traps.
 """
 from __future__ import annotations
 
@@ -78,9 +77,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                      help="actually sleep injected provider latency")
     run.add_argument("--sanitize", action="store_true",
                      help="run under the determinism sanitizer "
-                          "(analysis/sanitizer.py; not ported yet: the "
-                          "static checker is ROADMAP queue 1 item 7, and "
-                          "the flag raises)")
+                          "(analysis/sanitizer.py): trap ambient "
+                          "wall-clock/rng/environment reads in replay-"
+                          "scoped frames and exit 1 on any")
     run.add_argument("--device", default=None,
                      help="torch device of the loop (default: the first "
                           "CUDA card; 'cpu' for the host)")
@@ -218,13 +217,23 @@ def _run_fleet(spec: ScenarioSpec, report_path: str, log_path: str,
 
 
 def _sanitized(run_fn) -> int:
-    """The determinism sanitizer is part of the static checker
-    (``analysis/sanitizer.py``), which the port does not have yet: the
-    flag raises, naming its ROADMAP item, and never runs unsanitized."""
-    raise NotImplementedError(
-        "--sanitize: not ported yet (ROADMAP queue 1 item 7, the static "
-        "checker analysis/, whose sanitizer it runs under)"
-    )
+    """Execute ``run_fn`` under the runtime determinism sanitizer: any
+    ambient wall-clock/rng/environment read trapped inside a replay-scoped
+    frame fails the run with the attributed ``file:line`` report — the
+    dynamic half of the GL010 contract."""
+    from autoscaler_tpu_torch.analysis.sanitizer import DeterminismSanitizer
+
+    with DeterminismSanitizer() as san:
+        rc = run_fn()
+    if san.events:
+        print(
+            "determinism sanitizer: ambient reads inside replay-scoped "
+            "frames (each would make the replay unreproducible):",
+            file=sys.stderr,
+        )
+        print(san.report(), file=sys.stderr)
+        return 1
+    return rc
 
 
 def main(argv: Optional[List[str]] = None) -> int:

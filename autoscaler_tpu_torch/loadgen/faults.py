@@ -263,6 +263,4 @@ class FaultInjector:
             self._note("provider_latency")
             self.injected_latency_s += f.latency_s
             if self.real_sleep:
-                # opt-in wall-latency mode (real_sleep); replay drivers
-                # leave it False and count injected_latency_s instead
-                time.sleep(f.latency_s)
+                time.sleep(f.latency_s)  # graftlint: disable=GL001 — opt-in wall-latency mode (real_sleep); replay drivers leave it False and count injected_latency_s instead

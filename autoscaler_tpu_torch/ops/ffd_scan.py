@@ -66,6 +66,61 @@ SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory a Hopper block may us
 # its kernel, and nowhere else.
 LAUNCHES = {"ffd_scan_f32": 0, "ffd_scan_swar": 0}
 
+# The kernel entries' shape contracts, read by AST and never imported (GL007,
+# autoscaler_tpu_torch/analysis/contracts.py): operand dims tie across
+# operands, statics and padding as the entries' own checks enforce them, and
+# the function that models each launch's dynamic shared memory. The launch
+# grid is computed in csrc, so no contract declares one.
+KERNEL_CONTRACTS = {
+    "ffd_binpack_groups_cuda": {
+        "args": {
+            "pod_req": {"dims": ["P", "R"], "dtype": "f32"},
+            "pod_masks": {"dims": ["G", "P"], "dtype": "bool"},
+            "template_allocs": {"dims": ["G", "R"], "dtype": "f32"},
+            "node_caps": {"dims": ["G"], "dtype": "i32"},
+        },
+        "static": {"max_nodes": {"min": 1}},
+        "pad": {"P_pad": ["P", "STEP_BLOCK"]},
+        "pad_value": "+inf rows (K1) or the guard-bit sentinel (K2): inactive pods fit nowhere",
+        "smem": "smem_bytes",
+    },
+    "ffd_binpack_scenarios_cuda": {
+        "args": {
+            "scen_req": {"dims": ["S", "P", "R"], "dtype": "f32"},
+            "scen_masks": {"dims": ["S", "G", "P"], "dtype": "bool"},
+            "scen_allocs": {"dims": ["S", "G", "R"], "dtype": "f32"},
+            "scen_caps": {"dims": ["S", "G"], "dtype": "i32"},
+        },
+        "static": {"max_nodes": {"min": 1}},
+        "pad": {"P_pad": ["P", "STEP_BLOCK"]},
+        "pad_value": "+inf rows (K1) or the guard-bit sentinel (K2): inactive pods fit nowhere",
+        "smem": "smem_bytes",
+    },
+    "ffd_scan_f32": {
+        "args": {
+            "stream": {"dims": ["G", "P_pad", "NP"]},
+            "allocs": {"dims": ["G", "NP"]},
+            "caps": {"dims": ["G"], "dtype": "i32"},
+        },
+        "static": {"max_nodes": {"min": 1}},
+        "pad": {"P_pad": ["P", "STEP_BLOCK"]},
+        "smem": "smem_bytes",
+        "notes": "K1: f32 stream and allocs, contiguous",
+    },
+    "ffd_scan_swar": {
+        "args": {
+            "stream": {"dims": ["G", "P_pad", "NP"]},
+            "allocs": {"dims": ["G", "NP"]},
+            "caps": {"dims": ["G"], "dtype": "i32"},
+            "guards": {"dims": ["NP"], "dtype": "i32"},
+        },
+        "static": {"max_nodes": {"min": 1}},
+        "pad": {"P_pad": ["P", "STEP_BLOCK"]},
+        "smem": "smem_bytes",
+        "notes": "K2: i32 SWAR-packed stream and allocs, contiguous",
+    },
+}
+
 
 def operands_from_numpy(
     pod_req, pod_masks, template_allocs, node_caps=None, device=None, upload=None
@@ -573,8 +628,10 @@ def _scan_plain_swar(stream, allocs, caps, guards, max_nodes, stats=None, node_o
 
 
 def _check_kernel_operands(stream, allocs, caps, guards, max_nodes, dtype):
-    if stream.device.type != "cuda":
-        raise ValueError(f"the scan kernels run on CUDA tensors, got {stream.device}")
+    """The kernels' operand checks, on either device (the plain versions
+    take exactly what the kernels take)."""
+    if not isinstance(stream, torch.Tensor) or stream.dim() != 3:
+        raise ValueError("stream must be a 3-d tensor")
     G, P_pad, NP = stream.shape
     named = [("stream", stream, dtype, (G, P_pad, NP)),
              ("allocs", allocs, dtype, (G, NP)),
@@ -591,6 +648,11 @@ def _check_kernel_operands(stream, allocs, caps, guards, max_nodes, dtype):
             f"P_pad ({P_pad}) must be a multiple of {STEP_BLOCK}, "
             f"max_nodes ({max_nodes}) >= 1"
         )
+
+
+def _require_cuda(stream):
+    if stream.device.type != "cuda":
+        raise ValueError(f"the scan kernels run on CUDA or CPU tensors, got {stream.device}")
 
 
 def _launch(name, stream, allocs, caps, guards, max_nodes, node_of=False):
@@ -626,18 +688,20 @@ def smem_bytes(planes: int, max_nodes: int) -> int:
 def ffd_scan_f32(stream, allocs, caps, max_nodes, node_of=False):
     """K1: the f32 scan. CUDA tensors launch the kernel; CPU tensors run
     the plain version. ``node_of`` adds the node each pod took."""
+    _check_kernel_operands(stream, allocs, caps, None, max_nodes, torch.float32)
     if stream.device.type == "cpu":
         return _scan_plain_f32(stream, allocs, caps, max_nodes, node_of=node_of)
-    _check_kernel_operands(stream, allocs, caps, None, max_nodes, torch.float32)
+    _require_cuda(stream)
     return _launch("ffd_scan_f32", stream, allocs, caps, None, max_nodes, node_of)
 
 
 def ffd_scan_swar(stream, allocs, caps, guards, max_nodes, node_of=False):
     """K2: the SWAR scan. CUDA tensors launch the kernel; CPU tensors run
     the plain version. ``node_of`` adds the node each pod took."""
+    _check_kernel_operands(stream, allocs, caps, guards, max_nodes, torch.int32)
     if stream.device.type == "cpu":
         return _scan_plain_swar(stream, allocs, caps, guards, max_nodes, node_of=node_of)
-    _check_kernel_operands(stream, allocs, caps, guards, max_nodes, torch.int32)
+    _require_cuda(stream)
     return _launch("ffd_scan_swar", stream, allocs, caps, guards, max_nodes, node_of)
 
 

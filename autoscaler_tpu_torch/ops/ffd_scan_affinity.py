@@ -67,6 +67,32 @@ WARP_BLOCKS = 4          # candidate blocks a warp tests a round (kWarpBlocks th
 # and nowhere else.
 LAUNCHES = {"ffd_scan_aff": 0}
 
+# The kernel entries' shape contracts, read by AST and never imported (GL007,
+# autoscaler_tpu_torch/analysis/contracts.py): operand dims tie across
+# operands, statics and padding as the entries' own checks enforce them, and
+# the function that models each launch's dynamic shared memory. The launch
+# grid is computed in csrc, so no contract declares one.
+KERNEL_CONTRACTS = {
+    "ffd_binpack_groups_affinity_cuda": {
+        "args": {
+            "pod_req": {"dims": ["P", "R"], "dtype": "f32"},
+            "pod_masks": {"dims": ["G", "P"], "dtype": "bool"},
+            "template_allocs": {"dims": ["G", "R"], "dtype": "f32"},
+            "match": {"dims": ["T", "P"], "dtype": "bool"},
+            "aff_of": {"dims": ["T", "P"], "dtype": "bool"},
+            "anti_of": {"dims": ["T", "P"], "dtype": "bool"},
+            "node_level": {"dims": ["T"], "dtype": "bool"},
+            "has_label": {"dims": ["G", "T"], "dtype": "bool"},
+            "node_caps": {"dims": ["G"], "dtype": "i32"},
+        },
+        "static": {"max_nodes": {"min": 1}},
+        "pad": {"P_pad": ["P", "STEP_BLOCK"]},
+        "pad_value": "+inf request rows: inactive pods sort last and fit nowhere",
+        "smem": "affinity_smem_bytes",
+        "notes": "spread: the 11-tensor tuple, at most MAX_SPREAD terms",
+    },
+}
+
 # The numpy dtype of each element of the 11-array spread tuple
 # (sp_of_T, sp_match_T, node_level, max_skew, min_domains, has_label,
 # static_count, min_others, static_min, static_domnum, force_zero).
@@ -446,9 +472,9 @@ def _gate_work(work, b, fits, first, opened, act, group_ok, node_ids, TP, S, spr
 
 
 def _check_kernel_operands(ops: AffScanOperands):
+    """The kernel's operand checks, on either device (the plain version
+    takes exactly what the kernel takes)."""
     stream = ops.stream
-    if stream.device.type != "cuda":
-        raise ValueError(f"the scan kernel runs on CUDA tensors, got {stream.device}")
     G, P_pad, R = stream.shape
     TP, S = ops.num_planes, ops.num_spread
     NB = 3 * TP + (2 if S else 0)
@@ -479,9 +505,11 @@ def ffd_scan_aff(ops: AffScanOperands):
     CUDA tensors launch the kernel; CPU tensors run the plain version."""
     args = (ops.stream, ops.bits, ops.allocs, ops.caps, ops.nl, ops.hl, ops.spstat,
             ops.num_planes, ops.num_spread, ops.max_nodes)
+    _check_kernel_operands(ops)
     if ops.stream.device.type == "cpu":
         return _scan_plain_aff(*args)
-    _check_kernel_operands(ops)
+    if ops.stream.device.type != "cuda":
+        raise ValueError(f"the scan kernel runs on CUDA or CPU tensors, got {ops.stream.device}")
     G, P_pad, R = ops.stream.shape
     dev = ops.stream.device
     M = ops.max_nodes

@@ -59,6 +59,38 @@ TILE = 256
 # launches its entry, and nowhere else.
 LAUNCHES = {"fit_reduce": 0, "fit_reduce_rows": 0}
 
+# The kernel entries' shape contracts, read by AST and never imported (GL007,
+# autoscaler_tpu_torch/analysis/contracts.py): operand dims tie across
+# operands, statics and padding as the entries' own checks enforce them, and
+# the function that models each launch's dynamic shared memory. The launch
+# grid is computed in csrc, so no contract declares one.
+KERNEL_CONTRACTS = {
+    "fit_reduce_cuda": {
+        "args": {
+            "pod_req": {"dims": ["P", "R"], "dtype": "f32"},
+            "free": {"dims": ["N", "R"], "dtype": "f32"},
+            "pod_class": {"dims": ["P"], "dtype": "i32"},
+            "node_class": {"dims": ["N"], "dtype": "i32"},
+            "class_mask": {"dims": ["CP", "CN"], "dtype": "bool"},
+            "node_valid": {"dims": ["N"], "dtype": "bool"},
+        },
+        "pad_value": "class -1: a pod never schedulable, an invalid node",
+        "smem": "smem_bytes",
+        "notes": "contiguous operands on the card",
+    },
+    "fit_reduce_rows": {
+        "args": {
+            "pod_req": {"dims": ["S", "R"], "dtype": "f32"},
+            "free": {"dims": ["N", "R"], "dtype": "f32"},
+            "rows": {"dims": ["S", "N"], "dtype": "bool"},
+            "slots": {"dims": ["S"], "dtype": "i32"},
+        },
+        "pad_value": "a negative slot: a padding row, counted as fitting nowhere",
+        "smem": "rows_smem_bytes",
+        "notes": "contiguous operands on the card",
+    },
+}
+
 
 class FitReduction(NamedTuple):
     any_fit: torch.Tensor    # [P] bool

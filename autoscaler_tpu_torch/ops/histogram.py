@@ -27,6 +27,21 @@ from autoscaler_tpu_torch.trace.device import device_annotation
 # nowhere else.
 LAUNCHES = {"ordered_scatter_add": 0}
 
+# K5's shape contract, read by AST and never imported (GL007,
+# autoscaler_tpu_torch/analysis/contracts.py). K5 launches with no dynamic
+# shared memory, and its grid is computed in csrc/histogram.cu.
+KERNEL_CONTRACTS = {
+    "ordered_scatter_add": {
+        "args": {
+            "target": {"dims": ["N"], "dtype": "f32"},
+            "index": {"dims": ["K"]},
+            "values": {"dims": ["K"], "dtype": "f32"},
+        },
+        "pad_value": "an index outside [0, N): the pair is dropped",
+        "notes": "index i32 or i64; target contiguous; N and K under 2**31",
+    },
+}
+
 
 def _check_operands(target, index, values):
     if not isinstance(target, torch.Tensor) or target.dtype != torch.float32 \

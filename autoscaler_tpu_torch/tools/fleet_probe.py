@@ -599,8 +599,10 @@ def hold_scenarios(worlds, device=None) -> list:
     for label, req, masks, allocs, caps, M in worlds:
         args = [torch.tensor(a, device=dev) for a in (req, masks, allocs, caps)]
         before = dict(ffd_scan.LAUNCHES)
+        # graftlint: disable=GL003 — the probe holds the kernel against its plain version and oracle directly, by design: it measures the kernel, not the ladder
         got = ffd_scan.ffd_binpack_scenarios_cuda(*args[:3], M, args[3])
         route = [k for k in ffd_scan.LAUNCHES if ffd_scan.LAUNCHES[k] != before[k]]
+        # graftlint: disable=GL003 — the probe holds the kernel against its plain version and oracle directly, by design: it measures the kernel, not the ladder
         want = ffd_binpack_scenarios(*args[:3], max_nodes=M, scen_caps=args[3])
         oc, os_ = scenario_binpack_reference(req, masks, allocs, M, caps)
         differ, err = [], 0.0
@@ -754,6 +756,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         req, masks, allocs, caps = wl.build_workload()
         ops = ffd_scan.operands_from_numpy(req, masks, allocs, caps, dev)
+        # graftlint: disable=GL003 — the probe holds the kernel against its plain version and oracle directly, by design: it measures the kernel, not the ladder
         ref = ffd_scan.ffd_binpack_groups_cuda(*ops[:3], wl.HEADLINE_MAX_NODES, ops[3])
         t1 = time.perf_counter()
         res, w = whatif_path(dev, req, masks, allocs, caps, wl.HEADLINE_MAX_NODES)
@@ -767,6 +770,7 @@ def main(argv=None) -> int:
         aff = ffd_scan_affinity.affinity_operands_from_numpy(*wl.build_affinity_workload(
             wl.AFFINITY_PODS, wl.AFFINITY_GROUPS, wl.AFFINITY_TERMS), device=dev)
         got = affinity_path(dev, aff, wl.AFFINITY_MAX_NODES)
+        # graftlint: disable=GL003 — the probe holds the kernel against its plain version and oracle directly, by design: it measures the kernel, not the ladder
         want = ffd_scan_affinity.ffd_binpack_groups_affinity_cuda(
             **aff, max_nodes=wl.AFFINITY_MAX_NODES)
         bad += [f"affinity {f}" for f, a, b in zip(want._fields, want, got)

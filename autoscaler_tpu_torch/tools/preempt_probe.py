@@ -305,10 +305,13 @@ def hold_plain(worlds, device=None) -> list:
     for w in worlds:
         t = {k: torch.tensor(w[k], device=dev) for k in OPERANDS}
         t0 = time.perf_counter()
+        # graftlint: disable=GL003 — the probe holds the kernel against its plain version and oracle directly, by design: it measures the kernel, not the ladder
         main = [x.cpu().numpy() for x in ffd_binpack_preempt(**t)]
         t1 = time.perf_counter()
+        # graftlint: disable=GL003 — the probe holds the kernel against its plain version and oracle directly, by design: it measures the kernel, not the ladder
         plain = [x.cpu().numpy() for x in ffd_binpack_preempt_plain(**t)]
         t2 = time.perf_counter()
+        # graftlint: disable=GL003 — the probe holds the kernel against its plain version and oracle directly, by design: it measures the kernel, not the ladder
         oracle = ffd_binpack_preempt_reference(*(w[k] for k in OPERANDS))
         t3 = time.perf_counter()
         differ, err = [], 0.0

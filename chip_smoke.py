@@ -290,7 +290,23 @@ Phases (any failure raises and exits non-zero):
    batches bit for bit, K5, its whole call and ``index_add_`` on the card
    timed on the largest, and the admission webhook over (z)'s
    recommendations over HTTP, and over HTTPS where ``cryptography``
-   imports (the script prints which) (4t);
+   imports (the script prints which) (4t); the static checker and its
+   determinism sanitizer (``tools/analysis_probe``): graftlint over the
+   port's whole tree with no baseline, in a CPU worker begun at 3w, with
+   zero findings; the JAX package's ``kernel_fault_ladder`` scenario built
+   in code (the estimator's cuda and torch rungs faulted at tick 2,
+   cleared at tick 10, a burst of 64 pods of distinct sizes at ticks 1
+   and 14, so K2 launches) through the loadgen CLI on the card: ``run
+   --sanitize --trace``, then ``replay --sanitize`` and a plain
+   ``replay``, no ambient read trapped, the sanitized replay's report and
+   log equal to the run's (walls aside), its K2 launches counted on the
+   kernels line as a path's; and the kernel contracts' ground truth: each entry that
+   declares ``KERNEL_CONTRACTS`` (K1/K2 through ``ffd_binpack_groups_cuda``,
+   ``ffd_binpack_scenarios_cuda``, ``ffd_scan_f32`` and ``ffd_scan_swar``,
+   K3 through ``ffd_binpack_groups_affinity_cuda``, K4, its rows entry and
+   K5) on 10 seeded worlds each, well-formed and perturbed, the contract's
+   verdict equal to the launch's success and every accepted launch bit-equal
+   to the entry's plain version (4u);
 5. the estimator's services: (a) each of (o)'s perf records (residency
    pools, the arena's delta rows, dispatches by route) and the ladder's
    proof over every path so far: no fault attempt, no breaker transition;
@@ -585,6 +601,14 @@ def cpu_vpa():
     return time.perf_counter() - t0, vpa_probe.comparable(result)
 
 
+def cpu_lint():
+    """4u's graftlint over the port's tree (``tools/analysis_probe.lint_tree``),
+    in a worker → its files, findings, suppressions and seconds."""
+    from autoscaler_tpu_torch.tools import analysis_probe
+
+    return analysis_probe.lint_tree()
+
+
 def main() -> int:
     global _POOL
     # a crash in native code (a kernel's host side, a library) prints every
@@ -622,6 +646,7 @@ def main() -> int:
     from autoscaler_tpu_torch.main import ObservabilityServer
     from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
     from autoscaler_tpu_torch.tools import (
+        analysis_probe,
         bound_loop,
         drill_probe,
         fleet_probe,
@@ -1431,6 +1456,7 @@ def main() -> int:
     cpu_jobs["drill 4r"] = _POOL.apply_async(cpu_drill, ())
     cpu_jobs["tune 4s"] = _POOL.apply_async(cpu_tune, ())
     cpu_jobs["vpa 4t"] = _POOL.apply_async(cpu_vpa, ())
+    cpu_jobs["lint 4u"] = _POOL.apply_async(cpu_lint, ())
     # 3w: Cluster Autoscaler's scalability drill at full size through
     # run_scenario on the card: 30 000 pods on 1 000 nodes, then 300
     # emptied nodes deleted
@@ -2419,6 +2445,61 @@ def main() -> int:
           f"vpa 4t: admission webhook {hooks}")
     del vpa_card, vpa_world, cpu_view, card_view
     phase("4t the VPA recommender on the card and the CPU", t0)
+
+    # 4u: the static checker and its sanitizer (tools/analysis_probe). (a)
+    # graftlint over the port's tree with no baseline, from the worker begun
+    # at 3w; (b) the fault-ladder scenario through the loadgen CLI on the
+    # card: run --sanitize --trace, replay --sanitize, a plain replay; its
+    # launches are a path's, counted from 0; (c) the kernel contracts'
+    # ground truth
+    t0 = time.perf_counter()
+    lint = cpu_jobs.pop("lint 4u").get(CPU_WAIT_S)
+    print(f"# lint 4u: {lint['files']} files, {len(lint['findings'])} findings with no "
+          f"baseline, suppressed by rule {lint['suppressed']}; {lint['seconds']:.3f} s host "
+          f"clock in a CPU worker", flush=True)
+    check(lint["files"] > 200 and not lint["findings"], f"lint 4u: {lint['findings'][:20]}")
+    for d in counters:
+        for k in d:
+            d[k] = 0
+    replay = analysis_probe.ladder_replay(analysis_probe.fault_ladder_doc(), dev,
+                                          workdir=os.path.join(root, "build"))
+    counts = {**ffd_scan.LAUNCHES, **ffd_scan_affinity.LAUNCHES, **fit_reduce.LAUNCHES,
+              **ops_histogram.LAUNCHES}
+    for name in launches:
+        launches[name] += counts[name]
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print(f"# sanitized replay 4u: exit codes {replay['rc']} (sanitized run, sanitized "
+          f"replay, replay), {len(replay['events'])} events, report and log equal to the run's "
+          f"{replay['equal']}, ticks with errors {replay['ticks_with_errors']}; sanitized run "
+          f"{replay['run_s']:.3f} s, sanitized replay {replay['sanitized_s']:.3f} s, replay "
+          f"{replay['replay_s']:.3f} s, the sanitizer's cost {replay['sanitizer_s']:.3f} s "
+          f"host clock; launches {counts}", flush=True)
+    bad = analysis_probe.replay_problems(replay)
+    check(not bad and counts["ffd_scan_swar"] > 0,
+          f"sanitized replay 4u: {bad}, K2 launches {counts['ffd_scan_swar']}")
+    t_truth = time.perf_counter()
+    rows = analysis_probe.ground_truth(analysis_probe.contract_worlds(), dev)
+    t_truth = time.perf_counter() - t_truth
+    by_entry = {}
+    for r in rows:
+        e = by_entry.setdefault(r["entry"], {"accepted": 0, "refused": 0, "bit_equal": 0,
+                                             "launched": set()})
+        e["accepted" if r["accepted"] else "refused"] += 1
+        e["bit_equal"] += int(r.get("bit_equal", False))
+        e["launched"].update(r["launched"])
+    for entry, e in by_entry.items():
+        print(f"# contracts 4u: {entry}: {e['accepted']} worlds accepted and launched "
+              f"{sorted(e['launched'])}, {e['bit_equal']} bit-equal to the plain version, "
+              f"{e['refused']} refused, each as its contract's verdict", flush=True)
+    bad = analysis_probe.truth_problems(rows)
+    check(not bad, f"contracts 4u: {bad}")
+    for entry, e in by_entry.items():
+        check(e["bit_equal"] == e["accepted"] > 0
+              and set(analysis_probe.KERNEL_OF[entry]) & e["launched"],
+              f"contracts 4u: {entry}: {e}")
+    print(f"# contracts 4u: {len(rows)} worlds in {t_truth:.3f} s host clock", flush=True)
+    phase("4u the static checker, the sanitized replay and the kernel contracts", t0)
 
     # 5a: what 3o's ticks left in the perf observatory (one record a tick,
     # /perfz's body) and the ladder's proof: since the process started, no

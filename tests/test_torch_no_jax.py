@@ -857,3 +857,83 @@ def test_vpa_entry_points_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
     assert recommender.ClusterStateModel(device="cpu").cpu.weights.device.type == "cpu"
+
+
+ANALYSIS = sorted(
+    p.name for p in (REPO / "autoscaler_tpu" / "analysis").iterdir()
+    if p.suffix in (".py", ".md")
+)
+
+
+def test_analysis_modules_are_ported():
+    """Every module of the JAX package's analysis/ (and RULES.md) has its
+    namesake in the port's, and the port keeps no baseline file."""
+    for name in ANALYSIS:
+        assert (PORT / "analysis" / name).is_file(), name
+    assert not (PORT / "analysis" / "lint-baseline.json").exists()
+    assert "autoscaler_tpu_torch/tools/analysis_probe.py" in PORT_FILES
+
+
+@pytest.mark.parametrize("name", [n for n in ANALYSIS if n.endswith(".py")])
+def test_analysis_imports_only_the_stdlib_and_itself(name):
+    """The port's analysis is stdlib-only like its twin: every import is
+    of the standard library or of autoscaler_tpu_torch.analysis."""
+    tree = ast.parse((PORT / "analysis" / name).read_text(encoding="utf-8"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert n == "autoscaler_tpu_torch" or n.startswith("autoscaler_tpu_torch.analysis") \
+                or top in sys.stdlib_module_names, f"{name}:{node.lineno} imports {n}"
+
+
+_ANALYSIS_BLOCKED = r"""
+import contextlib, io, sys
+for name in ("jax", "jaxlib", "autoscaler_tpu", "torch", "numpy"):
+    sys.modules[name] = None
+from autoscaler_tpu_torch.analysis import scan_paths
+from autoscaler_tpu_torch.analysis.cli import main
+from autoscaler_tpu_torch.analysis.sanitizer import DeterminismSanitizer
+found = scan_paths(["autoscaler_tpu_torch/analysis"])
+with DeterminismSanitizer() as san:
+    pass
+with contextlib.redirect_stdout(io.StringIO()):
+    rc = main(["autoscaler_tpu_torch/analysis", "--no-baseline", "--format=json"])
+print("OK", len(found), rc, san.events)
+"""
+
+
+def test_analysis_runs_with_jax_the_jax_package_torch_and_numpy_blocked():
+    """The linter, its CLI and the sanitizer import and run with jax, the
+    JAX package, torch and numpy all blocked (stdlib only)."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", _ANALYSIS_BLOCKED], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "OK 0 0 []", proc.stdout
+
+
+def test_analysis_probe_runs_without_jax():
+    """tools/analysis_probe's sanitized replay and contract worlds on the
+    CPU with jax and the JAX package blocked."""
+    code = r"""
+import sys
+for name in ("jax", "jaxlib", "autoscaler_tpu"):
+    sys.modules[name] = None
+from autoscaler_tpu_torch.tools import analysis_probe as ap
+out = ap.ladder_replay(ap.fault_ladder_doc(), "cpu")
+rows = ap.ground_truth(ap.contract_worlds(2), "cpu")
+print("OK", ap.replay_problems(out), ap.truth_problems(rows), len(rows))
+"""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "OK [] [] 16", proc.stdout
