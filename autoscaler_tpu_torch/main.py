@@ -25,8 +25,14 @@ externalgrpc-ref, ``--cloud-config``, ``--kubeconfig``). ``/perfz``
 serves the perf observatory's per-tick records (``--perf-enabled``), with
 the cost model behind ``--perf-cost-model``; ``/health-check``, ``/status``
 and the status ConfigMap report the estimator's tripped kernel rungs.
-``--compile-cache-dir`` is accepted and has no effect: the port's kernels
-build into ``build/kernels/`` of the checkout at first use.
+``--compile-cache-dir`` names the directory of the kernel libraries
+(``ops/_build.py``; without it, ``build/kernels/`` of a checkout or the
+installed default): on a card, ``main`` loads every library the loop
+launches from there before the first tick, building the missing ones all
+at once, and ends with a non-zero exit before any tick when a build fails
+or a library is missing with no ``nvcc``. An image's prebuild
+(``python -m autoscaler_tpu_torch.ops.build_kernels``) makes that load
+compile nothing.
 """
 from __future__ import annotations
 
@@ -233,11 +239,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--compile-cache-dir", "--jax-compilation-cache-dir",
                    dest="compile_cache_dir",
                    default="/tmp/autoscaler_tpu_xla_cache",
-                   help="accepted for command-line compatibility and has no "
-                        "effect in the port, whose kernels build into "
-                        "build/kernels/ of the checkout at first use; the "
-                        "default is the JAX package's XLA cache path, kept so "
-                        "that both packages' options compare equal")
+                   help="directory of the CUDA kernel libraries (and of the "
+                        "native rung's, in its native/): on a card every "
+                        "library the loop launches is loaded from it before "
+                        "the first tick, the missing ones built there with "
+                        "nvcc; a prebuilt directory (python -m "
+                        "autoscaler_tpu_torch.ops.build_kernels --out DIR) "
+                        "makes the start compile nothing. Without the flag, "
+                        "build/kernels/ of a checkout or the installed "
+                        "default; the value shown is the JAX package's XLA "
+                        "cache path, kept so that both packages' options "
+                        "compare equal, and is not read unless given")
     p.add_argument("--arena-enabled", type=_bool_flag, default=False,
                    help="resident device arena: keep packed snapshot "
                         "tensors on-device across ticks and ship only "
@@ -963,20 +975,53 @@ def run_loop(
         time.sleep(max(scan_interval_s - elapsed, 0.0))
 
 
+def kernel_dir(args: argparse.Namespace, argv=None) -> Optional[str]:
+    """The ``--compile-cache-dir`` given on the command line, or None when
+    it was not given (or given empty): its parser default is the JAX
+    package's XLA path, which the port does not read."""
+    given = sys.argv[1:] if argv is None else argv
+    if any(a.startswith(("--compile", "--jax-compilation")) for a in given):
+        return args.compile_cache_dir or None
+    return None
+
+
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
+    chosen = kernel_dir(args, argv)
+    if chosen is None:
+        return _main(args)
+    from autoscaler_tpu_torch.ops import _build
+
+    with _build.build_dir(chosen):
+        return _main(args)
+
+
+def preload_kernels(device) -> Optional[str]:
+    """On a card, every library the loop launches (and the sidecar that
+    serves its estimates), loaded before the first tick or request (the
+    missing ones built at once); logs the seconds and how many
+    compilers ran. → None, or the error that ends the process. On the
+    CPU nothing is built or loaded."""
+    if device.type != "cuda":
+        return None
+    from autoscaler_tpu_torch.ops import _build
+
+    try:
+        secs, compilers = _build.preload(*_build.LOOP_SOURCES)
+    except (RuntimeError, OSError) as e:
+        return f"kernel libraries in {_build.BUILD_DIR} failed to load: {e}"
+    print(f"tpu-autoscaler: kernel libraries {', '.join(_build.LOOP_SOURCES)} loaded "
+          f"from {_build.BUILD_DIR} in {secs:.3f} s, {compilers} compilers ran",
+          flush=True)
+    return None
+
+
+def _main(args: argparse.Namespace) -> int:
     opts = options_from_args(args)
     from autoscaler_tpu_torch.utils import klogx
 
     klogx.set_verbosity(args.v)
     logging.basicConfig(level=logging.INFO)
-
-    given = sys.argv[1:] if argv is None else argv
-    if any(a.startswith(("--compile", "--jax-compilation")) for a in given):
-        # accepted for command-line compatibility, as --parallel-drain is
-        print("NOTE: --compile-cache-dir has no effect in the port: its "
-              "kernels build into build/kernels/ of the checkout at first "
-              "use", file=sys.stderr)
 
     from autoscaler_tpu_torch.core.static_autoscaler import StaticAutoscaler
     from autoscaler_tpu_torch.debugging import DebuggingSnapshotter
@@ -1197,6 +1242,12 @@ def main(argv=None) -> int:
         debugger=DebuggingSnapshotter() if opts.debugging_snapshot_enabled else None,
         device=args.device,
     )
+    failed = preload_kernels(autoscaler.device)
+    if failed is not None:
+        # no tick runs without its kernels: nothing descends to the torch
+        # rung or the host
+        print(failed, file=sys.stderr)
+        return 1
     server = ObservabilityServer(autoscaler, args.address, profiling=args.profiling)
     port = server.start()
     print(f"tpu-autoscaler: observability on :{port}, scan interval "

@@ -3,9 +3,11 @@ estimator's native rung.
 
 The port of ``autoscaler_tpu/native_bridge.py``, with one change: the
 library is built at first use with
-``g++ -O3 -shared -fPIC -ffp-contract=off -std=c++17`` into
-``build/native/`` at the root of the checkout (a directory git ignores),
-under a name keyed by a hash of the source and the flags, as
+``g++ -O3 -shared -fPIC -ffp-contract=off -std=c++17`` into the
+``native/`` subdirectory of the kernels' directory (``ops/_build.py``:
+``build/kernels/native/`` in a checkout, the installed default or
+``--compile-cache-dir`` otherwise; ``ops/build_kernels`` prebuilds it
+there), under a name keyed by a hash of the source and the flags, as
 ``ops/_build.py`` keys the CUDA kernels. It is never built beside its
 source, and nothing is built at import. When there is no ``g++`` or the
 build fails, ``available()`` is false and ``build_error()`` says why.
@@ -23,9 +25,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from autoscaler_tpu_torch.ops import _build
+
 _PKG = Path(__file__).resolve().parent
 SRC = _PKG / "csrc" / "ffd_serial.cpp"
-BUILD_DIR = _PKG.parent / "build" / "native"
 # IEEE per-op rounding: the FFD score spec must be bit-identical to numpy
 # and the kernels (no FMA contraction)
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off", "-std=c++17")
@@ -36,15 +39,17 @@ _build_error: Optional[str] = None
 
 
 def lib_path() -> Path:
+    """The keyed library in ``native/`` of ``_build.BUILD_DIR``, read now."""
     key = hashlib.sha256(SRC.read_bytes() + " ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"libffd_serial-{key.hexdigest()[:16]}.so"
+    return _build.BUILD_DIR / "native" / f"libffd_serial-{key.hexdigest()[:16]}.so"
 
 
-def _build(lib: Path) -> None:
+def build(lib: Path) -> None:
+    """Compile the library into ``lib`` (the prebuild calls this too)."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the native rung cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
     proc = subprocess.run(
         [gxx, *GXX_FLAGS, str(SRC), "-o", str(tmp)],
@@ -66,7 +71,7 @@ def _ensure_built() -> Optional[ctypes.CDLL]:
         try:
             lib_file = lib_path()
             if not lib_file.exists():
-                _build(lib_file)
+                build(lib_file)
             lib = ctypes.CDLL(str(lib_file))
             lib.ffd_binpack_serial.restype = ctypes.c_int32
             lib.ffd_binpack_serial.argtypes = [

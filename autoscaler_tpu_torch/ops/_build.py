@@ -12,27 +12,55 @@ loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
 - ``histogram``: the ordered scatter-add K5 of the VPA's histogram bank
   (``ops/histogram.py``).
 
-A source is built at first use, into ``build/kernels/`` at the root of the
-checkout (a directory git ignores), under a name keyed by a hash of the
-source and the flags, so a changed source is rebuilt and an unchanged one
-is reused. ``build(*names)`` starts one ``nvcc`` for each source that is
-not built yet, all at once, and waits for them. Nothing here runs at
-import: the CPU tests import every module.
+Every library lives in one directory, ``BUILD_DIR``, read at call time,
+under a name keyed by a hash of the source and the flags, so a changed
+source is rebuilt and an unchanged one is reused. Its default depends on
+where the package sits:
+
+- in a checkout (``pyproject.toml`` beside the package), ``build/kernels/``
+  at its root, a directory git ignores;
+- installed, ``<sys.prefix>/share/autoscaler_tpu_torch/kernels``: a fixed
+  place outside the package, which never writes into its own install
+  location. An image fills it ahead of time with
+  ``python -m autoscaler_tpu_torch.ops.build_kernels``.
+
+``build_dir(path)`` selects another directory for a block (the entry
+point's ``--compile-cache-dir``), the native rung's library
+(``native_bridge.py``) following it into its ``native/`` subdirectory.
+``build(*names)`` starts one ``nvcc`` for each source whose library is not
+there yet, all at once, counts them in ``COMPILERS_STARTED`` and waits
+for them; a missing library with no ``nvcc`` raises, naming the directory,
+the source and the key it looked for. ``preload`` builds what is missing
+and loads the libraries a process launches, before its first tick.
+Nothing here runs at import: the CPU tests import every module.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
+import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterator, List, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "kernels"
+
+
+def default_dir() -> Path:
+    """``build/kernels/`` of the checkout the package sits in, else the
+    installed default outside the package (see the module docstring)."""
+    if (_PKG.parent / "pyproject.toml").is_file():
+        return _PKG.parent / "build" / "kernels"
+    return Path(sys.prefix) / "share" / "autoscaler_tpu_torch" / "kernels"
+
+
+BUILD_DIR = default_dir()
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -70,6 +98,10 @@ _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each source's build
 BUILD_LOGS: Dict[str, str] = {}
+# nvcc processes build() has started in this process
+COMPILERS_STARTED = 0
+# the sources the reconcile loop launches: K1/K2, K3, K4 and its rows entry
+LOOP_SOURCES = ("ffd_scan", "ffd_scan_affinity", "fit_reduce")
 
 
 def source(name: str) -> Path:
@@ -89,9 +121,38 @@ def _nvcc() -> str:
     return found
 
 
+def _key(name: str) -> str:
+    digest = hashlib.sha256(source(name).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def _lib_path(name: str) -> Path:
-    key = hashlib.sha256(source(name).read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}-{_key(name)}.so"
+
+
+@contextlib.contextmanager
+def build_dir(path) -> Iterator[Path]:
+    """Within the block, the kernel libraries live in ``path`` and the
+    native rung's in its ``native/``; the previous directory comes back
+    after it."""
+    global BUILD_DIR
+    before = BUILD_DIR
+    BUILD_DIR = Path(path).absolute()
+    try:
+        yield BUILD_DIR
+    finally:
+        BUILD_DIR = before
+
+
+def _compiler(missing: List[str]) -> str:
+    """nvcc, or an error naming what ``BUILD_DIR`` lacks."""
+    try:
+        return _nvcc()
+    except RuntimeError as e:
+        wanted = "; ".join(f"{name}-{_key(name)}.so (source {source(name)}, key {_key(name)})"
+                           for name in missing)
+        raise RuntimeError(f"{e}, and {BUILD_DIR} holds no prebuilt library for "
+                           f"{wanted}") from None
 
 
 def build(*names: str) -> Dict[str, Path]:
@@ -99,21 +160,26 @@ def build(*names: str) -> Dict[str, Path]:
     their keyed shared libraries, those not built yet all at once, and
     return each library's path. Each compiler's ptxas report lands in
     BUILD_LOGS and beside its library as ``.log``."""
+    global COMPILERS_STARTED
     names = names or tuple(SIGNATURES)
     out = {name: _lib_path(name) for name in names}
+    missing = [name for name, lib in out.items() if not lib.exists()]
+    for name in out.keys() - set(missing):
+        log = out[name].with_suffix(".log")
+        if name not in BUILD_LOGS and log.exists():
+            BUILD_LOGS[name] = log.read_text()
     running = []
-    for name, lib in out.items():
-        log = lib.with_suffix(".log")
-        if lib.exists():
-            if name not in BUILD_LOGS and log.exists():
-                BUILD_LOGS[name] = log.read_text()
-            continue
+    if missing:
+        nvcc = _compiler(missing)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for name in missing:
+        lib = out[name]
         tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd: List[str] = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source(name))]
+        cmd: List[str] = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source(name))]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )
+        COMPILERS_STARTED += 1
         running.append((name, lib, tmp, proc))
     failures = []
     for name, lib, tmp, proc in running:
@@ -146,6 +212,18 @@ def load(name: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return _LIBS[name]
+
+
+def preload(*names: str) -> Tuple[float, int]:
+    """Build what is missing of the named sources, all at once, then load
+    each: what a process on a card runs before its first tick, so that no
+    tick compiles. → (seconds taken, compilers started)."""
+    t0 = time.perf_counter()
+    before = COMPILERS_STARTED
+    build(*names)
+    for name in names:
+        load(name)
+    return time.perf_counter() - t0, COMPILERS_STARTED - before
 
 
 def check(err: int, what: str) -> None:

@@ -23,19 +23,23 @@ Graceful drain (the ARCHITECTURE.md "Fleet overload & drain" lifecycle):
       → server.stop(--fleet-drain-grace-s) and exit 0.
 
 The port of ``autoscaler_tpu/rpc/__main__.py``, with ``--device`` (default:
-the first CUDA card; ``cpu`` runs the ops on the host) as the port's
-``main.py`` takes it.
+the first CUDA card; ``cpu`` runs the ops on the host) and
+``--compile-cache-dir`` as the port's ``main.py`` takes them: on a card the
+sidecar loads every kernel library it can launch before it binds its port,
+and ends non-zero if one is missing and cannot be built.
 """
 from __future__ import annotations
 
 import argparse
 import signal
+import sys
 import threading
 
 from autoscaler_tpu_torch.config.options import AutoscalingOptions
+from autoscaler_tpu_torch.device import resolve_device
 from autoscaler_tpu_torch.fleet import FleetCoalescer
 from autoscaler_tpu_torch.fleet.buckets import DEFAULT_BUCKETS
-from autoscaler_tpu_torch.main import _bool_flag
+from autoscaler_tpu_torch.main import _bool_flag, preload_kernels
 from autoscaler_tpu_torch.rpc.service import (
     DrainState,
     drain_server,
@@ -91,11 +95,31 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="torch device the sidecar's ops and coalescer run "
                         "on (default: the first CUDA card; 'cpu' runs the "
                         "plain versions on the host)")
+    p.add_argument("--compile-cache-dir", default="",
+                   help="directory of the CUDA kernel libraries, as the host "
+                        "process takes it: on a card every library is loaded "
+                        "from it before the port is bound, the missing ones "
+                        "built there with nvcc (default: build/kernels/ of a "
+                        "checkout, else the installed default)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
+    if not args.compile_cache_dir:
+        return _serve(args)
+    from autoscaler_tpu_torch.ops import _build
+
+    with _build.build_dir(args.compile_cache_dir):
+        return _serve(args)
+
+
+def _serve(args: argparse.Namespace) -> int:
+    failed = preload_kernels(resolve_device(args.device))
+    if failed is not None:
+        # no request is served without its kernels
+        print(failed, file=sys.stderr)
+        return 1
     options = AutoscalingOptions(
         fleet_coalesce_window_ms=args.fleet_coalesce_window_ms,
         fleet_shape_buckets=args.fleet_shape_buckets,

@@ -573,23 +573,39 @@ def gce_argv(servers, specs, token_file: str, device: str = "", iterations: int 
     return argv
 
 
-# runs ``python -m autoscaler_tpu_torch.main`` (runpy, as -m does) and, at
-# exit, prints the kernel wrappers' launch counts on standard error
+# runs ``python -m autoscaler_tpu_torch.main`` (runpy, as -m does); prints
+# the package's location first, a line ``TICK <k>`` on standard output as
+# each run_once begins (after the start's own lines there), and at exit
+# the kernel wrappers' launch counts and the compilers the kernels' build
+# started, on standard error
 _COUNTED_MAIN = (
     "import atexit, json, runpy, sys\n"
-    "from autoscaler_tpu_torch.ops import ffd_scan, ffd_scan_affinity, fit_reduce\n"
+    "import autoscaler_tpu_torch\n"
+    "from autoscaler_tpu_torch.core.static_autoscaler import StaticAutoscaler\n"
+    "from autoscaler_tpu_torch.ops import _build, ffd_scan, ffd_scan_affinity, fit_reduce\n"
+    "print('PACKAGE ' + autoscaler_tpu_torch.__file__, file=sys.stderr, flush=True)\n"
+    "_run_once, _ticks = StaticAutoscaler.run_once, []\n"
+    "def run_once(self, now_ts):\n"
+    "    print(f'TICK {len(_ticks)}', flush=True)\n"
+    "    _ticks.append(now_ts)\n"
+    "    return _run_once(self, now_ts)\n"
+    "StaticAutoscaler.run_once = run_once\n"
     "atexit.register(lambda: print('LAUNCHES ' + json.dumps({**ffd_scan.LAUNCHES, "
-    "**ffd_scan_affinity.LAUNCHES, **fit_reduce.LAUNCHES}), file=sys.stderr, flush=True))\n"
+    "**ffd_scan_affinity.LAUNCHES, **fit_reduce.LAUNCHES}) + '\\nCOMPILERS '"
+    " + str(_build.COMPILERS_STARTED), file=sys.stderr, flush=True))\n"
     "sys.argv = ['autoscaler_tpu_torch.main'] + sys.argv[1:]\n"
     "runpy.run_module('autoscaler_tpu_torch.main', run_name='__main__', alter_sys=True)\n"
 )
 
 
 def run_gce_main(nodes, pods, burst, root: str, device: str = "", timeout_s: float = 600.0,
-                 env=None) -> dict:
+                 env=None, extra_argv=(), cwd=None) -> dict:
     """3s: ``python -m autoscaler_tpu_torch.main --provider=gce ...`` in a
-    subprocess against fresh fake servers. → {"rc", "stdout", "stderr",
-    "launches", "leases", "kube_writes", "compute_writes", "seconds"}."""
+    subprocess against fresh fake servers, the package imported from
+    ``root`` (``PYTHONPATH``; run from ``cwd``, by default ``root``), with
+    ``extra_argv`` after 3s's flags. → {"rc", "stdout", "stderr",
+    "launches", "compilers", "package", "leases", "kube_writes",
+    "compute_writes", "seconds"}."""
     g_nodes, g_pods, migs, templates, specs = gce_world(nodes, pods, burst)
     with bp.FakeServers.start() as servers, tempfile.TemporaryDirectory() as tmp:
         serve_gce_world(servers, g_nodes, g_pods, migs, templates)
@@ -598,17 +614,21 @@ def run_gce_main(nodes, pods, burst, root: str, device: str = "", timeout_s: flo
             f.write("fake-token\n")
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-c", _COUNTED_MAIN, *gce_argv(servers, specs, token, device)],
-            cwd=root, env={**(env or os.environ), "PYTHONPATH": root}, capture_output=True,
-            text=True, timeout=timeout_s)
+            [sys.executable, "-c", _COUNTED_MAIN, *gce_argv(servers, specs, token, device),
+             *extra_argv],
+            cwd=cwd or root, env={**(env or os.environ), "PYTHONPATH": str(root)},
+            capture_output=True, text=True, timeout=timeout_s)
         secs = time.perf_counter() - t0
-        launches = {}
+        out = {"launches": {}, "compilers": None, "package": None}
         for line in proc.stderr.splitlines():
             if line.startswith("LAUNCHES "):
-                launches = json.loads(line[len("LAUNCHES "):])
-        return {"rc": proc.returncode, "stdout": proc.stdout, "stderr": proc.stderr,
-                "launches": launches, "leases": servers.objects("leases"),
-                "kube_writes": servers.writes(),
+                out["launches"] = json.loads(line[len("LAUNCHES "):])
+            elif line.startswith("COMPILERS "):
+                out["compilers"] = int(line[len("COMPILERS "):])
+            elif line.startswith("PACKAGE "):
+                out["package"] = line[len("PACKAGE "):]
+        return {"rc": proc.returncode, "stdout": proc.stdout, "stderr": proc.stderr, **out,
+                "leases": servers.objects("leases"), "kube_writes": servers.writes(),
                 "compute_writes": servers.compute_state()["writes"], "seconds": secs}
 
 

@@ -57,8 +57,15 @@ KERNELS = {
     "aff": ("ffd_scan_affinity", AFF_PATCH_DIR),
     "fit": ("fit_reduce", FIT_PATCH_DIR),
 }
-VARIANT_DIR = _build.BUILD_DIR.parent / "variants"
+
+
 HUNK = re.compile(r"^@@[^\n]*\n", re.M)
+
+
+def variant_dir() -> Path:
+    """Where the variants build: beside the kernels' directory, read at
+    call time (``--compile-cache-dir`` or a test may have moved it)."""
+    return _build.BUILD_DIR.parent / "variants"
 
 
 def _find(lines: List[str], block: List[str], start: int) -> int:
@@ -352,7 +359,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    out_dir = VARIANT_DIR / args.kernel
+    out_dir = variant_dir() / args.kernel
     libs = _build_all(_variant_sources(args, out_dir), KERNELS[args.kernel][0], out_dir)
 
     cases = {"scan": _scan_cases, "aff": _aff_cases, "fit": _fit_cases}[args.kernel](dev)

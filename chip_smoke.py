@@ -144,6 +144,22 @@ Phases (any failure raises and exits non-zero):
       shape, five burst MIGs, one a ct5lp TPU pool): it exits 0, took the
       Lease, resized a MIG, wrote the status ConfigMap, and its estimate and
       journal probes launched kernels (counted in the subprocess);
+   s2. the port as it is installed and started
+      (``tools/install_probe``): (a) ``python -m
+      autoscaler_tpu_torch.ops.build_kernels --out <fresh dir under
+      build/>`` in a subprocess builds every library (the four CUDA sources
+      and the native rung's), each one's registers and spills and ``ldd``'s
+      view of K4's library (nothing of the CUDA toolkit but the driver)
+      printed; (b) an installed copy of the package outside the checkout,
+      holding only what the wheel ships (the ``.py`` files and
+      ``pyproject.toml``'s package-data globs), runs (s)'s command line
+      with ``--compile-cache-dir`` on (a)'s directory: it exits 0, starts
+      no compiler, writes nothing into the copy, resizes as (s) did, and its
+      estimate and journal probes launch K1/K2 and K4 (counted in the
+      subprocess, on the kernels line); (c) the same on an empty directory:
+      main's start builds the loop's three libraries, one compiler each,
+      and logs it before tick 0, with (b)'s decisions; each run's start-up
+      seconds are printed with the card's name and power limit;
    t. the preemption storm (``tools/preempt_probe.run_preempt_ticks``) at
       (4l)'s tenth (its full size is ``tools/preempt_probe``'s run; cut to
       a tenth as (r) is): (o)'s world and churn with priorities (apps 100-199's placed pods at
@@ -1306,6 +1322,21 @@ def main() -> int:
     check(gce_launched.get("ffd_scan_swar", 0) + gce_launched.get("ffd_scan_f32", 0) >= 1
           and gce_launched.get("fit_reduce", 0) >= 2,
           f"main 3s: its estimate or journal probes launched no kernel: {gce_launched}")
+    # the port as it is installed and started (3s2): (a) every library
+    # prebuilt by build_kernels in a subprocess into a fresh directory; (b)
+    # 3s's run from an installed copy outside the checkout (what the wheel
+    # ships) on that directory: no compiler starts, nothing is written into
+    # the copy, the decisions are 3s's; (c) the same on an empty directory:
+    # the loop's libraries are built at the start, before tick 0
+    from autoscaler_tpu_torch.tools import install_probe
+
+    installed = install_probe.run_3s2(root, tenth[:3], resizes)
+    for line in install_probe.report(installed, smi_line):
+        print(f"# install 3s2 {line}", flush=True)
+    check(not installed["problems"], f"install 3s2: {installed['problems']}")
+    for run in installed["runs"].values():
+        for name in launches:
+            launches[name] += run["launches"].get(name, 0)
     # the preemption pass on the reconcile loop (3t): 3o's world and churn
     # with the storm's priorities and wave, three run_once ticks with
     # --preemption-enabled and a churn weight, the journal on; the pass is

@@ -1372,3 +1372,73 @@ def test_vpa_runner_on_the_card_equals_the_cpu(cuda):
     assert not vpa_probe.problems(card)
     assert vpa_probe.comparable(card) == vpa_probe.comparable(vpa_probe.run_vpa(world, "cpu",
                                                                                passes=2))
+
+
+def test_cold_build_then_a_load_that_compiles_nothing(cuda, tmp_path, monkeypatch):
+    """The start's preload (main on a card) into an empty directory builds
+    the loop's libraries, one nvcc each, and a second start from the same
+    directory loads them with no compiler; a K4 launch through the loaded
+    library agrees with the plain version."""
+    from autoscaler_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "_LIBS", {})
+    with _build.build_dir(tmp_path):
+        before = _build.COMPILERS_STARTED
+        secs, compilers = _build.preload(*_build.LOOP_SOURCES)
+        assert compilers == len(_build.LOOP_SOURCES) == _build.COMPILERS_STARTED - before
+        assert sorted(p.name.split("-")[0] for p in tmp_path.glob("*.so")) == sorted(
+            _build.LOOP_SOURCES)
+        monkeypatch.setattr(_build, "_LIBS", {})
+        secs, compilers = _build.preload(*_build.LOOP_SOURCES)
+        assert compilers == 0 and _build.COMPILERS_STARTED - before == len(_build.LOOP_SOURCES)
+        assert set(_build._LIBS) == set(_build.LOOP_SOURCES)
+        ops = tuple(torch.tensor(a, device=cuda) for a in fit_case(3, 600, 700))
+        want = fit_reduce.fit_reduce_cuda(*(t.cpu() for t in ops))
+        got = fit_reduce.fit_reduce_cuda(*ops)
+        torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_sidecar_launcher_loads_the_kernels_before_it_serves(cuda, tmp_path):
+    """``python -m autoscaler_tpu_torch.rpc`` on the card with an empty
+    ``--compile-cache-dir``: the loop's libraries are built there, one nvcc
+    each, and loaded before the port is bound; SIGTERM drains it."""
+    import os
+    import select
+    import signal
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    from autoscaler_tpu_torch.ops import _build
+    from autoscaler_tpu_torch.tools import install_probe
+
+    repo = Path(__file__).resolve().parent.parent
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "autoscaler_tpu_torch.rpc", "--address", "127.0.0.1:0",
+         "--health-port", "0", "--fleet-prewarm", "false", "--compile-cache-dir", str(tmp_path)],
+        cwd=str(repo), env={**os.environ, "PYTHONPATH": str(repo)}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        out, t_end = "", time.monotonic() + 300
+        while time.monotonic() < t_end and "serving on port" not in out:
+            ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+            if ready:
+                line = proc.stdout.readline()
+                if not line:
+                    break
+                out += line
+        assert "serving on port" in out, proc.stderr.read() if proc.poll() is not None else out
+        start = install_probe.START_LINE.search(out)
+        assert start and start.group("dir") == str(tmp_path), out
+        assert int(start.group("compilers")) == len(_build.LOOP_SOURCES)
+        assert start.start() < out.index("serving on port")
+        proc.send_signal(signal.SIGTERM)
+        rest, err = proc.communicate(timeout=60)
+        assert proc.returncode == 0 and "drained cleanly" in rest, err[-2000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

@@ -507,7 +507,9 @@ def test_native_and_python_rungs_match_jax(seed):
     before = os.stat(tracked).st_mtime_ns if os.path.exists(tracked) else None
     assert tnative.available(), tnative.build_error()
     lib = tnative.lib_path()
-    assert lib.parent.name == "native" and lib.parent.parent.name == "build" and lib.exists()
+    # the native/ subdirectory of the kernels' directory, build/kernels/ in a checkout
+    assert lib.parent.name == "native" and lib.parent.parent.name == "kernels" \
+        and lib.parent.parent.parent.name == "build" and lib.exists()
     plain = [bridge(req, mask, alloc, 12) for bridge in
              (jnative.ffd_binpack_native, tnative.ffd_binpack_native,
               jref.ffd_binpack_reference, tref.ffd_binpack_reference)]
@@ -544,7 +546,7 @@ def test_native_rung_reports_a_missing_compiler(monkeypatch, tmp_path):
     written beside the source or into native/."""
     monkeypatch.setattr(tnative, "_lib", None)
     monkeypatch.setattr(tnative, "_build_error", None)
-    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(tnative._build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(tnative.shutil, "which", lambda name: None)
     assert not tnative.available()
     assert "g++ not found" in tnative.build_error()

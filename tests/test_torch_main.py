@@ -189,15 +189,49 @@ def test_main_runs_the_loop_on_the_cpu(capsys):
     assert "device cpu" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", ["--compile-cache-dir=/nonexistent",
-                                  "--compile-cache-dir=/tmp/autoscaler_tpu_xla_cache"])
-def test_main_notes_that_the_compile_cache_has_no_effect(capsys, flag):
-    assert tmain.main(["--max-iterations=1", "--scan-interval=0", "--address=127.0.0.1:0",
-                       "--device=cpu", flag]) == 0
-    assert "has no effect" in capsys.readouterr().err
-    assert tmain.main(["--max-iterations=1", "--scan-interval=0", "--address=127.0.0.1:0",
-                       "--device=cpu"]) == 0
-    assert "has no effect" not in capsys.readouterr().err
+MAIN_CPU = ["--max-iterations=1", "--scan-interval=0", "--address=127.0.0.1:0", "--device=cpu"]
+
+
+@pytest.mark.parametrize("flag", ["--compile-cache-dir", "--jax-compilation-cache-dir"])
+def test_main_compile_cache_dir_selects_the_kernel_directory(monkeypatch, tmp_path, flag):
+    """--compile-cache-dir (or its JAX spelling) moves the kernels' and the
+    native rung's directories for the run, and back after it; on the CPU
+    nothing is built there."""
+    from autoscaler_tpu_torch import native_bridge
+    from autoscaler_tpu_torch.ops import _build
+
+    seen = []
+    monkeypatch.setattr(tmain, "preload_kernels",
+                        lambda device: seen.append((device.type, _build.BUILD_DIR,
+                                                    native_bridge.lib_path().parent)))
+    before = _build.BUILD_DIR, native_bridge.lib_path()
+    target = tmp_path / "kernels"
+    assert tmain.main(MAIN_CPU + [f"{flag}={target}"]) == 0
+    assert seen == [("cpu", target, target / "native")]
+    assert (_build.BUILD_DIR, native_bridge.lib_path()) == before
+    assert not target.exists()
+
+
+@pytest.mark.parametrize("argv", [[], ["--compile-cache-dir="]])
+def test_main_without_the_flag_keeps_the_default_directory(monkeypatch, argv):
+    """Without --compile-cache-dir (or with it empty) the kernels stay in
+    the default directory, the native rung in its native/, and on the CPU
+    nothing is built or loaded."""
+    from autoscaler_tpu_torch import native_bridge
+    from autoscaler_tpu_torch.ops import _build
+
+    def refuse(*names):
+        raise AssertionError(f"built on the CPU: {names}")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    dirs = []
+    real = tmain.preload_kernels
+    monkeypatch.setattr(tmain, "preload_kernels", lambda device: (
+        dirs.append((_build.BUILD_DIR, native_bridge.lib_path().parent)), real(device))[1])
+    assert tmain.main(MAIN_CPU + argv) == 0
+    assert dirs == [(_build.default_dir(), _build.default_dir() / "native")]
+    assert tmain.kernel_dir(tmain.build_arg_parser().parse_args(argv), argv) is None
 
 
 def outcome(main, argv, capsys):

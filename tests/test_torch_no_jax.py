@@ -937,3 +937,39 @@ print("OK", ap.replay_problems(out), ap.truth_problems(rows), len(rows))
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.splitlines()[-1] == "OK [] [] 16", proc.stdout
+
+
+INSTALL_MODULES = ("ops/build_kernels.py", "tools/install_probe.py")
+
+
+def test_install_modules_are_ported():
+    """The prebuild and chip_smoke's 3s2 probe are modules of the port,
+    held by test_no_jax_import like every other."""
+    for rel in INSTALL_MODULES:
+        assert f"autoscaler_tpu_torch/{rel}" in PORT_FILES
+
+
+def test_build_kernels_runs_with_jax_blocked(tmp_path):
+    """``ops/build_kernels`` with jax and the JAX package blocked and no
+    nvcc: the native library builds into the directory's native/, the CUDA
+    sources fail naming the directory, and the exit is non-zero."""
+    code = r"""
+import contextlib, io, sys
+for name in ("jax", "jaxlib", "autoscaler_tpu"):
+    sys.modules[name] = None
+from autoscaler_tpu_torch.ops import _build, build_kernels
+def no_nvcc():
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+_build._nvcc = no_nvcc
+err = io.StringIO()
+with contextlib.redirect_stderr(err):
+    rc = build_kernels.main(["--out", sys.argv[1]])
+print("OK", rc, sys.argv[1] in err.getvalue(), "nvcc not found" in err.getvalue())
+"""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "k")], cwd=str(REPO),
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "OK 1 True True", proc.stdout
+    assert [p.name.split("-")[0] for p in (tmp_path / "k" / "native").glob("*.so")] == [
+        "libffd_serial"]
