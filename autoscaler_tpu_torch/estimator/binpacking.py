@@ -46,9 +46,12 @@ device the dispatch then descends, as in the JAX package. On a CUDA device
 the hand kernels have no fallback: a fault of the cuda rung (a failed
 build of its source, a launch error, an asynchronous error at the fetch,
 an injected fault) is recorded on its breaker and raised, an open cuda
-breaker raises instead of skipping the rung, and no dispatch is forced;
-only the shape gates (``smem``, ``spread_width``) and dedup routing send a
-card dispatch below the cuda rung. Device results are fetched to the host
+breaker raises instead of skipping the rung, and no dispatch is forced.
+Only the shape gates (``smem``, ``spread_width``), dedup routing and a
+dispatch no hand kernel serves (``estimate``, the preemption pass) send a
+card dispatch below the cuda rung, to the torch rung on the card, which
+is then as strict: a card dispatch is served on the card or fails, never
+on the host rungs. Device results are fetched to the host
 inside the serving rung's ``try``, so an asynchronous CUDA error lands on
 the ladder; the host rungs read only the numpy operands, never a device
 tensor.
@@ -81,8 +84,8 @@ attribute_unschedulable_reference``) answers from the numpy operands.
 nodes, evicting lower-priority residents where they fit nowhere
 (``ops/preempt.ffd_binpack_preempt``, route ``torch_preempt``). No hand
 kernel serves it: the cuda rung takes the automatic ``unsupported`` skip,
-and on a CUDA device the torch rung is the card's rung, strict as the
-cuda rung is for the scans; off the card the Python oracle is its host
+and on a CUDA device the torch rung is the card's rung, strict as
+every device rung is there; off the card the Python oracle is its host
 twin.
 
 With ``fleet_client=`` (``gym/env.FleetEstimatorClient`` over a shared
@@ -629,7 +632,6 @@ class BinpackingNodeEstimator:
                 initial_reason="preempt",
                 forced=("python_preempt_ref",
                         mark("python_preempt_ref", python_fn)),
-                card_rung=RUNG_TORCH,
             )
         return scheduled, placed, victim_of, served.get("route", "unknown")
 
@@ -1097,8 +1099,7 @@ class BinpackingNodeEstimator:
                 route, reason, f": {detail}" if detail else "",
             )
 
-    def _walk_ladder(self, steps, initial_reason: str = "ok", forced=None,
-                     card_rung: str = RUNG_CUDA):
+    def _walk_ladder(self, steps, initial_reason: str = "ok", forced=None):
         """Walk one dispatch down the kernel ladder.
 
         ``steps`` is an ordered list of ``(rung, route_label, gate, fn)``:
@@ -1110,11 +1111,12 @@ class BinpackingNodeEstimator:
         serving rung's route metric carries the most recent skip or failure
         reason, so cuda→torch→native transitions are visible per dispatch.
 
-        On a CUDA device ``card_rung`` (the cuda rung, or the torch rung of
-        a dispatch no hand kernel serves) is strict when it has a ``fn``
-        (not the dedup pseudo-step): its faults are recorded and raised,
-        and an open breaker raises, so a broken card rung fails the tick
-        instead of being served below it or on the host.
+        On a CUDA device the device rungs (cuda, torch) are strict when
+        they have a ``fn`` (not the dedup pseudo-step): their faults are
+        recorded and raised, and an open breaker raises, so a broken card
+        rung fails the tick instead of being served below it or on the
+        host. The torch rung is reached on a card only where the cuda rung
+        was routed around (a shape gate, dedup, no twin).
 
         ``forced`` = (label, fn) runs off a CUDA device when every rung was
         skipped or failed (e.g. a topology-spread dispatch, which no host
@@ -1126,7 +1128,7 @@ class BinpackingNodeEstimator:
         on_card = self.device.type == "cuda"
         reason, detail = initial_reason, ""
         for rung, label, gate, fn in steps:
-            strict = on_card and rung == card_rung and fn is not None
+            strict = on_card and rung in (RUNG_CUDA, RUNG_TORCH) and fn is not None
             then = "raising" if strict else "descending the ladder"
             with trace.span(
                 metrics_mod.DEVICE_DISPATCH, metrics=self.metrics, rung=rung

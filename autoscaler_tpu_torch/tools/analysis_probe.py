@@ -9,7 +9,7 @@ Three parts:
 - ``lint_tree``: graftlint (``autoscaler_tpu_torch.analysis``) over the
   port's whole tree with no baseline → its files, findings and seconds.
 - ``ladder_replay``: the fault-ladder scenario (``fault_ladder_doc``, the
-  twin in code of the JAX package's canned ``kernel_fault_ladder``, with a
+  JAX package's canned ``kernel_fault_ladder`` from ``tools/canned``, with a
   burst of pods of distinct sizes before the faults and after the clear,
   so the estimate takes K2 and not the dedup route) through the loadgen
   CLI: ``run --sanitize --trace``, then ``replay --sanitize`` and a plain
@@ -71,33 +71,15 @@ def lint_tree(path: str = str(PKG)) -> dict:
 
 
 def fault_ladder_doc(mixed: bool = True) -> dict:
-    """The JAX package's canned ``kernel_fault_ladder`` scenario, built in
-    code: one pool, a steady stream of alike pods, the estimator's two
-    device rungs faulted at tick 2 and cleared at tick 10 (the rung names
-    are the port's), and with ``mixed`` a burst of ``MIXED_PODS`` pods of
-    distinct sizes at each of ``MIXED_TICKS``."""
+    """The JAX package's canned ``kernel_fault_ladder`` scenario
+    (``tools/canned``): one pool, a steady stream of alike pods, the
+    estimator's two device rungs faulted at tick 2 and cleared at tick 10
+    (the rung names are the port's), and with ``mixed`` a burst of
+    ``MIXED_PODS`` pods of distinct sizes at each of ``MIXED_TICKS``."""
+    from autoscaler_tpu_torch.tools.canned import doc as canned_doc
     from autoscaler_tpu_torch.tools.drill_probe import mixed_burst
 
-    doc = {
-        "name": "kernel_fault_ladder",
-        "seed": 7,
-        "ticks": 20,
-        "tick_interval_s": 10.0,
-        "node_groups": [{"name": "pool", "min_size": 0, "max_size": 30, "initial_size": 1,
-                         "cpu_m": 4000.0, "mem_mb": 16384.0, "provision_ticks": 1}],
-        "workloads": [{"kind": "steady", "rate": 4.0, "cpu_m": 1500.0, "mem_mb": 1024.0,
-                       "start_tick": 1, "end_tick": 15, "completion_rate": 0.25}],
-        "events": [
-            {"at_tick": 2, "kind": "fault", "fault": {
-                "kind": "kernel_fault", "rung": "cuda",
-                "message": "kernel launch fault (injected)"}},
-            {"at_tick": 2, "kind": "fault", "fault": {
-                "kind": "kernel_fault", "rung": "torch",
-                "message": "torch dispatch fault (injected)"}},
-            {"at_tick": 10, "kind": "clear_faults"},
-        ],
-        "options": {"kernel_breaker_failure_threshold": 3, "kernel_breaker_cooldown_s": 30.0},
-    }
+    doc = canned_doc("kernel_fault_ladder")
     if mixed:
         for k, tick in enumerate(MIXED_TICKS):
             doc["events"] += mixed_burst(tick, MIXED_PODS, prefix=f"mix{k}")

@@ -27,6 +27,7 @@ import os
 import sys
 import time
 from collections import Counter
+from typing import Dict
 
 from autoscaler_tpu_torch.device import resolve_device
 
@@ -176,12 +177,36 @@ def gym_suite_doc(seed: int = 0) -> dict:
     return {"name": "gym_drill_suite", "scenarios": [drill, churn]}
 
 
-def run_drill(doc: dict, device=None, profiler_dir: str = "", profile_ticks=()):
+def launch_counts() -> Dict[str, int]:
+    """Every hand kernel's launches so far, by kernel (the wrappers'
+    ``LAUNCHES``)."""
+    from autoscaler_tpu_torch.ops import ffd_scan, ffd_scan_affinity, fit_reduce, histogram
+
+    return {**ffd_scan.LAUNCHES, **ffd_scan_affinity.LAUNCHES, **fit_reduce.LAUNCHES,
+            **histogram.LAUNCHES}
+
+
+def served_routes(metrics) -> Dict[str, int]:
+    """The estimator's served routes so far, as {"route:reason": n}."""
+    return {f"{dict(k)['route']}:{dict(k)['reason']}": int(v)
+            for k, v in metrics.estimator_kernel_route_total.values.items()}
+
+
+def count_delta(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v - before.get(k, 0)}
+
+
+def run_drill(doc: dict, device=None, profiler_dir: str = "", profile_ticks=(),
+              tick_log=None):
     """One run of the scenario ``doc`` on ``device`` through the port's
     scenario driver (``run_scenario``'s loop, tick by tick) → (RunResult,
     seconds). On the ticks in ``profile_ticks`` a ``DebuggingSnapshotter``
     is armed (its capture ends the tick), and with ``profiler_dir`` they
-    run with ``jax_profiler_dir`` set: a torch.profiler session each."""
+    run with ``jax_profiler_dir`` set: a torch.profiler session each. With
+    a list for ``tick_log`` each tick appends {"tick", "launches",
+    "served", "errors", "degraded"}: its kernel launches and the
+    estimator's routes served on it (``launch_counts``,
+    ``served_routes``), its errors and its tripped rungs."""
     from autoscaler_tpu_torch.debugging import DebuggingSnapshotter
     from autoscaler_tpu_torch.loadgen.driver import ScenarioDriver
     from autoscaler_tpu_torch.loadgen.spec import ScenarioSpec
@@ -198,29 +223,109 @@ def run_drill(doc: dict, device=None, profiler_dir: str = "", profile_ticks=()):
         if profiler_dir:
             driver.autoscaler.options.jax_profiler_dir = (
                 profiler_dir if tick in profile_ticks else "")
-        driver.tick_once(tick)
+        if tick_log is None:
+            driver.tick_once(tick)
+            continue
+        launches, served = launch_counts(), served_routes(driver.autoscaler.metrics)
+        rec = driver.tick_once(tick)
+        tick_log.append({
+            "tick": tick, "launches": count_delta(launch_counts(), launches),
+            "served": count_delta(served_routes(driver.autoscaler.metrics), served),
+            "errors": list(rec.errors), "degraded": list(rec.degraded)})
     result = driver.finish()
     return result, time.perf_counter() - t0
 
 
-def comparable(result) -> dict:
-    """What two devices' runs of one spec must agree on: the decision log
-    and the score report without its wall fields (``tick_wall_s``, the
-    phases' seconds in ``function_duration``), its platform and the cost
-    model's utilization (a ratio to the device's own peak rate), as JSON
-    text."""
-    from autoscaler_tpu_torch.loadgen.score import build_report
+# the routes on which a card serves the plain per-pod dispatches (K1/K2,
+# K3), and the route and reason on which the CPU, whose cuda rung is
+# not_cuda, serves them: the torch loop past that rung
+CARD_KERNEL_ROUTES = ("cuda", "cuda_affinity")
+CPU_KERNEL_ROUTE = ("torch_scan", "not_cuda")
+# the fleet's batched route: K1/K2 on a card, the torch rung on the CPU
+FLEET_BATCHED_ROUTE = "fleet_batched"
 
-    report = build_report(result)
-    report.pop("tick_wall_s")
-    report.pop("platform")
+
+def comparable(result) -> dict:
+    """What a card's and the CPU's run of one spec (a plain scenario's
+    RunResult or a fleet's FleetRunResult) must agree on → {"log": the
+    decision log (a fleet's round ledger) as JSON lines, "report": the
+    score report in ``report_view``'s terms, as {section: JSON text}}."""
+    from autoscaler_tpu_torch.loadgen.score import build_fleet_report, build_report
+
+    if hasattr(result, "decision_ledger_lines"):
+        log = result.decision_ledger_lines().splitlines()
+        report = build_fleet_report(result)
+    else:
+        log = [json.dumps(rec, sort_keys=True) for rec in result.decision_log()]
+        report = build_report(result)
+    return {"log": log, "report": {k: json.dumps(v, sort_keys=True)
+                                   for k, v in sorted(report_view(report).items())}}
+
+
+def report_view(report: dict) -> dict:
+    """A score report as a card's and the CPU's runs must agree on it:
+    without its walls (``tick_wall_s``, ``round_wall_s``, the phases'
+    seconds in ``function_duration``, a fleet's per-tenant latencies), its
+    platform and the cost model's utilization (a ratio to the device's own
+    peak rate), and with the serving rung named as the CPU names it. Each
+    estimate served on the card's K1/K2 or K3 (``CARD_KERNEL_ROUTES``,
+    reason ``ok``) is one the CPU serves on ``CPU_KERNEL_ROUTE``: those
+    counts join that route's in ``kernel_routes`` and their dispatches its
+    row of the perf section (which keeps its dispatches alone: its shape
+    signatures and compile split are the serving kernel's, as they are
+    of the fleet's batched route, whose row keeps its dispatches alone
+    too), and
+    ``deviceDispatch`` counts one rung engagement less for each of the
+    CPU's estimates on that route (the CPU engages the cuda rung it lacks
+    first). Every other route stays as it is: a torch loop that served a
+    card's estimate keeps its own route and reason, and differs."""
+    report = json.loads(json.dumps(report))
+    for key in ("tick_wall_s", "round_wall_s", "platform"):
+        report.pop(key, None)
+    cpu_route, cpu_reason = CPU_KERNEL_ROUTE
+    cpu_key = f"reason={cpu_reason}/route={cpu_route}"
+    routes = report.get("kernel_routes", {})
+    lacking = routes.get(cpu_key, 0)
+    for route in CARD_KERNEL_ROUTES:
+        n = routes.pop(f"reason=ok/route={route}", 0)
+        if n:
+            routes[cpu_key] = routes.get(cpu_key, 0) + n
+    if routes:
+        report["kernel_routes"] = dict(sorted(routes.items()))
     if "function_duration" in report:
         report["function_duration"] = {
             phase: row["count"] for phase, row in report["function_duration"].items()}
-    for row in report.get("perf", {}).get("routes", {}).values():
-        row.pop("utilization", None)
-    return {"log": json.dumps(result.decision_log(), sort_keys=True),
-            "report": json.dumps(report, sort_keys=True)}
+        if "deviceDispatch" in report["function_duration"]:
+            report["function_duration"]["deviceDispatch"] -= lacking
+    perf_routes = report.get("perf", {}).get("routes")
+    if perf_routes is not None:
+        for row in perf_routes.values():
+            row.pop("utilization", None)
+        mapped = sum(perf_routes.pop(route, {}).get("dispatches", 0)
+                     for route in CARD_KERNEL_ROUTES + (cpu_route,))
+        if mapped:
+            perf_routes[cpu_route] = {"dispatches": mapped}
+        if FLEET_BATCHED_ROUTE in perf_routes:
+            perf_routes[FLEET_BATCHED_ROUTE] = {
+                "dispatches": perf_routes[FLEET_BATCHED_ROUTE]["dispatches"]}
+        report["perf"]["routes"] = dict(sorted(perf_routes.items()))
+    if isinstance(report.get("fleet"), dict):
+        report["fleet"].pop("per_tenant_latency_s", None)
+    return report
+
+
+def view_differences(a: dict, b: dict) -> list:
+    """Where two ``comparable`` views differ: the first line of the log that
+    differs, and each report section that differs with both sides."""
+    out = []
+    if a["log"] != b["log"]:
+        first = next((k for k, (x, y) in enumerate(zip(a["log"], b["log"])) if x != y),
+                     min(len(a["log"]), len(b["log"])))
+        out.append(f"the decision log differs from line {first}")
+    ra, rb = a["report"], b["report"]
+    out += [f"report {k}: {ra.get(k)} against {rb.get(k)}"
+            for k in sorted(set(ra) | set(rb)) if ra.get(k) != rb.get(k)]
+    return out
 
 
 def drill_summary(result, seconds: float) -> dict:

@@ -5,8 +5,8 @@ snapshot's predicate fit, the scale-up and scale-down halves of a
 reconcile tick, the reconcile loop bound to a Kubernetes API and a cloud
 API over HTTP, the loop's preemption pass, the scenario what-if and the
 fleet's coalesced estimates, the scenario engine (the load generator's
-drills, the fleet drill, the policy gym and per-tick profiler sessions),
-and the Vertical Pod Autoscaler's recommender and updater, on one CUDA
+drills, the fleet drill, the policy gym, per-tick profiler sessions and
+the canned scenarios), and the Vertical Pod Autoscaler's recommender and updater, on one CUDA
 card through its hand-written kernels, and holds every kernel against its
 plain PyTorch version.
 
@@ -346,7 +346,22 @@ Phases (any failure raises and exits non-zero):
    (``drill_probe.fault_doc``): each faulted tick's run_once raises and the
    driver records the typed error, nothing serves below the cuda rung,
    and after the clear a half-open probe closes the breaker and the
-   decisions flow;
+   decisions flow; then (4v) the canned scenarios (``tools/canned``: the
+   fourteen documents of the JAX package's ``benchmarks/scenarios/`` built
+   in code, and ``gym_suite``'s five as plain scenarios) each once on the
+   card through the port's driver and once on the CPU in a worker begun
+   after (4b): with no fault on a device rung, the decision log (a fleet's
+   round ledger) byte-equal and the score report equal apart from its
+   walls, the serving rung named as the CPU names it; the four that fault
+   one held to the design ``tools/canned`` writes down (the ticks before
+   the first fault as on the CPU; while the card's rungs are faulted
+   nothing launches and nothing is served, on the host rungs neither, and
+   a tick whose estimate raised records the typed error; no host rung
+   serves after the clear, and a card rung serves again only after a
+   half-open probe closed its breaker; the fleet's torch-rung fault never
+   engages, every ticket answered on the batched rung); one
+   line a scenario (ticks, card and CPU seconds, routes, launches), the
+   launches counted from 0 and added to the kernels line as a path's;
 6. timings with CUDA events, each run queued behind ~10 ms of a spinning
    card so that they time the card and not the host's launches: each
    kernel alone, its whole entry call, and the plain version; K3 on the
@@ -625,6 +640,14 @@ def cpu_lint():
     return analysis_probe.lint_tree()
 
 
+def cpu_canned(name):
+    """4v: the canned scenario ``name`` (``tools/canned``) on the CPU, in a
+    worker → (seconds, ``drill_probe.comparable``)."""
+    from autoscaler_tpu_torch.tools import canned
+
+    return canned.cpu_view(name)
+
+
 def main() -> int:
     global _POOL
     # a crash in native code (a kernel's host side, a library) prints every
@@ -664,6 +687,7 @@ def main() -> int:
     from autoscaler_tpu_torch.tools import (
         analysis_probe,
         bound_loop,
+        canned,
         drill_probe,
         fleet_probe,
         ladder_probe,
@@ -1767,6 +1791,10 @@ def main() -> int:
         )
         phase(f"4b K3 on the {label} against its plain version", t0)
     del aff_got, k3_launches, captured
+    # 4v's CPU sides begin now in workers, after the phases whose plain
+    # versions the host's cores pace
+    for name, _ in canned.scenario_docs():
+        cpu_jobs[f"canned 4v {name}"] = _POOL.apply_async(cpu_canned, (name,))
 
     # the estimator's results and choices against the same calls on the
     # CPU (4c-4d), read from the workers begun after the operand set-up
@@ -2494,8 +2522,7 @@ def main() -> int:
             d[k] = 0
     replay = analysis_probe.ladder_replay(analysis_probe.fault_ladder_doc(), dev,
                                           workdir=os.path.join(root, "build"))
-    counts = {**ffd_scan.LAUNCHES, **ffd_scan_affinity.LAUNCHES, **fit_reduce.LAUNCHES,
-              **ops_histogram.LAUNCHES}
+    counts = drill_probe.launch_counts()
     for name in launches:
         launches[name] += counts[name]
     for k in kernels:
@@ -2616,6 +2643,43 @@ def main() -> int:
     check(not bad, f"fault drill 5e: {bad}")
     del faulted
     phase("5e the cuda rung's fault and recovery in a scenario on the card", t0)
+
+    # 4v: the canned scenarios (tools/canned: the fourteen documents of the
+    # JAX package's benchmarks/scenarios/, and gym_suite's five as plain
+    # scenarios) on the card, each against its run on the CPU in a worker
+    # begun after 4b. With no fault on a device rung, the decision log equal
+    # byte for byte and the score report apart from its walls, with the
+    # serving rung named as the CPU names it (drill_probe.comparable); the
+    # four that fault one, to the design in tools/canned's docstring (the
+    # ticks before the first fault as on the CPU; nothing launched and
+    # nothing served, on the host rungs neither, while the card's rungs
+    # are faulted, each estimate's tick recording the typed error; no host
+    # rung after the clear, a half-open probe closing each card rung
+    # before it serves again; the fleet's torch-rung fault never engaged).
+    # Its launches are a path's, counted from 0
+    t0 = time.perf_counter()
+    for d in counters:
+        for k in d:
+            d[k] = 0
+    for name, document in canned.scenario_docs():
+        card = canned.run(document, dev)
+        t_cpu, cpu_view = cpu_jobs.pop(f"canned 4v {name}").get(CPU_WAIT_S)
+        print(f"# canned 4v: {json.dumps(canned.line(name, card, t_cpu), sort_keys=True)}",
+              flush=True)
+        if name in canned.DEVICE_FAULTS and "ticks" in card:
+            print(f"# canned 4v: {name} by tick "
+                  f"{canned.tick_summary(card['ticks'])}", flush=True)
+        bad = canned.card_problems(name, document, card, cpu_view)
+        check(not bad, f"canned 4v: {name}: {bad}")
+        del card, cpu_view
+    counts = drill_probe.launch_counts()
+    for name in launches:
+        launches[name] += counts[name]
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print(f"# canned 4v: {len(canned.scenario_docs())} scenarios; launches {counts}",
+          flush=True)
+    phase("4v the canned scenarios on the card and the CPU", t0)
 
     # where the burst estimate's time goes: the host operand build (mask
     # engine, packing) and the scan call on the card

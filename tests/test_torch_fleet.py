@@ -64,7 +64,9 @@ def on_cpu(monkeypatch):
 # -- the JAX package's cases on the port ------------------------------------------
 
 MODULES = {m.__name__: Rebound(m) for m in (test_fleet, test_fleet_overload, test_fleet_ha)}
-# cases that drive the load generator, a gRPC server or client (those are in
+# cases that drive the load generator (in test_torch_fleetdrive.py; the
+# canned fleet_tenants CLI run and the fleet ledger gate have their twins
+# in test_torch_canned_fleet.py), a gRPC server or client (in
 # test_torch_sidecar.py), the static checker or the XLA scan itself
 NOT_HERE = ("driver", "cli_", "spec_", "perf_ledger", "fault_kinds", "ha_report",
             "ledger_validator", "full_outage", "endpoint_choice_column", "replica_fault",

@@ -4,8 +4,9 @@ package:
 - the cases of tests/test_fleet.py, test_fleet_overload.py and
   test_fleet_ha.py that drive the load generator's fleet mode (left out of
   test_torch_fleet.py until the port had one), run on the port's modules
-  (``torch_parity.Rebound``); the two that read canned scenarios or
-  bench.py are left to the JAX suites;
+  (``torch_parity.Rebound``); the two that read the canned
+  ``fleet_tenants`` or drive bench.py have their twins in
+  ``test_torch_canned_fleet.py``;
 - twin drills: a fleet scenario in the shape of the canned
   ``fleet_tenants`` (``tools/drill_probe.fleet_doc``), with and without a
   fault window on the batched rung, storms, sheds, outages and replica

@@ -1083,6 +1083,68 @@ def test_ladder_fault_walk_on_card(cuda):
     assert attempts.get(rung="cuda", outcome="skipped") == 1
 
 
+@pytest.mark.parametrize("kind", ["dedup", "single"])
+def test_torch_rung_fault_walk_on_card(cuda, kind):
+    """Two faults armed on the torch rung, which serves a card's dedup
+    dispatches (route torch_runs) and single-template estimates
+    (torch_single): each faulted estimate raises, the breaker opens at the
+    second and the estimate past it raises too, and no host rung serves;
+    past the cooldown one half-open probe on the torch rung serves the
+    first decisions and closes it."""
+    import dataclasses
+
+    from autoscaler_tpu_torch.estimator.binpacking import BinpackingNodeEstimator
+    from autoscaler_tpu_torch.estimator.ladder import KernelLadder
+    from autoscaler_tpu_torch.metrics.metrics import AutoscalerMetrics
+    from autoscaler_tpu_torch.utils.errors import AutoscalerError
+    from autoscaler_tpu_torch.utils import test_utils as ttu
+
+    # replicas of one controller: one equivalence group, so the dedup route
+    pods = [ttu.build_test_pod(f"alike{i}", cpu_m=500.0, mem=512 * 2**20) for i in range(60)]
+    pods = [dataclasses.replace(p, owner_ref=dataclasses.replace(p.owner_ref, name="alike-rs"))
+            for p in pods]
+    templates = {f"ng-{j}": ttu.build_test_node(f"t{j}", cpu_m=4000.0 * (1 + j), mem=8 * 2**30)
+                 for j in range(3)}
+    label = "torch_runs" if kind == "dedup" else "torch_single"
+    metrics = AutoscalerMetrics()
+    ladder = KernelLadder(failure_threshold=2, cooldown_s=30.0)
+    est = BinpackingNodeEstimator(metrics=metrics, ladder=ladder)
+    armed = {"left": 2}
+
+    def hook(rung):
+        if rung == "torch" and armed["left"]:
+            armed["left"] -= 1
+            return "kernel_fault"
+        return None
+
+    def estimate():
+        if kind == "dedup":
+            out = est.estimate_many(pods, templates)
+        else:
+            out = {"ng-0": est.estimate(pods, templates["ng-0"], max_size_headroom=3)}
+        return {g: (c, [p.name for p in s]) for g, (c, s) in out.items()}
+
+    ladder.fault_hook = hook
+    for i, now in enumerate((0.0, 1.0, 2.0)):
+        ladder.tick(now)
+        with pytest.raises(AutoscalerError):
+            estimate()
+        assert ladder.degraded() == (["torch"] if i else [])
+    ladder.tick(40.0)
+    first = estimate()
+    assert any(c > 0 for c, _ in first.values())
+    assert ladder.degraded() == []
+    routes = metrics.estimator_kernel_route_total
+    assert sum(routes.values.values()) == 1
+    assert sum(v for k, v in routes.values.items() if dict(k)["route"] == label) == 1
+    assert metrics.estimator_breaker_transitions_total.get(
+        rung="torch", from_state="half_open", to_state="closed") == 1
+    attempts = metrics.estimator_kernel_rung_attempts_total
+    assert attempts.get(rung="torch", outcome="fault") == 2
+    assert attempts.get(rung="torch", outcome="skipped") == 1
+    assert sum(attempts.get(rung=r, outcome="ok") for r in ("native", "python")) == 0
+
+
 def test_bound_tick_on_card_equals_cpu(cuda, monkeypatch):
     """tools/bound_loop's ticks over HTTP (the fake Kubernetes API in a
     child process, the watch caches, the clusterapi provider, Lease

@@ -2,8 +2,10 @@
 package:
 
 - every case of tests/test_gym.py run on the port's modules
-  (``torch_parity.Rebound``), its slow-marked CLI cycle included; the three
-  that read ``benchmarks/`` or bench.py are left to the JAX suite;
+  (``torch_parity.Rebound``), its slow-marked CLI cycle included; the two
+  that read the canned suite run from a working directory where
+  ``tools/canned`` wrote it; the one that drives bench.py is left to the
+  JAX suite (its twin: ``test_torch_canned_shapes.py``);
 - twin tunes: the same suite and config through both packages' tuners,
   with the shared coalescer and without, one worker and several — the
   tuning ledgers byte-equal (``TestTuner::test_solo_and_worker_count_
@@ -44,9 +46,17 @@ def on_cpu(monkeypatch):
 
 
 REBOUND = Rebound(test_gym)
-# cases that read canned scenarios from benchmarks/ or drive bench.py
-NOT_HERE = ("test_canned_suite_parses", "test_loadgen_validate_accepts_suite",
-            "test_bench_exit_codes")
+# the case that drives bench.py
+NOT_HERE = ("test_bench_exit_codes",)
+# cases that read the canned suite from benchmarks/scenarios/
+CANNED = ("test_canned_suite_parses", "test_loadgen_validate_accepts_suite")
+
+
+@pytest.fixture(scope="module")
+def canned_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("canned")
+    twin.write_canned(d)
+    return d
 
 
 def _cases():
@@ -63,7 +73,9 @@ CASES = _cases()
 
 
 @pytest.mark.parametrize("name", CASES)
-def test_jax_gym_case_on_the_port(name, request, on_cpu):
+def test_jax_gym_case_on_the_port(name, request, on_cpu, monkeypatch):
+    if any(s in name for s in CANNED):
+        monkeypatch.chdir(request.getfixturevalue("canned_dir"))
     target = getattr(test_gym, name.split(".")[0])
     if "." in name:
         target = getattr(target, name.split(".")[1])

@@ -454,6 +454,40 @@ def test_dedup_dispatch_cannot_close_a_tripped_device_rung():
     assert est.ladder.degraded() == []
 
 
+@pytest.mark.parametrize("world", ["runs", "runs-affinity", "single", "single-dynamic"])
+def test_torch_rung_is_strict_on_a_card(world):
+    """On a card, a dispatch that the cuda rung does not serve (dedup, a
+    single template) is served on the torch rung or not at all: a fault
+    there raises, the breaker opens at its threshold and then raises too,
+    and no host rung serves. The estimator's device is made a CUDA device;
+    the faults fire before any tensor is made."""
+    from autoscaler_tpu_torch.utils.errors import AutoscalerError
+
+    make, call = WALK_WORLDS[world]
+    pods, templates = make(TORCH)
+    m = tmetrics.AutoscalerMetrics()
+    est = estimator(TORCH, 16, m)
+    est.ladder = tladder.KernelLadder(failure_threshold=2, cooldown_s=10.0)
+    est.ladder.bind_metrics(m)
+    est.device = tes.torch.device("cuda")
+    est.ladder.fault_hook = lambda rung: "kernel_fault" if rung == "torch" else None
+    raised = []
+    for now in (0.0, 1.0, 2.0):
+        est.ladder.tick(now)
+        with pytest.raises(AutoscalerError) as e:
+            call(est, pods, templates)
+        raised.append(str(e.value))
+    assert raised[:2] == ["injected kernel_fault on torch rung"] * 2
+    assert "torch rung's breaker is open" in raised[2]
+    assert sum(m.estimator_kernel_route_total.values.values()) == 0
+    attempts = m.estimator_kernel_rung_attempts_total
+    assert attempts.get(rung="torch", outcome="fault") == 2
+    assert attempts.get(rung="torch", outcome="skipped") == 1
+    assert sum(attempts.get(rung=r, outcome=o) for r in ("native", "python")
+               for o in ("ok", "fault", "unavailable")) == 0
+    assert est.ladder.degraded() == ["torch"]
+
+
 def test_a_raising_gate_is_a_fault(caplog):
     """A gate that raises (a kernel that fails to build, a device fault
     while probing the operands) counts as a failure of its rung, is logged

@@ -2,9 +2,10 @@
 the JAX package:
 
 - every case of tests/test_loadgen.py run on the port's modules
-  (``torch_parity.Rebound``; the two that read canned scenarios from
-  ``benchmarks/`` are left to the JAX suite: the port's tests build their
-  specs in code);
+  (``torch_parity.Rebound``); the two that read canned scenarios from
+  ``benchmarks/scenarios/`` run from a working directory where
+  ``tools/canned`` wrote those files (the port's tests never read
+  ``benchmarks/``);
 - twin runs: each event kind and cloud fault kind that suite covers, and
   each workload kind, in a spec built in code, through both packages'
   drivers — the decision logs byte for byte, the score reports without
@@ -50,8 +51,18 @@ def on_cpu(monkeypatch):
 # -- the JAX package's cases on the port -------------------------------------------
 
 REBOUND = Rebound(test_loadgen)
-# cases that load canned scenarios from benchmarks/
-NOT_HERE = ("test_canned_scenarios_parse", "test_canned_fault_scenario_backs_off_and_recovers")
+# cases left to the JAX suite: none (the canned-scenario cases run from
+# CANNED_CWD's directory)
+NOT_HERE = ()
+# cases that load canned scenarios from benchmarks/scenarios/
+CANNED = ("test_canned_scenarios_parse", "test_canned_fault_scenario_backs_off_and_recovers")
+
+
+@pytest.fixture(scope="module")
+def canned_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("canned")
+    twin.write_canned(d)
+    return d
 
 
 def _cases():
@@ -68,7 +79,9 @@ CASES = _cases()
 
 
 @pytest.mark.parametrize("name", CASES)
-def test_jax_loadgen_case_on_the_port(name, request, on_cpu):
+def test_jax_loadgen_case_on_the_port(name, request, on_cpu, monkeypatch):
+    if any(s in name for s in CANNED):
+        monkeypatch.chdir(request.getfixturevalue("canned_dir"))
     target = getattr(test_loadgen, name.split(".")[0])
     if "." in name:
         target = getattr(target, name.split(".")[1])

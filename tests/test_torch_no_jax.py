@@ -973,3 +973,43 @@ print("OK", rc, sys.argv[1] in err.getvalue(), "nvcc not found" in err.getvalue(
     assert proc.stdout.splitlines()[-1] == "OK 1 True True", proc.stdout
     assert [p.name.split("-")[0] for p in (tmp_path / "k" / "native").glob("*.so")] == [
         "libffd_serial"]
+
+
+# -- the canned scenarios ----------------------------------------------------------
+
+
+def test_canned_module_is_ported():
+    """tools/canned (the canned scenarios in code, chip_smoke's 4v) is a
+    module of the port, held by test_no_jax_import like every other."""
+    assert "autoscaler_tpu_torch/tools/canned.py" in PORT_FILES
+
+
+_CANNED_BLOCKED = r"""
+import json, os, sys, tempfile
+for name in ("jax", "jaxlib", "autoscaler_tpu", "grpc", "google.protobuf", "yaml"):
+    sys.modules[name] = None
+from autoscaler_tpu_torch.tools import canned, drill_probe
+hashes = {n: canned.canonical_sha256(canned.doc(n)) for n in canned.NAMES}
+d = tempfile.mkdtemp()
+paths = canned.write_all(d)
+plain = canned.run(canned.doc("skip_reasons"), "cpu")
+fleet = canned.run(canned.doc("fleet_rolling_restart"), "cpu")
+views = [drill_probe.comparable(plain["result"]), drill_probe.comparable(fleet["result"])]
+seconds, again = canned.cpu_view("skip_reasons")
+loaded = [m for m, mod in sys.modules.items() if mod is not None and (
+    m == "autoscaler_tpu" or m.startswith(("autoscaler_tpu.", "jax", "grpc", "yaml")))]
+assert not loaded, loaded
+print("OK", len(hashes), len(os.listdir(d)), len(plain["ticks"]), len(views[1]["log"]),
+      again == views[0], seconds > 0)
+"""
+
+
+def test_canned_runs_without_jax_grpc_protobuf_or_yaml():
+    """As on the card's machine: with jax, the JAX package, grpc, protobuf
+    and yaml blocked, the canned documents build, write and run on the CPU
+    (a scenario tick by tick, a fleet scenario, 4v's CPU view)."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", _CANNED_BLOCKED], cwd=str(REPO), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "OK 15 15 20 24 True True", proc.stdout

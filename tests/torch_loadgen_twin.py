@@ -15,6 +15,7 @@ What the comparison leaves out, and why:
   compile to ask; ``perf/costmodel.py``).
 """
 import json
+import os
 
 import autoscaler_tpu.loadgen.driver as jdriver
 import autoscaler_tpu.loadgen.fleetdrive as jfleetdrive
@@ -181,3 +182,101 @@ def fleet_views(jres, tres) -> dict:
         "unresolved": (jres.unresolved, tres.unresolved),
         "admission": (jres.admission, tres.admission),
     }
+
+
+# -- the canned scenarios (autoscaler_tpu_torch/tools/canned) -------------------------
+
+PLAIN_ARTIFACTS = ("decision_log", "report", "explain", "slo", "journal", "perf", "trace",
+                   "injected", "latency")
+FLEET_ARTIFACTS = ("decision_ledger", "report", "slo", "perf", "injected", "all_match",
+                   "unresolved", "admission")
+
+
+class CannedTwins:
+    """Each canned scenario (``canned.scenario_docs``: the fourteen, and the
+    gym suite's five as plain scenarios) through both packages' drivers
+    once, at its first use → (jax result, port result), and their views
+    (``views``, ``fleet_views``)."""
+
+    def __init__(self):
+        from autoscaler_tpu_torch.tools import canned
+
+        self.docs = dict(canned.scenario_docs())
+        self.runs, self._views = {}, {}
+
+    def is_fleet(self, name: str) -> bool:
+        return "fleet" in self.docs[name]
+
+    def __getitem__(self, name: str):
+        if name not in self.runs:
+            run = run_fleet_both if self.is_fleet(name) else run_both
+            self.runs[name] = run(self.docs[name])
+        return self.runs[name]
+
+    def views(self, name: str) -> dict:
+        if name not in self._views:
+            jres, tres = self[name]
+            self._views[name] = (fleet_views if self.is_fleet(name) else views)(jres, tres)
+        return self._views[name]
+
+    def port_again(self, name: str, **options):
+        """Another run of ``name`` on the port alone, its options updated
+        with ``options``."""
+        doc = json.loads(json.dumps(self.docs[name]))
+        doc.setdefault("options", {}).update(options)
+        spec = tspec.ScenarioSpec.from_dict(doc)
+        if self.is_fleet(name):
+            return tfleetdrive.run_fleet_scenario(spec, device="cpu")
+        return tdriver.run_scenario(spec, device="cpu")
+
+
+def artifact_cases(names) -> list:
+    """(scenario, artifact) for each of ``names`` and each artifact its
+    twin views compare."""
+    from autoscaler_tpu_torch.tools import canned
+
+    return [(n, a) for n in names
+            for a in (FLEET_ARTIFACTS if n in canned.FLEET else PLAIN_ARTIFACTS)]
+
+
+def one_torch_thread():
+    """A module fixture's body: torch on one intra-op thread while the
+    module runs, then as it was. The canned runs are small and the test
+    workers share the host's cores; each worker's torch spinning a thread
+    a core slows them tens of times. Results do not depend on it."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def write_canned(directory) -> None:
+    """The canned documents where the JAX package's tests read them:
+    ``<directory>/benchmarks/scenarios/<name>.json``."""
+    from autoscaler_tpu_torch.tools import canned
+
+    canned.write_all(os.path.join(str(directory), "benchmarks", "scenarios"))
+
+
+def port_on_cpu(monkeypatch) -> None:
+    """Point every loaded port module's ``resolve_device`` at the CPU (the
+    port's entry points default to the first card, which a CPU host does
+    not have)."""
+    import sys
+
+    import torch
+
+    from autoscaler_tpu_torch import device
+
+    def cpu(dev=None):
+        return torch.device("cpu") if dev is None else torch.device(dev)
+
+    real = device.resolve_device
+    for name, mod in list(sys.modules.items()):
+        if (name == "autoscaler_tpu_torch" or name.startswith("autoscaler_tpu_torch.")) and \
+                getattr(mod, "resolve_device", None) is real:
+            monkeypatch.setattr(mod, "resolve_device", cpu)

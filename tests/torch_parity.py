@@ -573,19 +573,29 @@ def _port_code(code):
     return code.replace(co_consts=consts, co_names=names)
 
 
+class _Unported:
+    def __init__(self, name):
+        self.name = name
+
+    def __call__(self, *args, **kwargs):
+        raise NotImplementedError(f"the port has no namesake of {self.name}")
+
+
 class Rebound:
     """A JAX package test module whose functions run on the port: every
     global that names a JAX package module, class or function is the
     port's namesake, the module's own functions and classes are rebuilt on
     those globals, and each function's code has its label constants and
     local imports ported (``_port_code``). ``case(name)`` → a callable of the test
-    ``name`` ("test_x" or "TestClass.test_x") taking the test's fixtures."""
+    ``name`` ("test_x" or "TestClass.test_x") taking the test's fixtures.
+    A global named in ``unported`` (a JAX package function the port has no
+    namesake of) becomes a stand-in that raises when a case calls it."""
 
-    def __init__(self, module):
+    def __init__(self, module, unported=()):
         self.module = module
         self.globals = dict(module.__dict__)
         for key, value in list(self.globals.items()):
-            self.globals[key] = self._port(value)
+            self.globals[key] = _Unported(key) if key in unported else self._port(value)
 
     def _port(self, value):
         import enum
@@ -644,3 +654,20 @@ class Rebound:
             cls = self.globals[cls_name]
             return lambda **fixtures: getattr(cls(), meth)(**fixtures)
         return self.globals[name]
+
+    def run(self, name, request):
+        """Run the case ``name`` with its fixtures from pytest's
+        ``request``."""
+        import inspect
+
+        target = getattr(self.module, name.split(".")[0])
+        if "." in name:
+            target = getattr(target, name.split(".")[1])
+        params = [p for p in inspect.signature(target).parameters if p != "self"]
+        self.case(name)(**{p: request.getfixturevalue(p) for p in params})
+
+    def class_cases(self, *classes, leave_out=()) -> list:
+        """"Class.test_x" for each test method of ``classes`` whose name
+        holds none of ``leave_out``."""
+        return [f"{c}.{m}" for c in classes for m in vars(getattr(self.module, c))
+                if m.startswith("test_") and not any(s in m for s in leave_out)]
