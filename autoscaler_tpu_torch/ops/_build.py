@@ -90,7 +90,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "fit_reduce_geometry": [_INT] * 6 + [_VOID_P],
     },
     "histogram": {
-        "ordered_scatter_add": [_VOID_P] * 4 + [_INT] * 2 + [_VOID_P],
+        "ordered_scatter_add_scratch": [_INT, _INT, _VOID_P],
+        "ordered_scatter_add": [_VOID_P, _VOID_P, _INT, _VOID_P, _VOID_P] + [_INT] * 2 + [_VOID_P],
     },
 }
 

@@ -2,22 +2,32 @@
 CUDA kernel (K5, ``csrc/histogram.cu``).
 
 ``ordered_scatter_add(target, index, values)`` adds ``values[k]`` into
-``target[index[k]]`` in place, the duplicates of a cell in the order of k:
-``((t + v_a) + v_b) + ...``. That is the order XLA:CPU's scatter-add
-(``.at[flat].add`` in ``autoscaler_tpu/vpa/histogram.py:111-119``) adds
-them in, so the port's bank keeps the JAX package's bits. Indices outside
-[0, N) are dropped, as XLA's scatter drops them.
+``target[index[k]]`` in place, the duplicates of a cell in the order of k,
+with f32 subnormals flushed as XLA:CPU flushes them (DAZ and FTZ):
+``ftz(ftz(ftz(t) + v_a) + v_b) + ...``, every operand read with subnormals
+as zeros of their sign and every partial sum flushed. That is what XLA:CPU's
+scatter-add (``.at[flat].add`` in ``autoscaler_tpu/vpa/histogram.py:111-119``)
+computes, a serial loop over the updates, so the port's bank keeps the JAX
+package's bits: ``tests/test_torch_vpa_histogram.py`` holds it against
+``jnp.zeros(N).at[idx].add(vals)`` on runs whose partial sums cross below
+2^-126 and come back. Indices outside [0, N) are dropped and touch nothing
+(``.at[]`` itself wraps negative indices before XLA sees them; the bank
+makes none). Cells no pair names keep their bits.
 
-For CUDA tensors the wrapper sorts the indices stably on the card, launches
-K5 (one thread a segment of equal indices adds its values in order) and
-counts the launch in ``LAUNCHES``; it never calls ``index_add_`` there,
-whose atomics add duplicates in no fixed order. For CPU tensors it runs the
-plain version, ``_ordered_scatter_add_plain``: ``index_add_`` on the CPU,
-which adds in index order (a test holds it against a Python loop). There is
-no fallback from one to the other.
+For CUDA tensors the wrapper allocates the grouping's scratch with
+``torch.empty``, launches K5 on the current stream (a counting grouping of
+the pairs by cell, then a warp or a block a cell: its runs put back in pair
+order, one thread's chain; no sort of the K pairs, no float atomics) without
+synchronising, and counts the call in ``LAUNCHES``. For CPU tensors it runs the plain version,
+``_ordered_scatter_add_plain``: a stable sort of the pairs, then the chains
+one rank at a time, every cell's r-th add at once, each add flushed. There
+is no fallback from one to the other.
 """
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from autoscaler_tpu_torch.ops import _build
@@ -28,8 +38,9 @@ from autoscaler_tpu_torch.trace.device import device_annotation
 LAUNCHES = {"ordered_scatter_add": 0}
 
 # K5's shape contract, read by AST and never imported (GL007,
-# autoscaler_tpu_torch/analysis/contracts.py). K5 launches with no dynamic
-# shared memory, and its grid is computed in csrc/histogram.cu.
+# autoscaler_tpu_torch/analysis/contracts.py). K5's grids and its shared
+# memory (32 KB a warp-chain block, 64 KB a block-chain block) are fixed in
+# csrc/histogram.cu.
 KERNEL_CONTRACTS = {
     "ordered_scatter_add": {
         "args": {
@@ -41,6 +52,9 @@ KERNEL_CONTRACTS = {
         "notes": "index i32 or i64; target contiguous; N and K under 2**31",
     },
 }
+
+# the smallest normal f32: XLA:CPU reads and writes anything smaller as zero
+F32_TINY = np.float32(np.finfo(np.float32).tiny)
 
 
 def _check_operands(target, index, values):
@@ -60,32 +74,53 @@ def _check_operands(target, index, values):
         raise ValueError("ordered_scatter_add takes fewer than 2**31 cells and pairs")
 
 
+def _flush(x: np.ndarray) -> np.ndarray:
+    """f32 subnormals → zeros of their sign; every other value as it is."""
+    return np.where(np.abs(x) < F32_TINY, x * np.float32(0.0), x)
+
+
 def _ordered_scatter_add_plain(target, index, values):
-    """Plain version of K5 on CPU tensors: ``index_add_``, which adds the
-    pairs in index order, after dropping the indices outside [0, N)."""
-    index = index.long()
-    keep = (index >= 0) & (index < target.numel())
-    if not bool(keep.all()):
-        index, values = index[keep], values[keep]
-    return target.index_add_(0, index, values)
+    """Plain version of K5 on CPU tensors. The pairs are sorted stably by
+    cell; the cells are taken longest run first, so the runs still going at
+    rank r are a prefix, and rank by rank every such cell adds its r-th
+    value, flushed as XLA:CPU flushes."""
+    out = target.numpy()
+    idx = index.numpy().astype(np.int64)
+    vals = _flush(values.numpy())
+    keep = (idx >= 0) & (idx < out.size)
+    idx, vals = idx[keep], vals[keep]
+    if idx.size == 0:
+        return target
+    order = np.argsort(idx, kind="stable")
+    idx, vals = idx[order], vals[order]
+    starts = np.flatnonzero(np.r_[True, idx[1:] != idx[:-1]])
+    runs = np.diff(np.r_[starts, idx.size])
+    longest = np.argsort(-runs, kind="stable")
+    starts, runs = starts[longest], runs[longest]
+    cells = idx[starts]
+    # going[r]: how many runs are longer than r
+    going = np.searchsorted(-runs, -np.arange(runs[0]), side="left")
+    acc = _flush(out[cells])
+    for r, n in enumerate(going.tolist()):
+        acc[:n] = _flush(acc[:n] + vals[starts[:n] + r])
+    out[cells] = acc
+    return target
 
 
-def sort_pairs(index):
-    """K5's glue: (keys [K] i32 sorted stably, order [K] i64: sorted slot →
-    pair)."""
-    return torch.sort(index.to(torch.int32), stable=True)
-
-
-def launch_sorted(target, keys, order, values):
-    """K5 on operands already sorted by ``sort_pairs``: one launch, counted."""
+def _launch(target, index, values):
+    """K5 on contiguous CUDA operands already checked: its scratch (uninitialised
+    bytes on their card), one call on the current stream, counted."""
     lib = _build.load("histogram")
     dev = target.device
+    nbytes = ctypes.c_longlong(0)
+    lib.ordered_scatter_add_scratch(index.numel(), target.numel(), ctypes.byref(nbytes))
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
     # the range names the kernel on a captured profile (trace/device.py)
     with torch.cuda.device(dev), device_annotation("ordered_scatter_add"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ordered_scatter_add(
-            target.data_ptr(), keys.data_ptr(), order.data_ptr(), values.data_ptr(),
-            keys.numel(), target.numel(), stream,
+            target.data_ptr(), index.data_ptr(), index.element_size(), values.data_ptr(),
+            scratch.data_ptr(), index.numel(), target.numel(), stream,
         )
     _build.check(err, "ordered_scatter_add")
     LAUNCHES["ordered_scatter_add"] += 1
@@ -95,8 +130,8 @@ def launch_sorted(target, keys, order, values):
 def ordered_scatter_add(target: torch.Tensor, index: torch.Tensor,
                         values: torch.Tensor) -> torch.Tensor:
     """K5: ``target[index[k]] += values[k]`` in place, duplicates in the
-    order of k; → ``target``. CUDA tensors launch the kernel; CPU tensors
-    run the plain version."""
+    order of k, subnormals flushed as XLA:CPU flushes them; → ``target``.
+    CUDA tensors launch the kernel; CPU tensors run the plain version."""
     _check_operands(target, index, values)
     dev = target.device
     if dev.type == "cpu":
@@ -105,5 +140,5 @@ def ordered_scatter_add(target: torch.Tensor, index: torch.Tensor,
         raise ValueError(f"ordered_scatter_add runs on CUDA or CPU tensors, got {dev}")
     if index.numel() == 0:
         return target
-    keys, order = sort_pairs(index)
-    return launch_sorted(target, keys, order, values.contiguous())
+    index, values = index.contiguous(), values.contiguous()
+    return _launch(target, index, values)

@@ -16,14 +16,15 @@ in the JAX package's order:
 
 - sample ingestion is one ordered scatter-add a matrix (K5,
   ``ops/histogram.ordered_scatter_add``): the duplicates of a cell are
-  added in sample order, as XLA's scatter adds them;
+  added in sample order, as XLA's scatter adds them, each touched cell
+  read and written flushed and each partial sum flushed, as XLA:CPU
+  flushes them (a partial that falls below 2^-126 inside a run becomes a
+  zero of its sign, and the run goes on from there);
 - a percentile's cumulative sum is XLA:CPU's blocked scan (``xla_cumsum``),
   spelled out as slice adds; ``torch.cumsum`` sums in another order;
 - XLA:CPU flushes f32 subnormals to zero, in its inputs and its results
   (DAZ and FTZ), so every f32 value this arithmetic reads or makes is
-  flushed the same way (``flush_subnormals``). The one place the port
-  cannot follow: within one cell's run of duplicates a partial sum that
-  falls below 2^-126 is kept by K5, where XLA would flush it.
+  flushed the same way (``flush_subnormals``; inside K5, its flushed add).
 
 Bucket arithmetic, decay factors and checkpoint (re)normalisation stay in
 numpy on the host, in f64 where the JAX package has them in f64.
@@ -191,21 +192,15 @@ class HistogramBank:
             self.ref_ts = max_ts
         w = np.asarray(weights, np.float64) * self._decay_factor(timestamps)
         flat = np.asarray(series_idx, np.int64) * self.spec.num_buckets + buckets
-        w32 = torch.from_numpy(_flush_np(w.astype(np.float32))).to(self.device)
+        # K5 reads the weights and the touched cells flushed and writes
+        # them flushed, as XLA's scatter does
+        w32 = torch.from_numpy(w.astype(np.float32)).to(self.device)
         for target, index in (
             (self.weights.view(-1), flat),
             (self.total, np.asarray(series_idx, np.int64)),
         ):
             index = torch.from_numpy(index.astype(np.int32)).to(self.device)
-            self._flush_cells(target, index)
             ordered_scatter_add(target, index, w32)
-            self._flush_cells(target, index)
-
-    @staticmethod
-    def _flush_cells(target: torch.Tensor, index: torch.Tensor) -> None:
-        """The scatter's cells, read and written with subnormals flushed."""
-        cells = index.long().clamp(0, target.numel() - 1)
-        target[cells] = flush_subnormals(target[cells])
 
     def percentile(self, p: float) -> torch.Tensor:
         """[C] f32 on the bank's device — weighted percentile per series in

@@ -20,7 +20,11 @@ checkpoint_writer.go's normalized buckets) for out-of-cluster runs;
 The port's copy of ``autoscaler_tpu/vpa/main.py``. Its one extra flag,
 ``--device``, puts the histogram banks on a torch device: by default the
 first CUDA card (the process exits with an error on a host without one),
-``--device=cpu`` on the host.
+``--device=cpu`` on the host. On a card the process loads K5's library
+(``histogram``, built first if it is missing) before the warm start and
+the first pass, logs the seconds and how many compilers ran, and exits
+non-zero when the library is missing and no ``nvcc`` can build it; on the
+CPU it builds and loads nothing.
 
     python -m autoscaler_tpu_torch.vpa.main --kube-api=http://127.0.0.1:8080 --device=cpu
 """
@@ -304,11 +308,34 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
+def preload_kernels(device) -> Optional[str]:
+    """On a card, K5's library loaded before the warm start and the first
+    pass (built first if it is missing); logs the seconds and how many
+    compilers ran. → None, or the error that ends the process. On the CPU
+    nothing is built or loaded."""
+    if device.type != "cuda":
+        return None
+    from autoscaler_tpu_torch.ops import _build
+
+    try:
+        secs, compilers = _build.preload("histogram")
+    except (RuntimeError, OSError) as e:
+        return f"kernel library histogram in {_build.BUILD_DIR} failed to load: {e}"
+    print(f"tpu-autoscaler-vpa: kernel library histogram loaded from {_build.BUILD_DIR} "
+          f"in {secs:.3f} s, {compilers} compilers ran", flush=True)
+    return None
+
+
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     # the card is checked first: without one, nothing starts
     device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO)
+    failed = preload_kernels(device)
+    if failed is not None:
+        # no pass runs without K5: the banks never fall back to the host
+        print(failed, file=sys.stderr)
+        return 1
     components = tuple(c.strip() for c in args.components.split(",") if c.strip())
 
     from autoscaler_tpu_torch.kube.client import KubeClusterAPI, KubeRestClient

@@ -302,9 +302,14 @@ Phases (any failure raises and exits non-zero):
    CPU (in a worker begun at 3w), the tuning ledgers equal (4s); (z)'s run
    again on the CPU (in a worker begun at 3w), every recommendation,
    status write, checkpoint and eviction equal, K5 against its plain
-   version (``index_add_`` on the CPU) on each of the warm start's four
-   batches bit for bit, K5, its whole call and ``index_add_`` on the card
-   timed on the largest, and the admission webhook over (z)'s
+   version on each of the warm start's four batches bit for bit and on
+   five adversarial worlds (one cell taking 50 000 pairs, shuffled pairs,
+   the memory bank's signed replacements, runs whose partial sums cross
+   below 2^-126, int64 indices with pads past 2^31), K5's whole call, its
+   grouping and its chains (torch.profiler), a feed's four targets,
+   ``index_add_`` and the one-cell world of the largest batch's pairs on
+   the card, timed on the warm start's batches (``tools/k5_bench.measure``)
+   beside a bound with a chain term, and the admission webhook over (z)'s
    recommendations over HTTP, and over HTTPS where ``cryptography``
    imports (the script prints which) (4t); the static checker and its
    determinism sanitizer (``tools/analysis_probe``): graftlint over the
@@ -622,6 +627,48 @@ def cpu_tune():
     return time.perf_counter() - t0, text
 
 
+def k5_worlds():
+    """4t's adversarial worlds for K5, seeded CPU tensors (target, index,
+    values): one cell taking 50 000 pairs (past a block's shared memory),
+    shuffled pairs with zipf duplicates, the memory bank's signed
+    replacements, runs whose partial sums cross below 2^-126, and int64
+    indices whose pads lie past 2^31 and below 0."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(45)
+    tiny = np.finfo(np.float32).tiny
+    worlds = {}
+    for label, N, K in (("one cell", 3, 50_000), ("shuffled", 1000, 200_000),
+                        ("signed", 176 * 300, 200_000), ("subnormal", 64, 4000),
+                        ("int64", 176 * 300, 200_000)):
+        target = rng.standard_normal(N).astype(np.float32)
+        values = (rng.standard_normal(K) * 10.0 ** rng.uniform(-4, 4, K)).astype(np.float32)
+        if label == "one cell":
+            index = np.full(K, 1)
+        elif label == "shuffled":
+            index = np.minimum(rng.zipf(1.2, K) - 1, N - 1)
+        elif label == "signed":
+            index = rng.integers(0, N, K)
+            values = (2.0 ** rng.uniform(-3, 0, K)).astype(np.float32)
+            swap = rng.random(K) < 0.4
+            values[swap] *= -1
+            index[1:][swap[1:]] = index[:-1][swap[1:]]
+        elif label == "subnormal":
+            index = rng.integers(0, N, K)
+            values = (rng.integers(-6, 7, K) * 0.5 * tiny).astype(np.float32)
+            target = (rng.integers(-2, 3, N) * 0.5 * tiny).astype(np.float32)
+        else:
+            index = rng.integers(0, N, K)
+            pads = rng.random(K) < 0.01
+            index[pads] = rng.choice([2**31, 2**31 + N, 2**40, -1, -(2**33)], int(pads.sum()))
+        index[:: max(1, K // 7)][1:] = N   # out of range: dropped
+        dtype = np.int64 if label == "int64" else np.int32
+        worlds[label] = (torch.from_numpy(target), torch.from_numpy(index.astype(dtype)),
+                         torch.from_numpy(values))
+    return worlds
+
+
 def cpu_vpa():
     """3z's warm start and passes on the CPU (``tools/vpa_probe``), in a
     worker → (seconds, ``vpa_probe.comparable``)."""
@@ -690,6 +737,7 @@ def main() -> int:
         canned,
         drill_probe,
         fleet_probe,
+        k5_bench,
         ladder_probe,
         loop_probe,
         preempt_probe,
@@ -2423,13 +2471,15 @@ def main() -> int:
 
     # 4t: the VPA on the card and the CPU. 3z's run again on the CPU (in a
     # worker begun at 3w): every recommendation, status write, checkpoint
-    # and eviction equal. K5 against its plain version (index_add_ on the
-    # CPU) on each of the warm start's four sample batches, bit for bit, and
-    # timed on the largest (the CPU bank's 1.92 M samples) beside
-    # index_add_ on the card (its atomics add a cell's samples in no fixed
-    # order: the library call, used nowhere in the port). Then the
-    # admission webhook on 3z's recommendations over HTTP, and over HTTPS
-    # where the cryptography package imports
+    # and eviction equal. K5 against its plain version on each of the warm
+    # start's four sample batches and on four adversarial worlds, bit for
+    # bit; timed on the warm start's batches (tools/k5_bench): the whole
+    # call, its grouping and its chains on the largest (the CPU bank's
+    # 1.92 M samples), a feed's four targets, and index_add_ on the card
+    # (its atomics add a cell's samples in no fixed order: the library
+    # call, used nowhere in the port). Then the admission webhook on 3z's
+    # recommendations over HTTP, and over HTTPS where the cryptography
+    # package imports
     t0 = time.perf_counter()
     t_cpu, cpu_view = cpu_jobs.pop("vpa 4t").get(CPU_WAIT_S)
     card_view = vpa_probe.comparable(vpa_card)
@@ -2448,21 +2498,21 @@ def main() -> int:
         check(torch.equal(want.view(torch.int32), got.view(torch.int32)),
               f"vpa 4t: K5 differs from its plain version on warm-start batch {k}")
         max_err = max(max_err, float((want.double() - got.double()).abs().max()))
+    worlds = k5_worlds()
+    for label, (target, index, values) in worlds.items():
+        want = ops_histogram._ordered_scatter_add_plain(target.clone(), index, values)
+        got = ops_histogram.ordered_scatter_add(target.to(dev), index.to(dev), values.to(dev))
+        check(torch.equal(want.view(torch.int32), got.cpu().view(torch.int32)),
+              f"vpa 4t: K5 differs from its plain version on the {label} world")
+        max_err = max(max_err, float((want.double() - got.cpu().double()).abs().max()))
+    k5 = k5_bench.measure(vpa_capture, reps=REPS)
+    check(k5["equal"], "vpa 4t: K5's timed feed differs from the warm start's")
     before, index, values, _ = max(vpa_capture, key=lambda c: c[1].numel())
-    K, cells = index.numel(), int(torch.unique(index).numel())
-    keys, order = ops_histogram.sort_pairs(index)
-    scratch = before.clone()
-    k5_ms = event_ms(lambda: ops_histogram.launch_sorted(scratch, keys, order, values))
-    k5_call_ms = event_ms(lambda: ops_histogram.ordered_scatter_add(scratch, index, values))
-    index_long = index.long()
-    library_ms = event_ms(lambda: scratch.index_add_(0, index_long, values))
     plain_args = (before.cpu(), index.cpu(), values.cpu())
     t1 = time.perf_counter()
     ops_histogram._ordered_scatter_add_plain(*plain_args)
     plain_ms = (time.perf_counter() - t1) * 1e3
-    bytes_moved = K * 4 + K * 4 + 2 * 4 * cells   # index, value; each touched cell read, written
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = K / FP32_OPS_PER_S * 1e3             # one add a sample
+    largest = k5["largest"]
     kernels.append({
         "name": "ordered_scatter_add",
         "route": "cuda",
@@ -2472,20 +2522,39 @@ def main() -> int:
         "tpu_kernel": False,
         "launches": launches["ordered_scatter_add"],
         "max_abs_err": max_err,
-        "ms": k5_ms,
+        "ms": k5["call_ms"],
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
-        "call_ms": k5_call_ms,
+        "bound_ms": largest["bound_ms"],
+        # the kernels line takes "bytes" or "operations": a chain is Lmax dependent adds
+        "bound_by": "bytes" if largest["bound_by"] == "bytes" else "operations",
+        "bound_term": largest["bound_by"],
+        "library_ms": k5["index_add_ms"],
+        "call_ms": k5["call_ms"],
+        "group_ms": k5["group_ms"],
+        "chain_ms": k5["chain_ms"],
+        "feed_ms": k5["feed_ms"],
+        "lmax": largest["lmax"],
+        "bound_terms_ms": {t: largest[f"{t}_ms"] for t in ("bytes", "operations", "chain")},
+        "longest": k5["longest"],
+        "one_cell": k5["one_cell"],
     })
-    print(f"# ordered_scatter_add: {k5_ms:.3f} ms kernel, {k5_call_ms:.3f} ms whole call "
-          f"(stable sort + kernel), {library_ms:.3f} ms index_add_ on the card, "
-          f"{plain_ms:.1f} ms plain (index_add_ on the CPU, host clock); parity exact on the "
-          f"warm start's {len(vpa_capture)} batches; bound {max(bytes_ms, ops_ms):.4f} ms "
-          f"({kernels[-1]['bound_by']}): K={K} samples into {cells} cells, {bytes_moved} B "
-          f"moved ({bytes_ms:.4f} ms), {K} adds ({ops_ms:.6f} ms)", flush=True)
-    del scratch, keys, order, index_long, vpa_capture
+    split = {part: (f"{k5[part]:.4f} ms" if isinstance(k5[part], float) else k5[part])
+             for part in ("group_ms", "chain_ms")}
+    print(f"# ordered_scatter_add: {k5['call_ms']:.4f} ms whole call (grouping "
+          f"{split['group_ms']}, chains {split['chain_ms']}, torch.profiler), a feed's four targets "
+          f"{k5['feed_ms']:.4f} ms, {k5['index_add_ms']:.4f} ms index_add_ on the card, "
+          f"{plain_ms:.1f} ms plain (host clock); parity exact on the warm start's "
+          f"{len(vpa_capture)} batches and the worlds {sorted(worlds)}; Lmax {k5['lmax']}; "
+          f"bound {largest['bound_ms']:.4f} ms ({largest['bound_by']}): K={largest['pairs']} "
+          f"samples into {largest['cells']} cells, bytes {largest['bytes_ms']:.4f} ms, adds "
+          f"{largest['operations_ms']:.6f} ms, a chain of {largest['lmax']} adds "
+          f"{largest['chain_ms']:.4f} ms; on the batch with the longest run (Lmax "
+          f"{k5['longest']['lmax']}) {k5['longest']['call_ms']:.4f} ms against its bound "
+          f"{k5['longest']['bound_ms']:.4f} ms ({k5['longest']['bound_by']}); the one-cell "
+          f"world of {k5['one_cell']['pairs']} pairs {k5['one_cell']['call_ms']:.4f} ms against "
+          f"its bound {k5['one_cell']['bound_ms']:.4f} ms ({k5['one_cell']['bound_by']})",
+          flush=True)
+    del vpa_capture, worlds
     try:
         import cryptography  # noqa: F401
 

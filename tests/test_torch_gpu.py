@@ -1357,25 +1357,52 @@ def test_gym_tune_on_the_card_equals_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("N,K,dup", [(50, 200_000, "heavy"), (176 * 300, 192_000, "runs"),
-                                     (1000, 1, "one"), (4096, 4000, "none")])
+                                     (1000, 1, "one"), (4096, 4000, "none"),
+                                     (3, 50_000, "one_cell"), (300, 600_000, "series"),
+                                     (176 * 300, 200_000, "signed"), (64, 4000, "subnormal"),
+                                     (176 * 300, 200_000, "int64_pads")])
 def test_ordered_scatter_add_matches_plain_version(cuda, N, K, dup):
-    """K5 against its plain version (index_add_ on the CPU) bit for bit:
-    cells with thousands of samples, long runs, one sample, no duplicate;
-    indices outside the target dropped."""
+    """K5 against its plain version on the CPU bit for bit: cells with
+    thousands of samples, long runs, one sample, no duplicate, one cell
+    taking every pair (past a block's shared memory), 300 series of 2 000
+    strided samples (a block's sort), the memory bank's signed
+    replacements, runs whose partial sums cross below 2^-126, int64 pads
+    past 2^31 and below 0; indices outside the target dropped."""
     from autoscaler_tpu_torch.ops import histogram as ops_histogram
 
     rng = np.random.default_rng(K)
     target = (rng.standard_normal(N) * 10.0 ** rng.uniform(-3, 3, N)).astype(np.float32)
+    values = (rng.standard_normal(K) * 10.0 ** rng.uniform(-4, 4, K)).astype(np.float32)
+    tiny = np.finfo(np.float32).tiny
     if dup == "none":
         index = rng.permutation(N)[:K]
     elif dup == "runs":
         index = np.repeat(rng.integers(0, N, K // 192), 192)
+    elif dup == "one_cell":
+        index = np.full(K, 1)
+    elif dup == "series":
+        index = np.tile(np.arange(N), K // N)
+    elif dup == "signed":
+        index = rng.integers(0, N, K)
+        values = (2.0 ** rng.uniform(-3, 0, K)).astype(np.float32)
+        swap = rng.random(K) < 0.4
+        values[swap] *= -1
+        index[1:][swap[1:]] = index[:-1][swap[1:]]
+    elif dup == "subnormal":
+        index = rng.integers(0, N, K)
+        values = (rng.integers(-6, 7, K) * 0.5 * tiny).astype(np.float32)
+        values[rng.random(K) < 0.05] *= 8
+        target = (rng.integers(-2, 3, N) * 0.5 * tiny).astype(np.float32)
+    elif dup == "int64_pads":
+        index = rng.integers(0, N, K)
+        pads = rng.random(K) < 0.01
+        index[pads] = rng.choice([2**31, 2**31 + N, 2**40, -1, -(2**33)], int(pads.sum()))
     else:
         index = rng.integers(0, N, K)
     index[:: max(1, K // 7)][1:] = N   # out of range: dropped
-    values = (rng.standard_normal(K) * 10.0 ** rng.uniform(-4, 4, K)).astype(np.float32)
+    cpu_dtype = np.int64 if dup == "int64_pads" else np.int32
     want = ops_histogram.ordered_scatter_add(
-        torch.from_numpy(target.copy()), torch.from_numpy(index.astype(np.int32)),
+        torch.from_numpy(target.copy()), torch.from_numpy(index.astype(cpu_dtype)),
         torch.from_numpy(values))
     before = ops_histogram.LAUNCHES["ordered_scatter_add"]
     got = ops_histogram.ordered_scatter_add(

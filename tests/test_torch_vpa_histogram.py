@@ -13,9 +13,13 @@ seeded numpy inputs into both packages.
   then later batches (one more than ten half-lives on);
 - ``grow_to``, ``checkpoint`` and ``restore`` onto banks with older and
   newer decay references;
-- the plain ordered add against a Python loop;
-- no ``torch.cumsum`` and no ``index_add_`` on a card's tensor on the VPA
-  path, and K5's launch path without a CUDA compiler raises.
+- the plain ordered add against a Python loop, and against XLA's scatter
+  (``jnp.zeros(N).at[idx].add(vals)``) on shuffled and sorted pairs, one
+  cell taking every pair, the warm start's shape at a small size, pads out
+  of range, the memory bank's signed replacements and runs whose partial
+  sums cross below 2^-126 and come back (XLA:CPU flushes each partial);
+- no ``torch.cumsum`` and no ``index_add_`` on the VPA path or in K5's
+  module, and K5's launch path without a CUDA compiler raises.
 """
 import ast
 import shutil
@@ -200,6 +204,21 @@ def test_add_samples_flushes_what_xla_flushes():
     assert_bits_equal(np.asarray(jbank.percentile(0.5)), tbank.percentile(0.5))
 
 
+def test_add_samples_flushes_partial_sums_as_xla_does():
+    """Weights whose running sum in a cell (and in its series' total) falls
+    below 2^-126 and comes back: XLA's scatter flushes each partial sum."""
+    jbank, tbank = twin_banks(3)
+    tiny = float(np.finfo(np.float32).tiny)
+    weights = np.array([3.0, -2.5, 1.0, 0.5, -0.75, 2.0, -1.5]) * tiny
+    K = len(weights)
+    series = np.array([1, 1, 1, 2, 2, 1, 2])
+    values = np.full(K, 0.3)
+    for bank in (jbank, tbank):
+        bank.add_samples(series, values, weights, np.full(K, T0))
+    assert_banks_equal(jbank, tbank)
+    assert np.asarray(jbank.total)[1] == np.float32(3.0 * tiny)   # 3 -> 0.5 (flushed) -> 1 -> 3
+
+
 def test_grow_checkpoint_and_restore_match():
     rng = np.random.default_rng(9)
     jbank, tbank = twin_banks(4)
@@ -266,6 +285,96 @@ def test_plain_ordered_add_is_the_serial_loop():
     assert not torch.equal(other, got)
 
 
+TINY = np.float32(np.finfo(np.float32).tiny)
+
+
+def scatter_world(kind, rng):
+    """(target, index, values) of one seeded world for the ordered add."""
+    if kind in ("shuffled", "sorted", "out_of_range"):
+        N, K = 1000, 60_000
+        index = np.minimum(rng.zipf(1.2, K) - 1, N - 1)
+        if kind == "sorted":
+            index = np.sort(index)
+        if kind == "out_of_range":
+            pads = rng.random(K) < 0.1
+            index[pads] = N + rng.integers(0, 40, int(pads.sum()))
+            index[-3:] = [N, N + 1, 2**31 - 1]
+        values = mixed(rng, 1, K, negative=0.4)[0]
+    elif kind == "one_cell":
+        N, K = 4, 30_000
+        index = np.full(K, 2)
+        values = mixed(rng, 1, K, negative=0.4)[0]
+    elif kind in ("warm_start", "warm_start_total"):
+        # 40 series, 192 hourly samples each, hour-major: every series'
+        # samples strided through the batch, as replay_history's pods are
+        C, hours = 40, 192
+        series = np.tile(np.arange(C), hours)
+        cores = np.repeat(rng.uniform(0.05, 3.0, C)[None, :], hours, 0).ravel()
+        cores = cores * rng.lognormal(0.0, 0.2, C * hours)
+        ts = np.repeat(T0 - 3600.0 * np.arange(hours, 0, -1), C)
+        values = (np.maximum(cores, 0.025) * 2.0 ** ((ts - T0) / DAY)).astype(np.float32)
+        if kind == "warm_start":
+            N, index = C * 176, series * 176 + th.CPU_SPEC.bucket_of(cores)
+        else:
+            N, index = C, series
+    elif kind == "signed":
+        # memory peaks replaced within their window: each new peak subtracts
+        # the old one (weight -1) in the cell it sat in and adds its own
+        N, K = 64 * 176, 40_000
+        index = rng.integers(0, N, K)
+        values = np.ones(K, np.float32) * 2.0 ** rng.uniform(-3, 0, K).astype(np.float32)
+        swap = rng.random(K) < 0.4
+        values[swap] *= -1
+        index[1:][swap[1:]] = index[:-1][swap[1:]]
+    elif kind == "subnormal":
+        # signed runs of multiples of 2^-127 whose partial sums cross below
+        # 2^-126 and come back; cell 0 opens with 3, -2.5, +1 (x 2^-126)
+        N, K = 64, 4000
+        index = rng.integers(0, N, K)
+        values = (rng.integers(-6, 7, K) * 0.5 * TINY).astype(np.float32)
+        normal = rng.random(K) < 0.05
+        values[normal] = rng.choice([-4.0, 4.0], int(normal.sum())) * TINY
+        index[:3] = 0
+        values[:3] = np.array([3.0, -2.5, 1.0], np.float32) * TINY
+        index[3:][index[3:] == 0] = 1
+    else:
+        raise ValueError(kind)
+    target = mixed(rng, 1, N, negative=0.3)[0] if kind != "subnormal" else \
+        (rng.integers(-2, 3, N) * 0.5 * TINY).astype(np.float32)
+    if kind in ("warm_start", "warm_start_total"):
+        target[:] = 0.0
+    target[rng.integers(0, N, 5)] = np.float32(3e-39)   # subnormal cells: DAZ where touched
+    if kind == "subnormal":
+        target[0] = 0.0
+    dtype = np.int32 if kind in ("sorted", "one_cell", "warm_start", "subnormal") else np.int64
+    return target, index.astype(dtype), np.asarray(values, np.float32)
+
+
+WORLDS = ["shuffled", "sorted", "one_cell", "warm_start", "warm_start_total", "out_of_range",
+          "signed", "subnormal"]
+
+
+@pytest.mark.parametrize("kind", WORLDS)
+def test_plain_ordered_add_matches_xla_scatter(kind):
+    """K5's plain version against ``.at[idx].add`` on the same seeded
+    inputs, bit for bit: XLA:CPU adds a cell's updates in order, reads every
+    operand and writes every partial sum with subnormals flushed, drops
+    indices past the target and leaves untouched cells as they were."""
+    rng = np.random.default_rng(WORLDS.index(kind) + 20)
+    target, index, values = scatter_world(kind, rng)
+    want = np.asarray(jnp.asarray(target).at[jnp.asarray(index)].add(jnp.asarray(values)))
+    got = ops_histogram.ordered_scatter_add(
+        torch.from_numpy(target.copy()), torch.from_numpy(index), torch.from_numpy(values))
+    assert_bits_equal(want, got)
+    if kind == "subnormal":
+        # the world flushes: an unflushed serial add (index_add_ on the CPU)
+        # gives other bits, cell 0 first
+        unflushed = torch.from_numpy(target.copy()).index_add_(
+            0, torch.from_numpy(index).long(), torch.from_numpy(values))
+        assert want[0] == TINY and unflushed[0].item() == 1.5 * TINY
+        assert not np.array_equal(want.view(np.int32), unflushed.numpy().view(np.int32))
+
+
 def test_plain_ordered_add_drops_indices_out_of_range():
     target = torch.zeros(4)
     out = ops_histogram.ordered_scatter_add(
@@ -311,15 +420,25 @@ def _calls(path: Path):
 
 
 def test_no_cumsum_or_unordered_add_on_the_vpa_path():
-    """The VPA's modules call neither ``cumsum`` nor ``index_add_``; in
-    ops/histogram.py ``index_add_`` is called by the plain version alone,
-    which the wrapper runs only for CPU tensors."""
+    """The VPA's modules and K5's module call neither ``cumsum`` nor
+    ``index_add_``: the plain version adds rank by rank (``index_add_``
+    would not flush its partial sums)."""
     for path in sorted((REPO / "autoscaler_tpu_torch" / "vpa").glob("*.py")):
         assert not list(_calls(path)), path
-    ops = REPO / "autoscaler_tpu_torch" / "ops" / "histogram.py"
-    found = list(_calls(ops))
-    assert [name for name, _, _ in found] == ["index_add_"]
-    (_, line, tree), = found
-    plain = next(f for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
-                 and f.name == "_ordered_scatter_add_plain")
-    assert plain.lineno <= line <= plain.end_lineno
+    assert not list(_calls(REPO / "autoscaler_tpu_torch" / "ops" / "histogram.py"))
+
+
+def test_k5_bench_bound_and_longest_run():
+    """tools/k5_bench's bound: the largest of the bytes (index and value
+    read once, each touched cell read and written once), one add a pair,
+    and the longest run's dependent adds at the SM clock."""
+    from autoscaler_tpu_torch.tools import k5_bench
+
+    index = torch.tensor([3, 3, 7, 3, 9, 12, -1], dtype=torch.int32)
+    assert k5_bench.lmax(index, 10) == 3
+    assert k5_bench.lmax(torch.tensor([12, -1]), 10) == 0
+    b = k5_bench.bound(1_920_000, 24_813, 6_528, 1.98e9)
+    assert b["bound_by"] == "chain" and b["bound_ms"] == b["chain_ms"]
+    assert b["chain_ms"] == pytest.approx(6_528 * 4 / 1.98e9 * 1e3)
+    assert b["bytes_ms"] == pytest.approx((8 * 1_920_000 + 8 * 24_813) / 3.35e12 * 1e3)
+    assert k5_bench.bound(1_920_000, 24_813, 369, 1.98e9)["bound_by"] == "bytes"
