@@ -1,0 +1,10 @@
+"""k1.ms, layer kernel K1 (`ffd_scan_f32`, `csrc/ffd_scan.cu`): the kernel's device
+time a request in ms, the mean over the traced window's requests that
+launched it; nothing where none did."""
+from portbench.trace import kernel_ms
+
+KERNEL = ("ffd_scan_kernel", "F32Fit")  # fragments of the kernel's name on the device
+
+
+def read(ctx):
+    return kernel_ms(ctx["trace"], *KERNEL)

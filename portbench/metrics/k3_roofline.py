@@ -1,0 +1,10 @@
+"""k3_roofline, layer kernel K3 (`ffd_scan_aff`, `csrc/ffd_scan_affinity.cu`): the kernel's
+share of its roofline in %, its least time on the requests whose worlds
+the reference counted over its device time on them (`portbench.roofline`)."""
+from portbench.roofline import kernel_share
+
+KERNEL = ("ffd_scan_aff_kernel",)  # fragments of the kernel's name on the device
+
+
+def read(ctx):
+    return kernel_share(ctx, *KERNEL)
